@@ -1,0 +1,24 @@
+"""mfcc_tpu_torch -- the MFCC front-end on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of ``mfcc_tpu`` (JAX/Pallas on a TPU), which stays the reference.
+The same ``MFCCConfig``, the same layouts and the same numeric contract:
+float cepstra within 5e-4 of the float64 oracle ``ref.float_ref``.
+
+Ported so far: the float batch path ``MFCC()(audio)`` and ``MFCC.frames``.
+Its fused kernel (K1, ``ops/fladder.py``) is CUDA C++ for sm_90a in
+``csrc/fladder.cu``.
+
+Kernel build route: at first use, ``kernels/build.py`` runs ``nvcc
+-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler
+-fPIC`` on ``csrc/*.cu`` into ``mfcc_tpu_torch/_build/`` (rebuilt when a
+source's hash changes) and binds the plain C entry points with ``ctypes``.
+Importing the package builds nothing and never imports JAX.
+"""
+
+from .config import MFCCConfig, DEFAULT_CONFIG, MIC_CONFIG
+from .pipeline import MFCC
+
+__version__ = "0.1.0"
+
+__all__ = ["MFCC", "MFCCConfig", "DEFAULT_CONFIG", "MIC_CONFIG",
+           "__version__"]

@@ -1,0 +1,65 @@
+"""Pre-emphasis and overlapped framing on torch tensors.
+
+The float part of ``mfcc_tpu.ops.framing``: pre-emphasis is a shifted
+subtract over the last axis and framing is a strided view
+(``Tensor.unfold``), so no gather index is materialized.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+EMPHASIS_COEFF = 0.96875  # 1 - 1/32
+
+
+def preemphasis(x: torch.Tensor, carry: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Float pre-emphasis y[t] = x[t] - 0.96875*x[t-1] over the last axis.
+
+    ``carry`` is the previous sample from an earlier chunk (streaming); with
+    carry=None the first output equals x[0] (the RTL's previous-sample
+    register resets to 0: y[0] = x[0] + 0 - 0)."""
+    if carry is None:
+        first = x.new_zeros(x.shape[:-1] + (1,))
+    else:
+        first = carry.to(x.dtype)[..., None]
+    prev = torch.cat([first, x[..., :-1]], dim=-1)
+    return x - EMPHASIS_COEFF * prev
+
+
+def num_frames(n_samples: int, hop: int, windowlen: int) -> int:
+    """Frames in a signal of ``n_samples``; raises for a signal shorter than
+    one frame (the same message as the JAX package)."""
+    n = (n_samples - windowlen) // hop + 1
+    if n <= 0:
+        raise ValueError(
+            f"signal of {n_samples} samples is shorter than one frame "
+            f"({windowlen})")
+    return n
+
+
+def frame_indices(n_samples: int, nfft: int, hop: int,
+                  windowlen: int | None = None) -> torch.Tensor:
+    """(nframes, windowlen) int64 index matrix of the overlapped frames.
+    ``windowlen`` is the number of REAL samples per frame (a frame completes
+    after windowlen samples, mfcc/core/frame.py:86-91); defaults to nfft."""
+    wl = windowlen or nfft
+    n = num_frames(n_samples, hop, wl)
+    starts = torch.arange(n, dtype=torch.int64) * hop
+    return starts[:, None] + torch.arange(wl, dtype=torch.int64)[None, :]
+
+
+def extract_frames(x: torch.Tensor, nfft: int, hop: int,
+                   windowlen: int | None = None) -> torch.Tensor:
+    """Overlapped frames: (..., T) -> (..., F, nfft).
+
+    A strided view of ``x`` when windowlen == nfft; with windowlen < nfft,
+    positions >= windowlen are zero-padded (the Frame stage's padding mode,
+    frame.py:77,120) and the result is a new tensor."""
+    wl = windowlen or nfft
+    num_frames(x.shape[-1], hop, wl)
+    fr = x.unfold(-1, wl, hop)
+    if wl < nfft:
+        fr = F.pad(fr, (0, nfft - wl))
+    return fr

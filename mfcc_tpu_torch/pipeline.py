@@ -1,0 +1,182 @@
+"""Public batch API: the MFCC feature extractor as an ``nn.Module``.
+
+The counterpart of ``mfcc_tpu.pipeline.MFCC`` (float path).  Routing
+mirrors the JAX package route for route:
+
+  * ``method="dft"``, float32, ``precision="highest"`` and a config in K1's
+    family (``ops.fladder.fladder_config_ok``) -> K1, the fused kernel
+    (launched for CUDA tensors; its plain torch version for CPU tensors);
+  * a case the JAX package sends to its split-DFT / recompute kernels
+    (``precision="fast"``, odd hop) -> not ported for CUDA tensors
+    (``NotImplementedError``); the ``float_ops`` chain for CPU tensors;
+  * everything else -> the ``float_ops`` chain, as in JAX.
+
+Layouts are the JAX package's: (..., T) in, (..., F, nceptrums) out.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import tables
+from .config import MFCCConfig
+from .ops import fladder, float_ops
+
+_INT_NOT_PORTED = "INT slice: next PR"
+_STATE = ("window", "mel", "dct")    # the module's state_dict
+
+
+def _rederive(module: "MFCC", incompatible_keys) -> None:
+    """load_state_dict post-hook: rebuild the derived operators."""
+    module._derive()
+
+
+class MFCC(nn.Module):
+    """Batched MFCC front-end.
+
+    >>> fe = MFCC().to("cuda")            # defaults = wav2mfcc target config
+    >>> cep = fe(audio_batch)             # float path, (S, T) -> (S, F, 32)
+    """
+
+    def __init__(self, cfg: MFCCConfig = MFCCConfig(), *,
+                 method: str = "dft", precision: str = "highest",
+                 dtype: torch.dtype = torch.float32, mel_floor: float = 0.0,
+                 device=None):
+        """``precision`` is ``"highest"`` (the 5e-4 float contract, full
+        f32) or ``"fast"``, which the JAX package serves with its 3-pass
+        split-DFT kernel where that applies and with the "highest" chain
+        elsewhere; other precisions are not ported yet."""
+        super().__init__()
+        if precision not in ("highest", "fast"):
+            raise NotImplementedError(
+                f"precision={precision!r} is not ported to the torch package "
+                "yet (a later slice of the port: split/f64ish)")
+        self.cfg = cfg
+        self.method = method
+        self.precision = precision
+        self.dtype = dtype
+        self.mel_floor = mel_floor
+
+        fast = precision == "fast"
+        # the JAX package's split-DFT family: pallas_mfcc.pallas_float_config_ok
+        fused_ok = (method == "dft" and dtype == torch.float32
+                    and mel_floor == 0.0 and cfg.windowlen == cfg.nfft
+                    and cfg.nfft in (256, 512, 1024)
+                    and fladder.nyquist_mel_row_zero(cfg))
+        self._not_ported = None     # TPU kernel this case would need on CUDA
+        if (method == "dft" and dtype == torch.float32
+                and precision == "highest" and fladder.fladder_config_ok(cfg)):
+            self._route = "ladder"
+        else:
+            self._route = "chain"
+            if fused_ok and (precision == "highest"
+                             or (fast and cfg.hop % 2 == 0)):
+                self._not_ported = (
+                    "pallas_mfcc.mfcc_pallas_radix2 (K5)" if cfg.hop % 2 == 0
+                    else "pallas_mfcc.mfcc_pallas_recomp_t (K6)")
+        self._frames_not_ported = (
+            "pallas_mfcc.mfcc_pallas_frames_float (K5)"
+            if fast and fused_ok else None)
+
+        # float64 buffers: K1 computes in float64; the chain casts them to
+        # its working dtype per call.  Only window, mel and dct are state;
+        # the DFT operator, K1's window/nfft and the mel band limits are
+        # derived from them, and rebuilt whenever they change
+        # (load_numpy_operators, load_state_dict).
+        ops = float_ops.operators_np(cfg)
+        for name in _STATE:
+            self.register_buffer(name, torch.as_tensor(
+                ops[name], dtype=torch.float64, device=device))
+        for name in ("dft", "ladder_window", "mel_band"):
+            self.register_buffer(name, None, persistent=False)
+        self.register_load_state_dict_post_hook(_rederive)
+        self._derive()
+
+    def _derive(self) -> None:
+        nfft = self.cfg.nfft
+        C, S = tables.windowed_rdft_matrix(
+            nfft, window=self.window.detach().cpu().numpy())
+        self.dft = torch.as_tensor(np.concatenate([C, S], axis=1),
+                                   dtype=torch.float64,
+                                   device=self.window.device)
+        self.ladder_window = self.window / nfft
+        self.mel_band = fladder.mel_bands(self.mel[: nfft // 2])
+
+    def load_numpy_operators(self, arrays: dict) -> None:
+        """Replace the operators with numpy arrays: any of ``window``
+        (nfft,), ``mel`` (nfft/2+1, nfilters) and ``dct`` (nfilters,
+        nceptrums); the derived operators are rebuilt in float64.  Values
+        keep the buffers' device."""
+        unknown = set(arrays) - set(_STATE)
+        if unknown:
+            raise ValueError(f"unknown operators {sorted(unknown)}")
+        arrays = {k: np.asarray(v, np.float64) for k, v in arrays.items()}
+        for name, value in arrays.items():
+            shape = tuple(getattr(self, name).shape)
+            if value.shape != shape:
+                raise ValueError(f"{name}: shape {value.shape}, "
+                                 f"expected {shape}")
+        for name, value in arrays.items():
+            getattr(self, name).copy_(torch.as_tensor(value))
+        self._derive()
+
+    def _chain_ops(self) -> float_ops.Operators:
+        return float_ops.Operators(*(getattr(self, name).to(self.dtype)
+                                     for name in float_ops.Operators._fields))
+
+    def _as_input(self, x) -> torch.Tensor:
+        """A tensor must lie on the operators' device (as in any
+        ``nn.Module``, nothing is moved behind the caller's back); numpy
+        arrays and lists are put there."""
+        device = self.window.device
+        if isinstance(x, torch.Tensor):
+            if x.device != device:
+                raise ValueError(
+                    f"input is on {x.device} but the module's operators are "
+                    f"on {device}: move one of them with .to()")
+            return x
+        return torch.as_tensor(x, device=device)
+
+    # -- float path ----------------------------------------------------------
+
+    def forward(self, audio) -> torch.Tensor:
+        """(..., T) raw samples -> (..., F, nceptrums) float cepstra."""
+        audio = self._as_input(audio)
+        if self._route == "ladder":
+            if audio.dtype != torch.int16:
+                audio = audio.to(torch.float32)   # never truncated to int16
+            ops = fladder.LadderOperators(
+                self.ladder_window, self.mel[: self.cfg.nfft // 2], self.dct,
+                self.mel_band)
+            return fladder.mfcc_float_ladder(
+                audio.contiguous(), self.cfg, self.mel_floor, operators=ops)
+        if self._not_ported and audio.is_cuda:
+            raise NotImplementedError(
+                f"this configuration runs {self._not_ported} in the JAX "
+                "package; that kernel is not ported to CUDA yet")
+        return float_ops.mfcc_batch(
+            audio, self.cfg, method=self.method,
+            precision="highest", dtype=self.dtype,
+            mel_floor=self.mel_floor, operators=self._chain_ops())
+
+    def frames(self, frames) -> torch.Tensor:
+        """(..., F, nfft) pre-emphasized frames -> (..., F, nceptrums)."""
+        frames = self._as_input(frames)
+        if self._frames_not_ported and frames.is_cuda:
+            raise NotImplementedError(
+                f"this configuration runs {self._frames_not_ported} in the "
+                "JAX package; that kernel is not ported to CUDA yet")
+        return float_ops.mfcc_frames(
+            frames, self.cfg, method=self.method,
+            precision="highest", dtype=self.dtype,
+            mel_floor=self.mel_floor, operators=self._chain_ops())
+
+    # -- INT path ---------------------------------------------------------------
+
+    def int(self, audio):
+        raise NotImplementedError(_INT_NOT_PORTED)
+
+    def int_frames(self, frames):
+        raise NotImplementedError(_INT_NOT_PORTED)
