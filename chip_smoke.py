@@ -1,4 +1,5 @@
-"""Drive the torch port's float batch path on one CUDA card and check it.
+"""Drive the torch port's float and INT batch paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -8,19 +9,33 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
   1. prints the card (``nvidia-smi``), torch's and CUDA's versions;
   2. builds the CUDA kernels from ``mfcc_tpu_torch/csrc`` and prints the
      seconds taken;
-  3. compares each kernel with its plain torch version on the card: K1
-     (``ops/fladder.py``) at nfft 256/86, 512/170 and 1024/340 on int16,
+  3. float path: compares K1 (``ops/fladder.py``) with its plain torch
+     version on the card at nfft 256/86, 512/170 and 1024/340 on int16,
      f32, normalized [-1, 1] f32 and silent (``mel_floor=1.0``) input, and
-     at the headline shape, within ``KERNEL_TOL``;
-  4. drives ``MFCC()`` on S=1024 streams x 4 s of int16 audio, checks that
-     K1 launched once per call, the shape, finiteness, and the gate against
-     the float64 oracle on 8 spread streams;
-  5. times K1 against its plain version and the plain ``float_ops`` chain
-     (CUDA events, median of 10 after warm-up).
+     at the headline shape, within ``KERNEL_TOL``; drives ``MFCC()`` on
+     S=1024 streams x 4 s of int16 audio, checks that K1 launched once per
+     call, the shape, finiteness, and the gate against the float64 oracle
+     on 8 spread streams; times K1 against its plain version and the plain
+     ``float_ops`` chain;
+  4. INT path: compares K2 and K3 (``ops/int_fused.py``) with their plain
+     versions element for element (``torch.equal``): K2 on tonal, full-range,
+     silent and out-of-int16-range input, T = 512 and 512+169, MIC_CONFIG,
+     16 filters, hop 160 and the headline shape; K3 on frames with two
+     leading axes and on out-of-range int32 frames; drives ``MFCC().int``
+     on the headline input, checks that K2 launched once per call and
+     ``int_frames`` launched K3, the shape and dtype, and element-exact
+     equality with the oracle ``ref.int_ref.mfcc_int`` on 8 spread streams;
+     times K2, ``MFCC.int``, K2's plain version, and K3 and its plain
+     version on the headline's 382,976 frames.
 
-Any failed check raises, so the exit code is not 0.  Without a CUDA card
-it exits with an error before printing anything else.  The line before the
-last is a JSON summary of the kernels; the last line is the JSON result.
+Times are CUDA events, median of 10 after warm-up.  Each main path
+(``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``)
+is driven with every launch count set to 0 just before and read just
+after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
+exits with an error before printing anything else.  The line before the
+last is a JSON summary of the kernels (with each one's bound: the larger
+of its bytes over the memory rate and its operations over the peak rate
+for their type); the last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -38,6 +53,15 @@ KERNEL_TOL = 5e-5   # kernel vs its plain version (both float64 inside)
 GATE = 5e-4         # the float contract: max-abs vs the float64 oracle
 S_MAIN, T_MAIN = 1024, 63_922   # 4 s per stream at 16 kHz: 374 frames
 ITERS, WARMUP = 10, 3
+
+# Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOPS = 34e12          # FP64 outside the tensor cores
+# int32 operations: the issue limit of 4 schedulers x 32 lanes per clock
+# per SM, 132 SMs at the 1.98 GHz boost clock (the float32 FMA lane rate,
+# half of its 67 TFLOP/s); counting only the 64 INT32 lanes per SM gives
+# twice the time
+INT32_OPS = 128 * 132 * 1.98e9
 
 
 def make_audio(S: int, T: int, seed: int = 0) -> np.ndarray:
@@ -71,6 +95,18 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return float((got[fin] - want[fin]).abs().max())
 
 
+def compare_exact(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
+    """Element-exact comparison (the INT contract): fails unless
+    ``torch.equal``; returns the max-abs difference (0)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    check(torch.equal(got, want), f"{what}: differs from the plain version "
+          f"by up to {err}")
+    return err
+
+
 def time_ms(fn) -> float:
     """Median device time of one call, in ms (CUDA events)."""
     for _ in range(WARMUP):
@@ -88,29 +124,117 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py: no CUDA card "
-                         "(torch.cuda.is_available() is false)")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(card)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+def zero_counts(fladder, int_fused) -> None:
+    fladder.LAUNCHES = 0
+    int_fused.LAUNCHES = 0
 
+
+def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time for moving ``nbytes``
+    through HBM or doing ``ops`` at ``rate``, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_flops_per_frame(cfg, band: torch.Tensor) -> int:
+    """FP64 operations of csrc/fladder.cu per frame: ingest (emphasis and
+    window on sample pairs, 6 per packed point), the packed nfft/2-point
+    complex FFT in radix-4 passes (40 per radix-4 butterfly: 8 complex
+    adds, 3 complex multiplies and the third twiddle's product) and a
+    radix-2 pass when the stage count is odd, the real-spectrum unpack
+    and power (19 per bin), the banded mel sums (2 per weight), a log2 per
+    filter and the DCT product (2 per weight)."""
+    m = cfg.nfft // 2
+    log2m = m.bit_length() - 1
+    fft = (log2m // 2) * (m // 4) * 40 + (log2m % 2) * (m // 2) * 4
+    mel = 2 * int((band[:, 1] - band[:, 0]).sum())
+    return (6 * m + fft + 19 * m + mel + cfg.nfilters
+            + 2 * cfg.nfilters * cfg.nceptrums)
+
+
+def ladder_ops(log2n: int, nz_re, nz_im, live_re, live_im) -> int:
+    """int32 operations that the RTL's radix-2 DIT ladder on 2^log2n points
+    needs (csrc/int_stages.cuh ``fft_rows``).  ``nz_*`` say which inputs,
+    in the bit-reversed order they are stored in, can be nonzero;
+    ``live_*`` which outputs (natural order) are used.  A butterfly costs
+    what its nonzero inputs and live outputs need, at most 21: 3 multiplies
+    (twr +- twi are table constants), x1r + x1i, m0 + bias, - m1, - m2, two
+    >> 14, and per output an add or subtract, >> 1 and a sign-extend.  A
+    zero x1 makes both products 0 (bias >> 14 is 0), and an output whose
+    terms are both zero is 0."""
+    n = 1 << log2n
+    nzr, nzi = list(nz_re), list(nz_im)
+
+    def pairs(s):
+        span = 1 << s
+        return [(((t >> s) << (s + 1)) + (t & (span - 1)),
+                 ((t >> s) << (s + 1)) + (t & (span - 1)) + span)
+                for t in range(n // 2)]
+
+    seen = []
+    for s in range(log2n):        # forward: which values can be nonzero
+        seen.append((nzr[:], nzi[:]))
+        for i0, i1 in pairs(s):
+            x1 = nzr[i1] or nzi[i1]
+            nzr[i0] = nzr[i1] = nzr[i0] or x1
+            nzi[i0] = nzi[i1] = nzi[i0] or x1
+    ops = 0
+    lr, li = list(live_re), list(live_im)
+    for s in reversed(range(log2n)):   # backward: what each stage must do
+        nzr, nzi = seen[s]
+        for i0, i1 in pairs(s):
+            need1, need2 = lr[i0] or lr[i1], li[i0] or li[i1]
+            x1 = nzr[i1] or nzi[i1]
+            if x1 and (need1 or need2):
+                ops += 2 + (nzr[i1] and nzi[i1])
+                ops += need1 * (1 + 2 * nzi[i1]) + need2 * (1 + 2 * nzr[i1])
+            for live, a, neg in ((lr[i0], nzr[i0], False),
+                                 (lr[i1], nzr[i0], True),
+                                 (li[i0], nzi[i0], False),
+                                 (li[i1], nzi[i0], True)):
+                if live and (a or x1):
+                    ops += 2 + (a and x1) + (neg and not a)
+            lr[i0], li[i0] = need1, need2
+            lr[i1] = li[i1] = need1 or need2
+    return ops
+
+
+def int_ops_per_frame(cfg, band: torch.Tensor) -> int:
+    """int32 operations of the INT MFCC function per frame, after
+    pre-emphasis: the window (3 per point: multiply, >> 9, sign-extend),
+    the 512-point ladder on a real input whose bins outside every filter's
+    band are unused, power (4 per used bin), the banded filterbank (2 per
+    weight in 64 bits, 2 per filter to extract the field), log2 (7 to
+    normalize and mask, 5 per square-and-compare round) and the
+    4*nfilters-point DCT ladder on the scattered log-mel row (odd points
+    only, real inputs) of which only the real parts of bins [0, ncep) are
+    used."""
+    nfft, nf = cfg.nfft, cfg.nfilters
+    lg = nfft.bit_length() - 1
+    used = [False] * nfft
+    for lo, hi in band.tolist():
+        used[lo:hi] = [True] * (hi - lo)
+    fft = ladder_ops(lg, [True] * nfft, [False] * nfft, used, used)
+    n4 = 4 * nf
+    lg4 = n4.bit_length() - 1
+    odd = [bool(int(f"{i:0{lg4}b}"[::-1], 2) & 1) for i in range(n4)]
+    ncep = min(cfg.nceptrums, nf)
+    dct = ladder_ops(lg4, odd, [False] * n4,
+                     [i < ncep for i in range(n4)], [False] * n4)
+    fb = 2 * int((band[:, 1] - band[:, 0]).sum()) + 2 * nf
+    log2 = nf * (7 + 5 * (cfg.log_precision - 1))
+    return 3 * nfft + fft + 4 * sum(used) + fb + log2 + dct
+
+
+def float_phases(dev, card: str) -> dict:
+    """K1 against its plain version, the float main path, and K1's times;
+    returns K1's entry of the kernels line."""
     from mfcc_tpu_torch import MFCC, MFCCConfig
-    from mfcc_tpu_torch.kernels import build
-    from mfcc_tpu_torch.ops import fladder, float_ops
+    from mfcc_tpu_torch.ops import fladder, float_ops, int_fused
     from mfcc_tpu_torch.ref import float_ref
 
-    dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    build.build(verbose=True)
-    build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
-
-    # -- 1. kernel vs plain version ----------------------------------------
+    # -- K1 vs plain version -------------------------------------------------
     errs = []
     for nfft, hop in ((256, 86), (512, 170), (1024, 340)):
         cfg = MFCCConfig(nfft=nfft, step=hop)
@@ -140,13 +264,13 @@ def main() -> int:
         check(torch.equal(int_out, f32_out),
               f"K1 nfft {nfft}: int16 and f32 input of the same integers")
 
-    # -- 2. the main path ----------------------------------------------------
+    # -- the float main path ---------------------------------------------------
     cfg = MFCCConfig()
     sig = make_audio(S_MAIN, T_MAIN)
     audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
     fe = MFCC().to(dev)
     calls = 2
-    fladder.LAUNCHES = 0
+    zero_counts(fladder, int_fused)
     outs = [fe(audio) for _ in range(calls)]
     torch.cuda.synchronize()
     launches = fladder.LAUNCHES
@@ -165,13 +289,14 @@ def main() -> int:
           f"K1 launches {launches} in {calls} calls; max-abs vs float64 "
           f"oracle on 8 spread streams {gate_err:.3e} (gate {GATE})")
     check(gate_err <= GATE, f"gate: {gate_err} > {GATE}")
+    del outs, out
     chain = float_ops.mfcc_batch(audio, cfg)
     chain_err = float(np.abs(chain[spread].cpu().numpy() - want).max())
     print(f"plain float_ops chain (f32 DFT matmul): max-abs vs oracle "
           f"{chain_err:.3e}")
     del chain
 
-    # -- 3. times ------------------------------------------------------------
+    # -- K1 times --------------------------------------------------------------
     frames = S_MAIN * n_frames
     times = {
         "K1 kernel (mfcc_float_ladder)":
@@ -186,15 +311,199 @@ def main() -> int:
         print(f"time {name}: {ms:.4f} ms, {frames / ms * 1e3:.4e} frames/s "
               f"(S={S_MAIN} x T={T_MAIN} int16, median of {ITERS}; {card})")
 
-    summary = {"kernels": [{
+    ops = fladder.default_operators(cfg, dev)
+    nbytes = (audio.nbytes + frames * cfg.nceptrums * 4
+              + sum(t.nbytes for t in ops))
+    flops = frames * k1_flops_per_frame(cfg, ops.band.cpu())
+    bound_ms, bound_by = bound(nbytes, flops, FP64_FLOPS)
+    print(f"K1 bound: {nbytes} bytes, {flops:.4e} FP64 operations -> "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return {
         "name": "fladder (K1)", "route": "cuda",
         "source": "mfcc_tpu_torch/csrc/fladder.cu",
         "replaces": "mfcc_tpu/ops/pallas_fladder.py:215",
         "launches": launches, "max_abs_err": max(errs),
         "ms": times["K1 kernel (mfcc_float_ladder)"],
         "plain_ms": times["K1 plain version (float64 torch ops)"],
-    }]}
-    print(json.dumps(summary))
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def int_phases(dev, card: str) -> list[dict]:
+    """K2 and K3 against their plain versions, the INT main path, and
+    their times; returns their entries of the kernels line."""
+    from mfcc_tpu_torch import MFCC, MFCCConfig, MIC_CONFIG
+    from mfcc_tpu_torch.ops import fladder, framing, int_fused
+    from mfcc_tpu_torch.ref import int_ref
+
+    # -- K2 vs plain version -------------------------------------------------
+    rng = np.random.default_rng(2)
+    tonal = make_audio(64, 16000, seed=3).astype(np.int16)
+    headline = make_audio(S_MAIN, T_MAIN).astype(np.int16)
+    k2_inputs = [
+        ("tonal int16, S=64 x 1 s", MFCCConfig(), tonal),
+        ("full-range int16", MFCCConfig(),
+         rng.integers(-32768, 32768, (64, 16000)).astype(np.int16)),
+        ("silence", MFCCConfig(), np.zeros((8, 16000), np.int16)),
+        ("int32 outside int16 range", MFCCConfig(),
+         rng.integers(-2 ** 31, 2 ** 31, (16, 16000)).astype(np.int32)),
+        ("T=512", MFCCConfig(), tonal[:, :512]),
+        ("T=512+169", MFCCConfig(), tonal[:, :512 + 169]),
+        ("MIC_CONFIG", MIC_CONFIG, tonal),
+        ("nfilters=16", MFCCConfig(nfilters=16, nceptrums=16), tonal),
+        ("hop 160", MFCCConfig(step=160), tonal),
+        ("headline shape", MFCCConfig(), headline),
+    ]
+    errs = {"K2": 0, "K3": 0}
+    for name, cfg, x in k2_inputs:
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        got = int_fused.mfcc_int_fused(xt, cfg)
+        want = int_fused.mfcc_int_fused_plain(xt, cfg)
+        torch.cuda.synchronize()
+        err = compare_exact(got, want, f"K2 {name}")
+        errs["K2"] = max(errs["K2"], err)
+        print(f"K2 vs plain, {name} {tuple(xt.shape)} {xt.dtype} -> "
+              f"{tuple(got.shape)}: equal (max-abs {err})")
+        del got, want
+
+    # -- K3 vs plain version -------------------------------------------------
+    xt = torch.from_numpy(tonal[:6].astype(np.int32)).to(dev)
+    frames = framing.extract_frames(framing.preemphasis_int(xt), 512, 170)
+    wide = rng.integers(-2 ** 31, 2 ** 31, (4, 9, 512)).astype(np.int32)
+    for name, f in (("frames of 6 streams as (2, 3, F, 512)",
+                     frames.reshape(2, 3, *frames.shape[1:]).contiguous()),
+                    ("int32 frames outside int16 range",
+                     torch.from_numpy(wide).to(dev))):
+        got = int_fused.mfcc_int_fused_frames(f)
+        want = int_fused.mfcc_int_fused_frames_plain(f)
+        torch.cuda.synchronize()
+        err = compare_exact(got, want, f"K3 {name}")
+        errs["K3"] = max(errs["K3"], err)
+        print(f"K3 vs plain, {name} {tuple(f.shape)} -> {tuple(got.shape)}: "
+              f"equal (max-abs {err})")
+
+    # -- the INT main path -----------------------------------------------------
+    cfg = MFCCConfig()
+    audio = torch.from_numpy(headline).to(dev)
+    fe = MFCC()
+    check(fe.window.device.type == "cuda",
+          f"MFCC() built its operators on {fe.window.device}")
+    n_frames = cfg.n_frames(T_MAIN)
+    emph = framing.preemphasis_int(audio.to(torch.int32))
+    hframes = framing.extract_frames(emph, 512, cfg.hop).contiguous()
+    del emph
+    calls = 2
+    zero_counts(fladder, int_fused)
+    outs = [fe.int(audio) for _ in range(calls)]
+    torch.cuda.synchronize()
+    k2_launches = int_fused.LAUNCHES
+    check(k2_launches == calls and fladder.LAUNCHES == 0,
+          f"K2 launches {k2_launches} (K1 {fladder.LAUNCHES}) for {calls} "
+          "int() calls")
+    zero_counts(fladder, int_fused)
+    out_frames = fe.int_frames(hframes)
+    torch.cuda.synchronize()
+    k3_launches = int_fused.LAUNCHES
+    check(k3_launches == 1 and fladder.LAUNCHES == 0,
+          f"K3 launches {k3_launches} (K1 {fladder.LAUNCHES}) for one "
+          "int_frames() call")
+    out = outs[0]
+    check(tuple(out.shape) == (S_MAIN, n_frames, cfg.nceptrums),
+          f"INT output shape {tuple(out.shape)}")
+    check(out.dtype == torch.int32, f"INT output dtype {out.dtype}")
+    check(torch.equal(outs[0], outs[1]), "two INT calls differ")
+    check(torch.equal(out_frames, out), "int_frames differs from int")
+    spread = np.linspace(0, S_MAIN - 1, 8).astype(int)
+    t0 = time.perf_counter()
+    want = np.stack([int_ref.mfcc_int(headline[i], cfg) for i in spread])
+    oracle_s = time.perf_counter() - t0
+    ndiff = int((out[spread].cpu().numpy() != want).sum())
+    print(f"MFCC().int(audio) {tuple(audio.shape)} int16 -> "
+          f"{tuple(out.shape)} {out.dtype}: K2 launches {k2_launches} in "
+          f"{calls} calls, int_frames K3 launches {k3_launches}; elements "
+          f"differing from the oracle on 8 spread streams: {ndiff} of "
+          f"{want.size} (oracle {oracle_s:.1f} s on the host)")
+    check(ndiff == 0, f"INT path differs from the oracle in {ndiff} elements")
+    del outs, out, out_frames
+
+    # -- K2 and K3 times -------------------------------------------------------
+    frames_n = S_MAIN * n_frames
+    times = {
+        "K2 kernel (mfcc_int_fused)":
+            time_ms(lambda: int_fused.mfcc_int_fused(audio, cfg)),
+        "MFCC().int(audio), K2 route": time_ms(lambda: fe.int(audio)),
+        "K2 plain version (int_ops chain)":
+            time_ms(lambda: int_fused.mfcc_int_fused_plain(audio, cfg)),
+        "K3 kernel (mfcc_int_fused_frames)":
+            time_ms(lambda: int_fused.mfcc_int_fused_frames(hframes, cfg)),
+        "K3 plain version (int_ops chain)":
+            time_ms(lambda: int_fused.mfcc_int_fused_frames_plain(hframes,
+                                                                  cfg)),
+    }
+    for name, ms in times.items():
+        print(f"time {name}: {ms:.4f} ms, {frames_n / ms * 1e3:.4e} frames/s "
+              f"(S={S_MAIN} x T={T_MAIN}, {frames_n} frames, median of "
+              f"{ITERS}; {card})")
+
+    ops = int_fused.int_operators(cfg, dev)
+    tables = sum(t.nbytes for t in ops[:5])
+    out_bytes = frames_n * cfg.nceptrums * 4
+    band = ops.band.cpu()
+    k2_ops = (4 * S_MAIN * T_MAIN          # pre-emphasis: >> 5, +, -, sext
+              + frames_n * int_ops_per_frame(cfg, band))
+    k3_ops = frames_n * int_ops_per_frame(cfg, band)
+    k2_bound = bound(audio.nbytes + out_bytes + tables, k2_ops, INT32_OPS)
+    k3_bound = bound(hframes.nbytes + out_bytes + tables, k3_ops, INT32_OPS)
+    print(f"K2 bound: {audio.nbytes + out_bytes + tables} bytes, "
+          f"{k2_ops:.4e} int32 operations -> {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]}); K3 bound: {hframes.nbytes + out_bytes + tables} "
+          f"bytes, {k3_ops:.4e} -> {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    return [{
+        "name": "int_mfcc audio (K2)", "route": "cuda",
+        "source": "mfcc_tpu_torch/csrc/int_mfcc.cu",
+        "replaces": "mfcc_tpu/ops/pallas_int.py:956",
+        "launches": k2_launches, "max_abs_err": errs["K2"],
+        "ms": times["K2 kernel (mfcc_int_fused)"],
+        "plain_ms": times["K2 plain version (int_ops chain)"],
+        "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "int_mfcc frames (K3)", "route": "cuda",
+        "source": "mfcc_tpu_torch/csrc/int_mfcc.cu",
+        "replaces": "mfcc_tpu/ops/pallas_int.py:801",
+        "launches": k3_launches, "max_abs_err": errs["K3"],
+        "ms": times["K3 kernel (mfcc_int_fused_frames)"],
+        "plain_ms": times["K3 plain version (int_ops chain)"],
+        "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+        "library_ms": None,
+    }]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: no CUDA card "
+                         "(torch.cuda.is_available() is false)")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    from mfcc_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    kernels = [float_phases(dev, card)]
+    torch.cuda.empty_cache()
+    kernels += int_phases(dev, card)
+
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,29 @@
 """mfcc_tpu_torch -- the MFCC front-end on PyTorch and CUDA (NVIDIA Hopper).
 
 A port of ``mfcc_tpu`` (JAX/Pallas on a TPU), which stays the reference.
-The same ``MFCCConfig``, the same layouts and the same numeric contract:
-float cepstra within 5e-4 of the float64 oracle ``ref.float_ref``.
+The same ``MFCCConfig``, the same layouts and the same numeric contracts:
+float cepstra within 5e-4 of the float64 oracle ``ref.float_ref``, INT
+cepstra element-exact with the RTL oracle ``ref.int_ref``.
 
-Ported so far: the float batch path ``MFCC()(audio)`` and ``MFCC.frames``.
-Its fused kernel (K1, ``ops/fladder.py``) is CUDA C++ for sm_90a in
-``csrc/fladder.cu``.
+Ported so far:
+
+  * the float batch path ``MFCC()(audio)`` and ``MFCC.frames``; its fused
+    kernel (K1, ``ops/fladder.py``) is CUDA C++ for sm_90a in
+    ``csrc/fladder.cu``;
+  * the bit-exact INT batch path ``MFCC.int`` and ``MFCC.int_frames``
+    (``ops/int_ops.py`` chain); its fused kernels (K2 from audio, K3 from
+    frames, ``ops/int_fused.py``) are CUDA C++ for sm_90a in
+    ``csrc/int_mfcc.cu`` on the device functions of
+    ``csrc/int_stages.cuh``.
+
+``MFCC()`` runs on the CUDA card by default; ``device="cpu"`` runs the
+plain torch versions on the host.
 
 Kernel build route: at first use, ``kernels/build.py`` runs ``nvcc
 -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler
--fPIC`` on ``csrc/*.cu`` into ``mfcc_tpu_torch/_build/`` (rebuilt when a
-source's hash changes) and binds the plain C entry points with ``ctypes``.
+-fPIC`` on each ``csrc/*.cu``, one library per source built in parallel,
+into ``mfcc_tpu_torch/_build/`` (rebuilt when a source's hash changes)
+and binds the plain C entry points with ``ctypes``.
 Importing the package builds nothing and never imports JAX.
 """
 

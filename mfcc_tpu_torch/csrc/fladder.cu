@@ -39,9 +39,10 @@
 //
 // What bounds it, per call at the headline size (S=1024 x T=63,922, nfft
 // 512, hop 170: 382,976 frames): ~131 MB of int16 in and ~49 MB of f32
-// out, ~54 us of HBM time at 3.35 TB/s; ~17 kFLOP of FP64 per frame,
-// ~7 GFLOP per call (~0.2 ms at the card's 34 TFLOP/s outside the tensor
-// cores).  Measured ~2 ms, so neither bound is near: the time goes to
+// out, ~54 us of HBM time at 3.35 TB/s; ~19.6 kFLOP of FP64 per frame as
+// chip_smoke.py counts this kernel's arithmetic, ~7.5 GFLOP per call
+// (0.22 ms at the card's 34 TFLOP/s outside the tensor cores, the bound).
+// Measured ~2 ms, so neither bound is near: the time goes to
 // shared-memory traffic, barriers (7 per block at nfft 512) and latency
 // chains in the per-output loops.
 //

@@ -1,13 +1,15 @@
 """Build and bind the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, at first use, into ``mfcc_tpu_torch/_build/``:
+Each ``csrc/*.cu`` file (each may include the ``csrc/*.cuh`` headers) is
+compiled by ``nvcc`` into a shared library with a plain C interface, at
+first use, into ``mfcc_tpu_torch/_build/``; the ``nvcc`` calls, one per
+source, are started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libmfcc_kernels-<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the sources and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  The library is
+The file names carry a hash of the sources and the flags, so an edited
+source is rebuilt and a stale library is never loaded.  The libraries are
 loaded with ``ctypes`` and each entry point gets its ``argtypes`` and
 ``restype``.  No ``--use_fast_math``: it turns ``log2f`` into ``__log2f``
 and flushes denormals, which the float gate does not allow.
@@ -24,6 +26,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -40,9 +43,20 @@ _LL = ctypes.c_longlong
 #                        win, tw, mel, dct, band, mel_floor, stream)
 _FLADDER_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, ctypes.c_double, _P]
+# mfcc_int_i16(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
+#              log_precision, log_width, curve, tw, dtw, fbw, band, stream)
+_INT_I16_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
+                 _P, _P, _P, _P, _P, _P]
+# mfcc_int_frames_i32(frames, out, M, nfilters, ncep, fb_shift,
+#                     log_precision, log_width, curve, tw, dtw, fbw, band,
+#                     stream)
+_INT_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I,
+                    _P, _P, _P, _P, _P, _P]
 SIGNATURES = {
     "mfcc_fladder_i16": _FLADDER_ARGS,
     "mfcc_fladder_f32": _FLADDER_ARGS,
+    "mfcc_int_i16": _INT_I16_ARGS,
+    "mfcc_int_frames_i32": _INT_FRAMES_ARGS,
 }
 
 
@@ -72,36 +86,45 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if no library for the current sources exists;
-    return the library's path.  Raises with nvcc's output on failure."""
-    lib = BUILD_DIR / f"libmfcc_kernels-{source_hash()}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+def build(verbose: bool = False) -> list[Path]:
+    """Compile every source whose library for the current sources does not
+    exist, all in parallel; return the libraries' paths.  Raises with
+    nvcc's output on failure."""
+    digest = source_hash()
+    libs = [BUILD_DIR / f"lib{src.stem}-{digest}.so" for src in sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(f"nvcc built {lib.name} in {time.perf_counter() - t0:.1f} s\n"
-              f"{res.stdout}{res.stderr}", flush=True)
-    os.replace(tmp, lib)
-    return lib
+    jobs = []
+    for src, lib in zip(sources(), libs):
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+               "-o", str(tmp), str(src)]
+        jobs.append((cmd, tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    outs = [proc.communicate() for *_, proc in jobs]   # wait for every one
+    for (cmd, tmp, lib, proc), (out, err) in zip(jobs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+        if verbose:
+            print(f"nvcc built {lib.name}\n{out}{err}", flush=True)
+        os.replace(tmp, lib)
+    if verbose and jobs:
+        print(f"nvcc: {len(jobs)} sources in parallel, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The built library with every entry point's signature declared."""
-    lib = ctypes.CDLL(str(build()))
+def library() -> types.SimpleNamespace:
+    """Every entry point of the built libraries, its signature declared."""
+    libs = [ctypes.CDLL(str(path)) for path in build()]
+    fns = {}
     for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return types.SimpleNamespace(**fns)

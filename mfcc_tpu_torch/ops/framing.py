@@ -1,8 +1,9 @@
 """Pre-emphasis and overlapped framing on torch tensors.
 
-The float part of ``mfcc_tpu.ops.framing``: pre-emphasis is a shifted
-subtract over the last axis and framing is a strided view
-(``Tensor.unfold``), so no gather index is materialized.
+The counterpart of ``mfcc_tpu.ops.framing``: pre-emphasis (float, and the
+INT path's fixed-point form with its 16-bit wrap) is a shifted subtract
+over the last axis and framing is a strided view (``Tensor.unfold``), so no
+gather index is materialized.
 """
 
 from __future__ import annotations
@@ -26,6 +27,27 @@ def preemphasis(x: torch.Tensor, carry: torch.Tensor | None = None
         first = carry.to(x.dtype)[..., None]
     prev = torch.cat([first, x[..., :-1]], dim=-1)
     return x - EMPHASIS_COEFF * prev
+
+
+def preemphasis_int(x: torch.Tensor, carry: torch.Tensor | None = None,
+                    width: int = 16) -> torch.Tensor:
+    """Fixed-point pre-emphasis: y = wrap_w(x + (prev >> 5) - prev)
+    (mfcc/core/preemph.py:23).  x int32 holding width-bit-range samples;
+    the sum wraps mod 2^32 as in the JAX package, and only its low
+    ``width`` bits are kept."""
+    if carry is None:
+        first = x.new_zeros(x.shape[:-1] + (1,))
+    else:
+        first = carry.to(x.dtype)[..., None]
+    prev = torch.cat([first, x[..., :-1]], dim=-1)
+    return wrap_signed(x + (prev >> 5) - prev, width)
+
+
+def wrap_signed(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """Truncate to ``bits`` bits and sign-extend (nMigen signed assignment)."""
+    mask = (1 << bits) - 1
+    sign = 1 << (bits - 1)
+    return ((v & mask) ^ sign) - sign
 
 
 def num_frames(n_samples: int, hop: int, windowlen: int) -> int:

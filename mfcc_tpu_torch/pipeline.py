@@ -1,7 +1,9 @@
 """Public batch API: the MFCC feature extractor as an ``nn.Module``.
 
-The counterpart of ``mfcc_tpu.pipeline.MFCC`` (float path).  Routing
-mirrors the JAX package route for route:
+The counterpart of ``mfcc_tpu.pipeline.MFCC``.  The module's operators live
+on the card (``device="cuda"`` by default) unless the caller asks for the
+CPU with ``device="cpu"``.  Routing mirrors the JAX package route for
+route.  Float path (``forward``, ``frames``):
 
   * ``method="dft"``, float32, ``precision="highest"`` and a config in K1's
     family (``ops.fladder.fladder_config_ok``) -> K1, the fused kernel
@@ -10,6 +12,12 @@ mirrors the JAX package route for route:
     (``precision="fast"``, odd hop) -> not ported for CUDA tensors
     (``NotImplementedError``); the ``float_ops`` chain for CPU tensors;
   * everything else -> the ``float_ops`` chain, as in JAX.
+
+INT path (``int``, ``int_frames``): a config in the fused kernels' family
+(``ops.int_fused.int_config_ok``) -> K2 / K3 (launched for CUDA tensors;
+their plain versions for CPU tensors); every other config (width != 16,
+odd hop, nfilters not 16 or 32, windowlen != nfft) -> the ``int_ops``
+chain, as in JAX.
 
 Layouts are the JAX package's: (..., T) in, (..., F, nceptrums) out.
 """
@@ -22,9 +30,8 @@ from torch import nn
 
 from . import tables
 from .config import MFCCConfig
-from .ops import fladder, float_ops
+from .ops import fladder, float_ops, int_fused, int_ops
 
-_INT_NOT_PORTED = "INT slice: next PR"
 _STATE = ("window", "mel", "dct")    # the module's state_dict
 
 
@@ -36,8 +43,9 @@ def _rederive(module: "MFCC", incompatible_keys) -> None:
 class MFCC(nn.Module):
     """Batched MFCC front-end.
 
-    >>> fe = MFCC().to("cuda")            # defaults = wav2mfcc target config
+    >>> fe = MFCC()                       # defaults = wav2mfcc target config
     >>> cep = fe(audio_batch)             # float path, (S, T) -> (S, F, 32)
+    >>> cep_int = fe.int(audio_batch)     # bit-exact INT path, int32
     """
 
     def __init__(self, cfg: MFCCConfig = MFCCConfig(), *,
@@ -47,8 +55,20 @@ class MFCC(nn.Module):
         """``precision`` is ``"highest"`` (the 5e-4 float contract, full
         f32) or ``"fast"``, which the JAX package serves with its 3-pass
         split-DFT kernel where that applies and with the "highest" chain
-        elsewhere; other precisions are not ported yet."""
+        elsewhere; other precisions are not ported yet.
+
+        ``device`` is where the operators live and the work runs:
+        ``None`` is the card (``"cuda"``, the current CUDA device), and
+        raises on a host without one; ``device="cpu"`` runs the plain
+        torch versions on the host."""
         super().__init__()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "MFCC() runs on the CUDA card by default and this host "
+                    "has none (torch.cuda.is_available() is false): pass "
+                    "device=\"cpu\" to run on the host")
+            device = torch.device("cuda")
         if precision not in ("highest", "fast"):
             raise NotImplementedError(
                 f"precision={precision!r} is not ported to the torch package "
@@ -79,6 +99,7 @@ class MFCC(nn.Module):
         self._frames_not_ported = (
             "pallas_mfcc.mfcc_pallas_frames_float (K5)"
             if fast and fused_ok else None)
+        self._int_route = "fused" if int_fused.int_config_ok(cfg) else "chain"
 
         # float64 buffers: K1 computes in float64; the chain casts them to
         # its working dtype per call.  Only window, mel and dct are state;
@@ -173,10 +194,33 @@ class MFCC(nn.Module):
             precision="highest", dtype=self.dtype,
             mel_floor=self.mel_floor, operators=self._chain_ops())
 
-    # -- INT path ---------------------------------------------------------------
+    # -- INT path (bit-exact RTL parity) ---------------------------------------
 
-    def int(self, audio):
-        raise NotImplementedError(_INT_NOT_PORTED)
+    def _as_int(self, x) -> torch.Tensor:
+        """As ``jnp.asarray(np.asarray(x), dtype=jnp.int32)`` in the JAX
+        package: float input is truncated toward zero, other integers are
+        taken as int32.  int16 stays int16 (its values are the same int32
+        values, and it is K2's wire type)."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        x = self._as_input(x)
+        if x.dtype not in (torch.int16, torch.int32):
+            x = x.to(torch.int32)
+        return x.contiguous()
 
-    def int_frames(self, frames):
-        raise NotImplementedError(_INT_NOT_PORTED)
+    def int(self, audio) -> torch.Tensor:
+        """(..., T) int16-range samples -> (..., F, nceptrums) int32
+        cepstra, element-exact vs the RTL fixed-point pipeline.  The
+        kernels' route takes samples mod 2^16 (the int16 wire contract)."""
+        x = self._as_int(audio)
+        if self._int_route == "fused":
+            return int_fused.mfcc_int_fused(x, self.cfg)
+        return int_ops.mfcc_int_batch(x, self.cfg)
+
+    def int_frames(self, frames) -> torch.Tensor:
+        """(..., F, nfft) pre-emphasized int frames -> (..., F, nceptrums)
+        int32."""
+        x = self._as_int(frames).to(torch.int32)
+        if self._int_route == "fused":
+            return int_fused.mfcc_int_fused_frames(x, self.cfg)
+        return int_ops.mfcc_int_frames(x, self.cfg)

@@ -1,4 +1,6 @@
-"""The torch package's CUDA kernels on the card.
+"""The torch package's CUDA kernels on the card: K1 (float) against its
+plain version within TOL, K2 and K3 (INT) against theirs element for
+element (``torch.equal``).
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The file imports neither JAX nor ``mfcc_tpu``, so it runs on
@@ -11,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from mfcc_tpu_torch import MFCC, MFCCConfig
-from mfcc_tpu_torch.ops import fladder, float_ops
-from mfcc_tpu_torch.ref import float_ref
+from mfcc_tpu_torch import MFCC, MFCCConfig, MIC_CONFIG
+from mfcc_tpu_torch.ops import fladder, float_ops, framing, int_fused
+from mfcc_tpu_torch.ref import float_ref, int_ref
 
 # Kernel and plain version both compute in float64 and round once to f32:
 # they differ by an f32 ulp at most (measured 2.4e-7 at the headline
@@ -110,7 +112,7 @@ def test_input_device_must_match_on_card(dev):
     with pytest.raises(ValueError, match="cpu.*cuda"):
         MFCC().to(dev)(x)
     with pytest.raises(ValueError, match="cuda.*cpu"):
-        MFCC()(x.to(dev))
+        MFCC(device="cpu")(x.to(dev))
 
 
 def test_wrapper_checks_on_card(dev):
@@ -137,3 +139,97 @@ def test_unported_kernels_raise_on_card(dev):
     with pytest.raises(NotImplementedError, match="K5"):
         MFCC(precision="fast").to(dev).frames(torch.zeros(1, 2, 512,
                                                           device=dev))
+
+
+def test_default_device_is_the_card(dev):
+    fe = MFCC()
+    assert all(b.device.type == "cuda" for b in fe.buffers())
+    assert MFCC(device="cpu").window.device.type == "cpu"
+
+
+def _int_inputs(seed=0):
+    """(name, (S, T) input): tonal int16, full-range int16, silence, int32
+    outside int16 range, one frame exactly, a ragged tail."""
+    rng = np.random.default_rng(seed)
+    return [
+        ("tonal int16", _tonal(4, 16000, seed).astype(np.int16)),
+        ("full-range int16", rng.integers(-32768, 32768, (3, 4000))
+         .astype(np.int16)),
+        ("silence", np.zeros((2, 3000), np.int16)),
+        ("wide int32", rng.integers(-2 ** 31, 2 ** 31, (3, 5000))
+         .astype(np.int32)),
+        ("T=512", rng.integers(-32768, 32768, (5, 512)).astype(np.int16)),
+        ("T=681", rng.integers(-32768, 32768, (5, 681)).astype(np.int16)),
+    ]
+
+
+@pytest.mark.parametrize("cfg", [MFCCConfig(), MIC_CONFIG,
+                                 MFCCConfig(nfilters=16, nceptrums=16),
+                                 MFCCConfig(step=160)],
+                         ids=["default", "mic", "nfilters16", "hop160"])
+def test_int_kernel_matches_plain(dev, cfg):
+    """K2 equals its plain version element for element."""
+    for name, x in _int_inputs():
+        xt = torch.from_numpy(x).to(dev)
+        before = int_fused.LAUNCHES
+        got = int_fused.mfcc_int_fused(xt, cfg)
+        torch.cuda.synchronize()
+        assert int_fused.LAUNCHES == before + 1
+        want = int_fused.mfcc_int_fused_plain(xt, cfg)
+        assert got.dtype == torch.int32
+        assert got.shape == (x.shape[0], cfg.n_frames(x.shape[1]),
+                             cfg.nceptrums), name
+        assert torch.equal(got, want), name
+
+
+def test_int_frames_kernel_matches_plain(dev):
+    """K3 on frames of several streams with two leading axes, and on int32
+    frames outside int16 range."""
+    x = torch.from_numpy(_tonal(4, 8000, 5).astype(np.int32)).to(dev)
+    frames = framing.extract_frames(framing.preemphasis_int(x), 512, 170)
+    frames = frames.reshape(2, 2, *frames.shape[1:]).contiguous()
+    wide = torch.from_numpy(np.random.default_rng(6).integers(
+        -2 ** 31, 2 ** 31, (3, 7, 512)).astype(np.int32)).to(dev)
+    for f in (frames, wide):
+        before = int_fused.LAUNCHES
+        got = int_fused.mfcc_int_fused_frames(f)
+        torch.cuda.synchronize()
+        assert int_fused.LAUNCHES == before + 1
+        assert got.shape == f.shape[:-1] + (32,)
+        assert torch.equal(got, int_fused.mfcc_int_fused_frames_plain(f))
+    assert torch.equal(int_fused.mfcc_int_fused_frames(frames).reshape(
+        4, -1, 32), int_fused.mfcc_int_fused(x))
+
+
+def test_int_module_on_card(dev):
+    """MFCC().int on the card is element-exact with the oracle, and runs
+    K2; int_frames runs K3."""
+    sig = _tonal(2, 16000, 7).astype(np.int16)
+    fe = MFCC()
+    before = int_fused.LAUNCHES
+    got = fe.int(torch.from_numpy(sig).to(dev))
+    assert int_fused.LAUNCHES == before + 1
+    want = np.stack([int_ref.mfcc_int(s) for s in sig])
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert np.array_equal(fe.int(sig).cpu().numpy(), want)   # numpy input
+    frames = framing.extract_frames(framing.preemphasis_int(
+        torch.from_numpy(sig.astype(np.int32)).to(dev)), 512, 170)
+    before = int_fused.LAUNCHES
+    assert np.array_equal(fe.int_frames(frames).cpu().numpy(), want)
+    assert int_fused.LAUNCHES == before + 1
+
+
+def test_int_wrapper_checks_on_card(dev):
+    x = torch.zeros(2, 4000, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int16 or torch.int32"):
+        int_fused.mfcc_int_fused(x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        int_fused.mfcc_int_fused(torch.zeros(4000, 2, dtype=torch.int32,
+                                             device=dev).t())
+    with pytest.raises(TypeError, match="int32"):
+        int_fused.mfcc_int_fused_frames(torch.zeros(3, 512, device=dev))
+    with pytest.raises(ValueError, match="frames"):
+        int_fused.mfcc_int_fused_frames(torch.zeros(3, 256, dtype=torch.int32,
+                                                    device=dev))
+    with pytest.raises(ValueError, match="shorter than one frame"):
+        int_fused.mfcc_int_fused(x[:, :511].contiguous())

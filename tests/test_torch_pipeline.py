@@ -41,7 +41,7 @@ def _oracle(sig, cfg=MFCCConfig()):
 def test_mfcc_matches_jax_and_oracle(sig2):
     want = _oracle(sig2)
     jax_out = np.asarray(mfcc_tpu.MFCC()(sig2))
-    port = MFCC()(torch.from_numpy(sig2)).numpy()
+    port = MFCC(device="cpu")(torch.from_numpy(sig2)).numpy()
     assert port.shape == jax_out.shape == (2, 5, 32)
     assert port.dtype == np.float32
     assert np.abs(port - jax_out).max() <= TOL_JAX
@@ -50,7 +50,7 @@ def test_mfcc_matches_jax_and_oracle(sig2):
 
 
 def test_mfcc_int16_input_and_layouts(sig2, audio_int16):
-    fe = MFCC()
+    fe = MFCC(device="cpu")
     f32 = fe(torch.from_numpy(sig2)).numpy()
     i16 = fe(torch.from_numpy(sig2.astype(np.int16))).numpy()
     assert np.array_equal(f32, i16)
@@ -66,13 +66,14 @@ def test_frames_matches_jax(sig2):
     emph = np.asarray(jframing.preemphasis(sig2))
     frames = np.asarray(jframing.extract_frames(emph, 512, 170))
     want = np.asarray(mfcc_tpu.MFCC().frames(frames))
-    got = MFCC().frames(torch.from_numpy(np.array(frames))).numpy()
+    got = MFCC(device="cpu").frames(
+        torch.from_numpy(np.array(frames))).numpy()
     assert np.abs(got - want).max() <= TOL_JAX
     assert np.abs(got - _oracle(sig2)).max() <= TOL_ORACLE
 
 
 def test_load_numpy_operators_from_jax_tables(sig2):
-    fe = MFCC()
+    fe = MFCC(device="cpu")
     base = fe(torch.from_numpy(sig2)).clone()
     base_frames = fe.frames(torch.zeros(1, 3, 512) + 1.0).clone()
     fe.load_numpy_operators({
@@ -84,7 +85,7 @@ def test_load_numpy_operators_from_jax_tables(sig2):
 
 
 def test_load_numpy_operators_changes_output(sig2):
-    fe = MFCC()
+    fe = MFCC(device="cpu")
     base = fe(torch.from_numpy(sig2))
     fe.load_numpy_operators({"window": np.ones(512)})
     assert not torch.equal(fe(torch.from_numpy(sig2)), base)
@@ -109,7 +110,7 @@ def test_load_numpy_operators_changes_output(sig2):
     (dict(cfg=MFCCConfig(step=160, window_samples=400)), "chain", None),
 ])
 def test_routes_mirror_jax(sig2, kw, route, not_ported):
-    fe = MFCC(**kw)
+    fe = MFCC(**kw, device="cpu")
     assert fe._route == route
     assert (fe._not_ported is None) == (not_ported is None)
     if not_ported:
@@ -127,27 +128,36 @@ def test_routes_mirror_jax(sig2, kw, route, not_ported):
 
 
 def test_fast_frames_route_flag():
-    assert "K5" in MFCC(precision="fast")._frames_not_ported
-    assert MFCC()._frames_not_ported is None
+    assert "K5" in MFCC(precision="fast", device="cpu")._frames_not_ported
+    assert MFCC(device="cpu")._frames_not_ported is None
 
 
 @pytest.mark.parametrize("precision", ["split", "f64ish", "high", "default"])
 def test_unported_precision_raises(precision):
     with pytest.raises(NotImplementedError, match="not ported"):
-        MFCC(precision=precision)
+        MFCC(precision=precision, device="cpu")
 
 
-def test_int_paths_raise(sig2):
-    fe = MFCC()
-    with pytest.raises(NotImplementedError, match="INT slice"):
-        fe.int(sig2)
-    with pytest.raises(NotImplementedError, match="INT slice"):
-        fe.int_frames(np.zeros((1, 512)))
+def test_default_device_is_the_card():
+    """MFCC() puts its operators on the card; on a host without one it
+    raises and names device="cpu", and never builds on the CPU silently."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        MFCC()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        MFCC(MFCCConfig(nfft=256, step=86), precision="fast")
+
+
+def test_explicit_cpu_device():
+    fe = MFCC(device="cpu")
+    assert all(b.device.type == "cpu" for b in fe.buffers())
+    assert MFCC(device=torch.device("cpu")).window.device.type == "cpu"
 
 
 def test_cpu_module_never_launches(sig2):
     before = fladder.LAUNCHES
-    MFCC()(torch.from_numpy(sig2))
+    MFCC(device="cpu")(torch.from_numpy(sig2))
     assert fladder.LAUNCHES == before
 
 
@@ -155,8 +165,8 @@ def test_exports():
     assert set(mfcc_tpu_torch.__all__) >= {"MFCC", "MFCCConfig",
                                           "DEFAULT_CONFIG", "MIC_CONFIG"}
     assert "nvcc" in mfcc_tpu_torch.__doc__
-    assert isinstance(MFCC(), torch.nn.Module)
-    fe = MFCC()
+    assert isinstance(MFCC(device="cpu"), torch.nn.Module)
+    fe = MFCC(device="cpu")
     names = {n for n, _ in fe.named_buffers()}
     assert names == {"window", "dft", "mel", "dct", "ladder_window",
                      "mel_band"}
@@ -170,13 +180,13 @@ def test_load_state_dict_rebuilds_derived_operators(sig2):
     frames() agree with a module given the same operators directly."""
     mel = np.zeros((257, 32))
     mel[:256] = 1.0 / 256          # every band now spans all bins
-    src = MFCC()
+    src = MFCC(device="cpu")
     state = src.state_dict()
     state["window"] = torch.ones(512, dtype=torch.float64)
     state["mel"] = torch.from_numpy(mel)
-    fe = MFCC()
+    fe = MFCC(device="cpu")
     fe.load_state_dict(state)
-    ref = MFCC()
+    ref = MFCC(device="cpu")
     ref.load_numpy_operators({"window": np.ones(512), "mel": mel})
     assert torch.equal(fe.dft, ref.dft)
     assert torch.equal(fe.dft[:, 0],
@@ -199,7 +209,7 @@ def test_input_on_another_device_raises(method):
     given a tensor on another device raises and names both."""
     x = torch.empty(2, 3, 512, device="meta")
     with pytest.raises(ValueError, match="meta.*cpu"):
-        getattr(MFCC(), method)(x)
+        getattr(MFCC(device="cpu"), method)(x)
 
 
 def _run(args, cwd, timeout=300):
@@ -211,7 +221,9 @@ def _run(args, cwd, timeout=300):
 
 def test_import_leaves_jax_out():
     res = _run(["-c", "import sys, mfcc_tpu_torch, mfcc_tpu_torch.pipeline, "
-                "mfcc_tpu_torch.kernels.build, mfcc_tpu_torch.ref.float_ref; "
+                "mfcc_tpu_torch.kernels.build, mfcc_tpu_torch.ref.float_ref, "
+                "mfcc_tpu_torch.ref.int_ref, mfcc_tpu_torch.ops.int_ops, "
+                "mfcc_tpu_torch.ops.int_fused; "
                 "bad = sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'mfcc_tpu.')) "
                 "or m == 'mfcc_tpu'); print(bad); sys.exit(1 if bad else 0)"],
