@@ -1,5 +1,5 @@
-"""Drive the torch port's float and INT batch paths on one CUDA card and
-check them.
+"""Drive the torch port's float and INT batch paths and its serving path on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -26,12 +26,31 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      ``int_frames`` launched K3, the shape and dtype, and element-exact
      equality with the oracle ``ref.int_ref.mfcc_int`` on 8 spread streams;
      times K2, ``MFCC.int``, K2's plain version, and K3 and its plain
-     version on the headline's 382,976 frames.
+     version on the headline's 382,976 frames;
+  5. serving path: compares the stream-step kernels K4 (``ops/
+     stream_fused.py``, float and INT) with their plain versions over
+     multi-step runs with a mid-run reset of every other stream (S=130, C
+     in {1, 170, 600, 1024, 2048}, hop 170 and 160, int16 / int32 outside
+     int16 range / non-integer f32 chunks, every carry and chunk layout,
+     and S=4096 x C=1024): INT features and every carry with
+     ``torch.equal``, float features within ``KERNEL_TOL``; runs
+     ``StreamingMFCC().process`` on S=64 streams at C=1024 (64 full chunks)
+     and C=149 (ending in a flush), float and INT, against batch K1 / K2
+     (INT element for element, float within ``KERNEL_TOL`` on the frames of
+     full-chunk steps, whether bit-identical printed, and within ``GATE``
+     of the float64 oracle on 8 spread streams) with the launch counts (K4
+     once per full-chunk step, K1/K2 never, K3 once per INT flush); times
+     K4 beside its plain version and one ``StreamingMFCC.step`` (the mean
+     over a chain of 16) at S=4096 x C=1024 int16, with real-time streams;
+     and serves 8 concurrent TCP clients from an INT and a float
+     ``FeatureServer`` on the card, each client's frames held equal to the
+     INT oracle, resp. to ``StreamingMFCC(mel_floor=1.0)`` on its signal,
+     and the frames sent read back over the status plane.
 
 Times are CUDA events, median of 10 after warm-up.  Each main path
-(``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``)
-is driven with every launch count set to 0 just before and read just
-after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
+(``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``,
+``StreamingMFCC().process``) is driven with every launch count set to 0
+just before and read just after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
 exits with an error before printing anything else.  The line before the
 last is a JSON summary of the kernels (with each one's bound: the larger
 of its bytes over the memory rate and its operations over the peak rate
@@ -44,6 +63,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -52,6 +72,7 @@ import torch
 KERNEL_TOL = 5e-5   # kernel vs its plain version (both float64 inside)
 GATE = 5e-4         # the float contract: max-abs vs the float64 oracle
 S_MAIN, T_MAIN = 1024, 63_922   # 4 s per stream at 16 kHz: 374 frames
+S_SERVE, C_SERVE = 4096, 1024   # the serving shape: streams x chunk samples
 ITERS, WARMUP = 10, 3
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
@@ -124,9 +145,10 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def zero_counts(fladder, int_fused) -> None:
-    fladder.LAUNCHES = 0
-    int_fused.LAUNCHES = 0
+def zero_counts(*modules) -> None:
+    """Set the launch count of every kernel module to 0."""
+    for m in modules:
+        m.LAUNCHES = 0
 
 
 def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
@@ -231,7 +253,7 @@ def float_phases(dev, card: str) -> dict:
     """K1 against its plain version, the float main path, and K1's times;
     returns K1's entry of the kernels line."""
     from mfcc_tpu_torch import MFCC, MFCCConfig
-    from mfcc_tpu_torch.ops import fladder, float_ops, int_fused
+    from mfcc_tpu_torch.ops import fladder, float_ops, int_fused, stream_fused
     from mfcc_tpu_torch.ref import float_ref
 
     # -- K1 vs plain version -------------------------------------------------
@@ -270,7 +292,7 @@ def float_phases(dev, card: str) -> dict:
     audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
     fe = MFCC().to(dev)
     calls = 2
-    zero_counts(fladder, int_fused)
+    zero_counts(fladder, int_fused, stream_fused)
     outs = [fe(audio) for _ in range(calls)]
     torch.cuda.synchronize()
     launches = fladder.LAUNCHES
@@ -333,7 +355,7 @@ def int_phases(dev, card: str) -> list[dict]:
     """K2 and K3 against their plain versions, the INT main path, and
     their times; returns their entries of the kernels line."""
     from mfcc_tpu_torch import MFCC, MFCCConfig, MIC_CONFIG
-    from mfcc_tpu_torch.ops import fladder, framing, int_fused
+    from mfcc_tpu_torch.ops import fladder, framing, int_fused, stream_fused
     from mfcc_tpu_torch.ref import int_ref
 
     # -- K2 vs plain version -------------------------------------------------
@@ -393,14 +415,14 @@ def int_phases(dev, card: str) -> list[dict]:
     hframes = framing.extract_frames(emph, 512, cfg.hop).contiguous()
     del emph
     calls = 2
-    zero_counts(fladder, int_fused)
+    zero_counts(fladder, int_fused, stream_fused)
     outs = [fe.int(audio) for _ in range(calls)]
     torch.cuda.synchronize()
     k2_launches = int_fused.LAUNCHES
     check(k2_launches == calls and fladder.LAUNCHES == 0,
           f"K2 launches {k2_launches} (K1 {fladder.LAUNCHES}) for {calls} "
           "int() calls")
-    zero_counts(fladder, int_fused)
+    zero_counts(fladder, int_fused, stream_fused)
     out_frames = fe.int_frames(hframes)
     torch.cuda.synchronize()
     k3_launches = int_fused.LAUNCHES
@@ -479,6 +501,280 @@ def int_phases(dev, card: str) -> list[dict]:
     }]
 
 
+def k4_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
+           seed: int = 0) -> float:
+    """K4 against its plain version over a multi-step run on the card, with
+    a reset of every other stream at step 2 (which desynchronizes the carry
+    phases); chunks alternate int16 and the state dtype (INT: int32 outside
+    int16 range; float: values that are not integers), and the carry and
+    chunk layouts rotate.  Every feature slot and every carry are compared:
+    INT and carries with ``torch.equal``, float features within KERNEL_TOL.
+    Returns the float max-abs difference (0 for INT)."""
+    from mfcc_tpu_torch.ops import stream_fused
+    rng = np.random.default_rng(seed)
+    P = cfg.nfft - 1
+    sdt = torch.int32 if int_path else torch.float32
+    step = (stream_fused.stream_step_int if int_path
+            else stream_fused.stream_step_float)
+    plain = (stream_fused.stream_step_int_plain if int_path
+             else stream_fused.stream_step_float_plain)
+    carry = torch.zeros(S, P, dtype=sdt, device=dev)
+    count = torch.zeros(S, dtype=torch.int32, device=dev)
+    prev = torch.zeros(S, dtype=sdt, device=dev)
+    err = 0 if int_path else 0.0
+    what = f"K4-{'INT' if int_path else 'float'} S={S} C={C} hop {cfg.hop}"
+    for k in range(steps):
+        if k % 2 == 0:
+            x = rng.integers(-32768, 32768, (S, C)).astype(np.int16)
+        elif int_path:
+            x = rng.integers(-2 ** 31, 2 ** 31, (S, C)).astype(np.int32)
+        else:
+            x = (rng.integers(-25000, 25000, (S, C))
+                 + rng.random((S, C))).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        if k == 2:
+            count[::2] = 0
+            prev[::2] = 0
+        ts, layout = k % 2 == 1, ("time", "positions", "stream")[k % 3]
+        xin = x.T.contiguous() if layout == "positions" else x
+        cin = carry.T.contiguous() if ts else carry
+        start = (P - count).to(torch.int32)
+        f, nc = step(cin, xin, start, prev, cfg, transposed_state=ts,
+                     chunk_layout=layout)
+        fp, ncp = plain(cin, xin, start, prev, cfg, transposed_state=ts,
+                        chunk_layout=layout)
+        torch.cuda.synchronize()
+        where = f"{what} step {k} ({x.dtype}, {layout}, " \
+                f"transposed_state={ts})"
+        check(tuple(f.shape) == (S, (C - 1) // cfg.hop + 1, cfg.nceptrums),
+              f"{where}: shape {tuple(f.shape)}")
+        compare_exact(nc, ncp, f"{where} carry")
+        if int_path:
+            compare_exact(f, fp, f"{where} features")
+        else:
+            e = compare(f, fp, f"{where} features")
+            check(e <= KERNEL_TOL, f"{where}: {e} > {KERNEL_TOL}")
+            err = max(err, e)
+        carry = nc.T if ts else nc
+        total = count + C
+        n_valid = torch.clamp_min((total - cfg.nfft) // cfg.hop + 1, 0)
+        count = (total - n_valid * cfg.hop).to(torch.int32)
+        prev = x[:, -1].to(sdt)
+    return err
+
+
+def serving_phases(dev, card: str) -> list[dict]:
+    """K4 against its plain version, streaming against batch, K4's times
+    at the serving shape, and FeatureServer on the card; returns K4's
+    entries of the kernels line."""
+    from mfcc_tpu_torch import MFCC, MFCCConfig, StreamingMFCC, FeatureServer
+    from mfcc_tpu_torch.ops import fladder, int_fused, stream_fused
+    from mfcc_tpu_torch.ref import float_ref, int_ref
+    from mfcc_tpu_torch.server import query_status, stream_samples
+
+    # -- K4 vs plain version -------------------------------------------------
+    errs = {True: 0, False: 0.0}
+    for int_path in (True, False):
+        for hop in (170, 160):
+            for C in (1, 170, 600, 1024, 2048):
+                errs[int_path] = max(errs[int_path], k4_run(
+                    dev, int_path, 130, C, MFCCConfig(step=hop),
+                    seed=C + hop))
+        errs[int_path] = max(errs[int_path], k4_run(
+            dev, int_path, S_SERVE, C_SERVE, MFCCConfig(), steps=3, seed=1))
+        print(f"K4-{'INT' if int_path else 'float'} vs plain: S=130 x C in "
+              "{1, 170, 600, 1024, 2048}, hop 170 and 160, 4 steps each, "
+              f"and S={S_SERVE} x C={C_SERVE}: every carry equal, features "
+              + ("equal" if int_path else f"max-abs {errs[int_path]:.3e}"))
+
+    # -- streaming equals batch ------------------------------------------------
+    cfg = MFCCConfig()
+    S = 64
+    sig = make_audio(S, 64 * C_SERVE, seed=5).astype(np.int16)
+    audio = torch.from_numpy(sig).to(dev)
+    fe = MFCC()
+    spread = np.linspace(0, S - 1, 8).astype(int)
+    launches = {}
+    for C, T in ((C_SERVE, sig.shape[1]), (149, T_MAIN)):
+        x = audio[:, :T]
+        n_full = T // C
+        flush = T % C != 0
+        k2_int = fe.int(x).cpu().numpy()
+        k1_float = fe(x).cpu().numpy()
+        for int_path in (True, False):
+            zero_counts(fladder, int_fused, stream_fused)
+            outs, _ = StreamingMFCC(int_path=int_path).process(x, C)
+            torch.cuda.synchronize()
+            n = {"K4": stream_fused.LAUNCHES, "K1": fladder.LAUNCHES,
+                 "K2/K3": int_fused.LAUNCHES}
+            want_k3 = int(flush and int_path)
+            check(n == {"K4": n_full, "K1": 0, "K2/K3": want_k3},
+                  f"launches {n} for {n_full} full steps and "
+                  f"{int(flush)} flush step")
+            if C == C_SERVE:
+                launches[int_path] = n["K4"]
+            kind = "INT" if int_path else "float"
+            got = np.stack(outs)
+            want = k2_int if int_path else k1_float
+            check(got.shape == want.shape, f"streamed {kind} {got.shape} "
+                  f"vs batch {want.shape}")
+            full = cfg.n_frames(n_full * C)     # frames of full-chunk steps
+            if int_path:
+                ndiff = int((got != want).sum())
+                check(ndiff == 0, f"streamed INT C={C} differs from batch "
+                      f"K2 in {ndiff} elements")
+                msg = f"equal to batch K2 ({want.size} elements)"
+            else:
+                check(bool(np.isfinite(got).all()), "non-finite streamed")
+                e = float(np.abs(got[:, :full] - want[:, :full]).max())
+                same = bool(np.array_equal(got[:, :full], want[:, :full]))
+                check(e <= KERNEL_TOL, f"streamed float C={C} vs K1: {e}")
+                e_all = float(np.abs(got - want).max())
+                check(e_all <= GATE, f"streamed float C={C} vs K1: {e_all}")
+                oracle = np.stack([float_ref.mfcc_float(sig[i, :T], cfg)
+                                   for i in spread])
+                e_or = float(np.abs(got[spread] - oracle).max())
+                check(e_or <= GATE, f"streamed float vs oracle: {e_or}")
+                msg = (f"max-abs vs batch K1 {e:.3e} on the {full} frames "
+                       f"of full steps (bit-identical: {same}), {e_all:.3e} "
+                       f"on all; vs float64 oracle on 8 spread streams "
+                       f"{e_or:.3e} (gate {GATE})")
+            print(f"StreamingMFCC(int_path={int_path}).process S={S} x "
+                  f"T={T} int16, C={C}: launches {n}; {msg}")
+        del k2_int, k1_float
+
+    # -- K4 times at the serving shape -----------------------------------------
+    steps = 16
+    serve = torch.from_numpy(make_audio(S_SERVE, (steps + 2) * C_SERVE,
+                                        seed=6).astype(np.int16)).to(dev)
+    chunks = [serve[:, i * C_SERVE:(i + 1) * C_SERVE].contiguous()
+              for i in range(steps + 2)]
+    entries = []
+    for int_path in (False, True):
+        kind = "INT" if int_path else "float"
+        sm = StreamingMFCC(int_path=int_path)
+        state = sm.init(S_SERVE)
+        for c in chunks[:2]:                    # a carry of real audio
+            _, _, state = sm.step(c, state)
+        mask = sm.step(chunks[2], state)[1]
+        valid = int(mask.sum())
+        start = (cfg.windowlen - 1 - state.count).to(torch.int32)
+        args = (state.buffer, chunks[2], start, state.prev, cfg)
+        kern = (stream_fused.stream_step_int if int_path
+                else stream_fused.stream_step_float)
+        plain = (stream_fused.stream_step_int_plain if int_path
+                 else stream_fused.stream_step_float_plain)
+        k_ms = time_ms(lambda: kern(*args))
+        p_ms = time_ms(lambda: plain(*args))
+
+        def chain():
+            st = state
+            for c in chunks[2:]:
+                _, _, st = sm.step(c, st)
+        step_ms = time_ms(chain) / steps
+        for name, ms in ((f"K4-{kind} kernel", k_ms),
+                         (f"K4-{kind} plain version", p_ms),
+                         (f"StreamingMFCC({kind}).step, mean of a chain of "
+                          f"{steps}", step_ms)):
+            print(f"time {name}: {ms:.4f} ms per step, "
+                  f"{S_SERVE * C_SERVE / 16000 / (ms / 1e3):.4e} real-time "
+                  f"streams (S={S_SERVE} x C={C_SERVE} int16, median of "
+                  f"{ITERS}; {card})")
+        F = stream_fused.frames_per_step(C_SERVE, cfg)
+        P = cfg.windowlen - 1
+        nbytes = (chunks[2].nbytes + 2 * S_SERVE * P * 4 + S_SERVE * 8
+                  + S_SERVE * F * cfg.nceptrums * 4)
+        if int_path:
+            ops_ = int_fused.int_operators(cfg, dev)
+            nbytes += sum(t.nbytes for t in ops_[:5])
+            ops = (valid * int_ops_per_frame(cfg, ops_.band.cpu())
+                   + 4 * S_SERVE * C_SERVE)
+            b_ms, b_by = bound(nbytes, ops, INT32_OPS)
+        else:
+            ops_ = fladder.default_operators(cfg, dev)
+            nbytes += sum(t.nbytes for t in ops_)
+            ops = (valid * k1_flops_per_frame(cfg, ops_.band.cpu())
+                   + 2 * S_SERVE * C_SERVE)
+            b_ms, b_by = bound(nbytes, ops, FP64_FLOPS)
+        print(f"K4-{kind} bound: {nbytes} bytes, {valid} valid frames "
+              f"({valid / S_SERVE:.2f} per stream), {ops:.4e} "
+              f"{'int32' if int_path else 'FP64'} operations -> "
+              f"{b_ms:.4f} ms ({b_by})")
+        entries.append({
+            "name": f"stream_step {kind} (K4)", "route": "cuda",
+            "source": "mfcc_tpu_torch/csrc/stream_step.cu",
+            "replaces": ("mfcc_tpu/ops/pallas_stream.py:502" if int_path
+                         else "mfcc_tpu/ops/pallas_stream.py:421"),
+            "launches": launches[int_path], "max_abs_err": errs[int_path],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+    del serve, chunks
+
+    # -- FeatureServer on the card ---------------------------------------------
+    sigs = make_audio(8, 16 * C_SERVE, seed=7).astype(np.int16)
+    for int_path in (True, False):
+        kind = "INT" if int_path else "float"
+        if int_path:        # 1 s each: the EOF flush takes K3
+            local = [sigs[i, : 16000 - 97 * i] for i in range(8)]
+            wants = [int_ref.mfcc_int(s_, cfg).astype(np.int16)
+                     for s_ in local]
+        else:               # whole chunks: every step is a K4 step
+            local = list(sigs)
+            feats, _ = StreamingMFCC(mel_floor=1.0).process(
+                torch.from_numpy(sigs).to(dev), C_SERVE)
+            wants = [np.clip(np.round(f), -32768, 32767).astype(np.int16)
+                     for f in feats]
+        zero_counts(fladder, int_fused, stream_fused)
+        srv = FeatureServer(cfg, max_streams=64, chunk=C_SERVE,
+                            int_path=int_path, status_port=0).start()
+        try:
+            host, port = srv.address
+            results, errors = [None] * 8, []
+
+            def client(i):
+                try:
+                    results[i] = stream_samples(
+                        host, port, local[i], cfg.nceptrums,
+                        expect_frames=len(wants[i]), timeout=60)
+                except Exception as e:      # raised in the main thread
+                    errors.append((i, repr(e)))
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(8)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=90)
+            secs = time.perf_counter() - t0
+            check(not errors and not any(t.is_alive() for t in threads),
+                  f"{kind} server clients: {errors[:3]}")
+            for i in range(8):
+                check(results[i] is not None
+                      and np.array_equal(results[i], wants[i]),
+                      f"{kind} server client {i}: "
+                      f"{None if results[i] is None else results[i].shape} "
+                      f"vs {wants[i].shape}")
+            (stats,) = query_status(*srv.status_address, "STATS",
+                                    timeout=10)
+            sent = sum(len(w) for w in wants)
+            check(stats["frames_tx"] >= sent and stats["steps"] >= 1,
+                  f"STATS {stats} for {sent} frames")
+            check(stream_fused.LAUNCHES >= 1, "the server never ran K4")
+            print(f"FeatureServer({kind}) on the card, 8 concurrent clients "
+                  f"of {len(local[0])} samples: every frame equal to "
+                  + ("the INT oracle" if int_path else
+                     "clamp(round(StreamingMFCC(mel_floor=1.0)))")
+                  + f"; STATS steps {stats['steps']}, frames_tx "
+                  f"{stats['frames_tx']} ({sent} expected); K4 launches "
+                  f"{stream_fused.LAUNCHES}, K3 {int_fused.LAUNCHES}; "
+                  f"{secs:.2f} s wall")
+        finally:
+            srv.stop()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA card "
@@ -501,6 +797,8 @@ def main() -> int:
     kernels = [float_phases(dev, card)]
     torch.cuda.empty_cache()
     kernels += int_phases(dev, card)
+    torch.cuda.empty_cache()
+    kernels += serving_phases(dev, card)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

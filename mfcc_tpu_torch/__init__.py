@@ -14,10 +14,17 @@ Ported so far:
     (``ops/int_ops.py`` chain); its fused kernels (K2 from audio, K3 from
     frames, ``ops/int_fused.py``) are CUDA C++ for sm_90a in
     ``csrc/int_mfcc.cu`` on the device functions of
-    ``csrc/int_stages.cuh``.
+    ``csrc/int_stages.cuh``;
+  * the serving path: ``StreamingMFCC`` (float and bit-exact INT, chunked
+    output equal to batch output for any chunking) and ``FeatureServer``
+    (the TCP server of the reference's wire formats) on top of it; its
+    fused step kernels (K4 float and INT, ``ops/stream_fused.py``) are
+    CUDA C++ for sm_90a in ``csrc/stream_step.cu``, on the tails of K1
+    (``csrc/fladder_stages.cuh``) and K2 (``csrc/int_stages.cuh``).
 
-``MFCC()`` runs on the CUDA card by default; ``device="cpu"`` runs the
-plain torch versions on the host.
+``MFCC()``, ``StreamingMFCC()`` and ``FeatureServer()`` run on the CUDA
+card by default; ``device="cpu"`` runs the plain torch versions on the
+host.
 
 Kernel build route: at first use, ``kernels/build.py`` runs ``nvcc
 -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler
@@ -29,8 +36,10 @@ Importing the package builds nothing and never imports JAX.
 
 from .config import MFCCConfig, DEFAULT_CONFIG, MIC_CONFIG
 from .pipeline import MFCC
+from .streaming import StreamingMFCC, StreamState
+from .server import FeatureServer
 
 __version__ = "0.1.0"
 
 __all__ = ["MFCC", "MFCCConfig", "DEFAULT_CONFIG", "MIC_CONFIG",
-           "__version__"]
+           "StreamingMFCC", "StreamState", "FeatureServer", "__version__"]

@@ -7,7 +7,9 @@
 //   pre-emphasis y = x - 0.96875*prev -> window * 1/nfft -> FFT -> |X|^2 on
 //   bins [0, nfft/2) -> mel product -> optional max(mel, mel_floor) ->
 //   log2 -> DCT product,
-// every stage inside this kernel, the products as FMA loops.
+// every stage inside this kernel, the products as FMA loops.  Everything
+// after the ingest is the device code of fladder_stages.cuh, which the
+// float serving step (stream_step.cu) shares.
 //
 // Precision: the interior runs in FP64 and the result is rounded to f32
 // once, at the store.  The TPU kernel computes in f32 because the TPU has
@@ -57,25 +59,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fladder_stages.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTilePoints = 1024;   // packed complex points per block
-constexpr int kPadShift = 4;        // one pad double2 per 16
+using namespace fladder_stages;
+
 constexpr double kEmph = 0.96875;   // 1 - 1/32
 
 __device__ __forceinline__ double to_f64(int16_t v) { return static_cast<double>(v); }
 __device__ __forceinline__ double to_f64(float v) { return static_cast<double>(v); }
-
-__device__ __forceinline__ int pad(int p) { return p + (p >> kPadShift); }
-
-__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
-  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ int bitrev(int v, int bits) {
-  return static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
-}
 
 template <typename In>
 __global__ void __launch_bounds__(kThreads)
@@ -86,26 +79,19 @@ fladder_kernel(const In* __restrict__ audio, float* __restrict__ out,
                const double* __restrict__ mel, const double* __restrict__ dct,
                const int2* __restrict__ band, double mel_floor) {
   extern __shared__ double2 smem[];
-  const int nbins = 1 << (log2n - 1);
-  const int log2m = log2n - 1;          // packed FFT size M = nfft/2
-  const int M = nbins;
-  const int R = M + (M >> kPadShift);   // padded row
   const int FT = frames_per_block;
-  double2* buf = smem;                                      // FT x R
-  double2* stw = buf + FT * R;                              // nbins: W^k
-  double* power = reinterpret_cast<double*>(stw + nbins);   // FT x nbins
-  double* logmel = power + FT * nbins;                      // FT x nfilters
-  int2* sband = reinterpret_cast<int2*>(logmel + FT * nfilters);
+  const int log2m = log2n - 1;
+  const int M = 1 << log2m;
+  const Smem sm = carve(smem, FT, log2n, nfilters);
 
   const long long s = blockIdx.x / tiles_per_stream;
   const int f0 = static_cast<int>(blockIdx.x % tiles_per_stream) * FT;
   const In* x = audio + s * T;
 
-  for (int i = threadIdx.x; i < nbins; i += blockDim.x) stw[i] = tw[i];
-  for (int i = threadIdx.x; i < nfilters; i += blockDim.x) sband[i] = band[i];
+  load_constants(sm, tw, band, M, nfilters);
 
-  // 1. ingest: pre-emphasis and window * 1/nfft on sample pairs, packed as
-  //    z[m] = y[2m] + i*y[2m+1].
+  // ingest: pre-emphasis and window * 1/nfft on sample pairs, packed as
+  // z[m] = y[2m] + i*y[2m+1].
   for (int i = threadIdx.x; i < FT * M; i += blockDim.x) {
     const int f = i >> log2m;
     const int m = i & (M - 1);
@@ -118,91 +104,12 @@ fladder_kernel(const In* __restrict__ audio, float* __restrict__ out,
       const double b = to_f64(x[t + 1]);
       z = make_double2((a - kEmph * p) * win[2 * m], (b - kEmph * a) * win[2 * m + 1]);
     }
-    buf[f * R + pad(m)] = z;
+    sm.buf[f * sm.R + pad(m)] = z;
   }
   __syncthreads();
 
-  // 2. M-point DIF FFT.  A radix-4 pass merges the radix-2 stages of spans
-  //    2h and h (group 4h, twiddle w = W_4h^j): outputs b0+b2, (b0-b2) w^2,
-  //    (b1+b3) w, (b1-b3) w^3 with b0,b1 = a0 +- a2, b2 = a1 + a3,
-  //    b3 = -i (a1 - a3).  W_4h^j = W_nfft^(j << (st + 1)).
-  for (int st = 0; st < log2m;) {
-    if (log2m - st >= 2) {
-      const int l2h = log2m - st - 2;
-      const int h = 1 << l2h;
-      for (int b = threadIdx.x; b < FT * (M >> 2); b += blockDim.x) {
-        const int q = b & ((M >> 2) - 1);
-        const int j = q & (h - 1);
-        const int i0 = ((q >> l2h) << (l2h + 2)) + j;
-        double2* row = buf + (b >> (log2m - 2)) * R;
-        const int p0 = pad(i0), p1 = pad(i0 + h), p2 = pad(i0 + 2 * h), p3 = pad(i0 + 3 * h);
-        const double2 a0 = row[p0], a1 = row[p1], a2 = row[p2], a3 = row[p3];
-        const double2 w = stw[j << (st + 1)];
-        const double2 w2 = stw[j << (st + 2)];
-        const double2 w3 = cmul(w, w2);
-        const double2 b0 = make_double2(a0.x + a2.x, a0.y + a2.y);
-        const double2 b1 = make_double2(a0.x - a2.x, a0.y - a2.y);
-        const double2 b2 = make_double2(a1.x + a3.x, a1.y + a3.y);
-        const double2 b3 = make_double2(a1.y - a3.y, a3.x - a1.x);
-        row[p0] = make_double2(b0.x + b2.x, b0.y + b2.y);
-        row[p1] = cmul(make_double2(b0.x - b2.x, b0.y - b2.y), w2);
-        row[p2] = cmul(make_double2(b1.x + b3.x, b1.y + b3.y), w);
-        row[p3] = cmul(make_double2(b1.x - b3.x, b1.y - b3.y), w3);
-      }
-      st += 2;
-    } else {  // last radix-2 stage: span 1, twiddle 1
-      for (int b = threadIdx.x; b < FT * (M >> 1); b += blockDim.x) {
-        double2* row = buf + (b >> (log2m - 1)) * R;
-        const int i0 = 2 * (b & ((M >> 1) - 1));
-        const int p0 = pad(i0), p1 = pad(i0 + 1);
-        const double2 a = row[p0], c = row[p1];
-        row[p0] = make_double2(a.x + c.x, a.y + c.y);
-        row[p1] = make_double2(a.x - c.x, a.y - c.y);
-      }
-      st += 1;
-    }
-    __syncthreads();
-  }
-
-  // 3. unpack the real spectrum (Z[k] sits at bitrev(k)) and take |X|^2.
-  for (int b = threadIdx.x; b < FT * nbins; b += blockDim.x) {
-    const int f = b >> log2m;
-    const int k = b & (nbins - 1);
-    const double2* row = buf + f * R;
-    const double2 zk = row[pad(bitrev(k, log2m))];
-    const double2 zn = row[pad(bitrev((M - k) & (M - 1), log2m))];
-    const double2 xe = make_double2(0.5 * (zk.x + zn.x), 0.5 * (zk.y - zn.y));
-    const double2 xo = make_double2(0.5 * (zk.y + zn.y), -0.5 * (zk.x - zn.x));
-    const double2 wx = cmul(xo, stw[k]);
-    const double re = xe.x + wx.x, im = xe.y + wx.y;
-    power[f * nbins + k] = re * re + im * im;
-  }
-  __syncthreads();
-
-  // 4. mel product over each filter's band [lo, hi), floor, log2.
-  for (int o = threadIdx.x; o < FT * nfilters; o += blockDim.x) {
-    const int f = o / nfilters;
-    const int m = o - f * nfilters;
-    const double* p = power + f * nbins;
-    const int2 bd = sband[m];
-    double acc = 0.0;
-    for (int k = bd.x; k < bd.y; ++k) acc = fma(p[k], mel[k * nfilters + m], acc);
-    if (mel_floor != 0.0) acc = fmax(acc, mel_floor);
-    logmel[o] = log2(acc);
-  }
-  __syncthreads();
-
-  // 5. DCT product ((nfilters, ncep) row-major) and the (S, F, ncep) store.
-  for (int o = threadIdx.x; o < FT * ncep; o += blockDim.x) {
-    const int f = o / ncep;
-    const int c = o - f * ncep;
-    const int g = f0 + f;
-    if (g >= F) continue;
-    const double* lm = logmel + f * nfilters;
-    double acc = 0.0;
-    for (int m = 0; m < nfilters; ++m) acc = fma(lm[m], dct[m * ncep + c], acc);
-    out[(s * F + g) * ncep + c] = static_cast<float>(acc);
-  }
+  ladder_tail(sm, FT, log2n, nfilters, ncep, mel, dct, mel_floor,
+              out + s * F * ncep, f0, F);
 }
 
 template <typename In>
@@ -210,27 +117,18 @@ int launch(const In* audio, float* out, long long S, long long T, int F,
            int hop, int nfft, int nfilters, int ncep, const double* win,
            const double* tw, const double* mel, const double* dct,
            const int* band, double mel_floor, void* stream) {
-  int log2n = 0;
-  while ((1 << log2n) < nfft) ++log2n;
-  if (nfft < 8 || (1 << log2n) != nfft || F < 1 || hop < 1 || nfilters < 1 ||
+  const int log2n = log2_nfft(nfft);
+  if (log2n < 0 || F < 1 || hop < 1 || nfilters < 1 ||
       ncep < 1 || S < 0 || T < static_cast<long long>(F - 1) * hop + nfft)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  const int M = nfft / 2;
-  const int FT = M >= kTilePoints ? 1 : kTilePoints / M;
+  const int FT = frames_per_block(nfft);
   const long long tiles = (F + FT - 1) / FT;
   const long long blocks = S * tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(double2) * (static_cast<size_t>(FT) * (M + (M >> kPadShift)) + M) +
-      sizeof(double) * static_cast<size_t>(FT) * (M + nfilters) +
-      sizeof(int2) * static_cast<size_t>(nfilters);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(fladder_kernel<In>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = smem_bytes(FT, nfft, nfilters);
+  const int err = allow_smem(fladder_kernel<In>, smem);
+  if (err != 0) return err;
   fladder_kernel<In><<<static_cast<unsigned>(blocks), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       audio, out, T, F, hop, log2n, nfilters, ncep, FT, tiles, win,

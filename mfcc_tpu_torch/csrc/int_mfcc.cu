@@ -57,41 +57,6 @@ namespace {
 
 using namespace int_stages;
 
-constexpr int kThreads = 256;
-constexpr int kFrames = 8;   // frames per block
-
-// The block's shared memory: kFrames padded FFT rows (re, im), the
-// log-mel scratch and both twiddle tables.
-struct Smem {
-  int re[kFrames * kRow];
-  int im[kFrames * kRow];
-  int logmel[kFrames * kMaxFilters];
-  int2 tw[kNbins];
-  int2 dtw[2 * kMaxFilters];
-};
-
-__device__ __forceinline__ void load_twiddles(Smem& sm, const int2* tw,
-                                              const Tail& c) {
-  for (int i = threadIdx.x; i < kNbins; i += blockDim.x) sm.tw[i] = tw[i];
-  for (int i = threadIdx.x; i < 2 * c.nfilters; i += blockDim.x)
-    sm.dtw[i] = c.dtw[i];
-}
-
-// Store frame f's windowed point p at its bit-reversed position.
-__device__ __forceinline__ void store_point(Smem& sm, int f, int p, int v) {
-  const int q = f * kRow + pad(bitrev(p, kLog2Nfft));
-  sm.re[q] = v;
-  sm.im[q] = 0;
-}
-
-// Everything after the frames are loaded at their bit-reversed positions:
-// the 512-point FFT and the post-FFT stages; cepstra end in sm.re.
-__device__ __forceinline__ void run_tail(Smem& sm, const Tail& c) {
-  __syncthreads();
-  fft_rows(sm.re, sm.im, kRow, kFrames, kLog2Nfft, sm.tw);
-  post_fft_stages(sm.re, sm.im, kRow, kFrames, sm.logmel, sm.dtw, c);
-}
-
 __global__ void __launch_bounds__(kThreads)
 int_audio_kernel(const int16_t* __restrict__ audio, int* __restrict__ out,
                  long long T, int F, int hop, long long tiles_per_stream,
@@ -143,21 +108,6 @@ int_frames_kernel(const int* __restrict__ frames, int* __restrict__ out,
     const long long m = m0 + f;
     if (m < M) out[m * c.ncep + k] = sm.re[f * kRow + pad(k)];
   }
-}
-
-bool tail_ok(const Tail& c) {
-  return (c.nfilters == 16 || c.nfilters == 32) && c.ncep >= 1 &&
-         c.ncep <= c.nfilters && c.fb_shift >= 0 && c.fb_shift < 64 &&
-         c.log_precision >= 1 && c.log_precision <= 15 &&
-         c.log_width >= 1 && c.log_width <= 31;
-}
-
-Tail make_tail(const long long* fbw, const int* band, const int* dtw,
-               int nfilters, int ncep, int fb_shift, int log_precision,
-               int log_width) {
-  return Tail{fbw, reinterpret_cast<const int2*>(band),
-              reinterpret_cast<const int2*>(dtw), nfilters, ncep, fb_shift,
-              log_precision, log_width};
 }
 
 }  // namespace

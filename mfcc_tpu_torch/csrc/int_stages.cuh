@@ -2,8 +2,8 @@
 // arithmetic (mfcc_tpu_torch/ref/int_ref.py holds the derivations), for
 // the reference's 16-bit datapath (width 16, window precision 8, power
 // width 30, nfft 512).  Shared by the fused INT kernels of int_mfcc.cu (K2
-// from raw audio, K3 from pre-emphasized frames); the INT serving step is
-// the same tail behind a carry-aware ingest.
+// from raw audio, K3 from pre-emphasized frames) and by the INT serving
+// step K4 of stream_step.cu, the same tail behind a carry-aware ingest.
 //
 // Signed overflow is undefined in C++, while the reference's int32 stages
 // wrap mod 2^32 (the exactness argument of ops/int_ops.py needs the wrap).
@@ -63,6 +63,15 @@ __device__ __forceinline__ int wrap16(int v) {
 // (mfcc/core/preemph.py:23).
 __device__ __forceinline__ int preemph(int x, int prev) {
   return wrap16(x + (prev >> 5) - prev);
+}
+
+// The same for full-range int32 samples, the sum taken mod 2^32 as XLA's
+// int32 does (the INT serving step takes int32 chunks as they are): in
+// uint32_t, after the arithmetic shift of the signed prev.
+__device__ __forceinline__ int preemph32(int x, int prev) {
+  const uint32_t y = static_cast<uint32_t>(x) + static_cast<uint32_t>(prev >> 5) -
+                     static_cast<uint32_t>(prev);
+  return wrap16(static_cast<int>(y));
 }
 
 // Window wrap16((x * curve) >> 9), the product mod 2^32 for any int32 x
@@ -197,6 +206,58 @@ __device__ __forceinline__ void post_fft_stages(int* re, int* im, int row,
   }
   __syncthreads();
   fft_rows(re, im, row, nrows, log2n4, dtw);
+}
+
+// -- The block of the fused INT kernels (K2, K3, K4) ------------------------
+
+constexpr int kThreads = 256;
+constexpr int kFrames = 8;   // frames per block
+
+// The block's shared memory: kFrames padded FFT rows (re, im), the
+// log-mel scratch and both twiddle tables.
+struct Smem {
+  int re[kFrames * kRow];
+  int im[kFrames * kRow];
+  int logmel[kFrames * kMaxFilters];
+  int2 tw[kNbins];
+  int2 dtw[2 * kMaxFilters];
+};
+
+__device__ __forceinline__ void load_twiddles(Smem& sm, const int2* tw,
+                                              const Tail& c) {
+  for (int i = threadIdx.x; i < kNbins; i += blockDim.x) sm.tw[i] = tw[i];
+  for (int i = threadIdx.x; i < 2 * c.nfilters; i += blockDim.x)
+    sm.dtw[i] = c.dtw[i];
+}
+
+// Store frame f's windowed point p at its bit-reversed position.
+__device__ __forceinline__ void store_point(Smem& sm, int f, int p, int v) {
+  const int q = f * kRow + pad(bitrev(p, kLog2Nfft));
+  sm.re[q] = v;
+  sm.im[q] = 0;
+}
+
+// Everything after the frames are loaded at their bit-reversed positions:
+// the 512-point FFT and the post-FFT stages; cepstra end in sm.re.
+__device__ __forceinline__ void run_tail(Smem& sm, const Tail& c) {
+  __syncthreads();
+  fft_rows(sm.re, sm.im, kRow, kFrames, kLog2Nfft, sm.tw);
+  post_fft_stages(sm.re, sm.im, kRow, kFrames, sm.logmel, sm.dtw, c);
+}
+
+inline bool tail_ok(const Tail& c) {
+  return (c.nfilters == 16 || c.nfilters == 32) && c.ncep >= 1 &&
+         c.ncep <= c.nfilters && c.fb_shift >= 0 && c.fb_shift < 64 &&
+         c.log_precision >= 1 && c.log_precision <= 15 &&
+         c.log_width >= 1 && c.log_width <= 31;
+}
+
+inline Tail make_tail(const long long* fbw, const int* band, const int* dtw,
+                      int nfilters, int ncep, int fb_shift, int log_precision,
+                      int log_width) {
+  return Tail{fbw, reinterpret_cast<const int2*>(band),
+              reinterpret_cast<const int2*>(dtw), nfilters, ncep, fb_shift,
+              log_precision, log_width};
 }
 
 }  // namespace int_stages

@@ -1,0 +1,326 @@
+// The serving step K4 for Hopper (sm_90a): one chunk of every stream in,
+// its completed frames' cepstra and the new carry out, in one kernel.  Two
+// kernels, float and bit-exact INT:
+//
+//  mfcc_stream_f32_{i16,f32}:  carry (S, P) f32, chunk (S, C) int16 or f32
+//      -> (S, F, ncep) f32 + new carry (S, P) f32.  Replaces the TPU kernel
+//      mfcc_tpu/ops/pallas_stream.py:_stream_fladder_kernel (entry
+//      stream_step_float); the tail is K1's (fladder_stages.cuh).
+//  mfcc_stream_int_{i16,i32}:  carry (S, P) int32, chunk (S, C) int16 or
+//      int32 -> (S, F, ncep) int32 + new carry (S, P) int32.  Replaces
+//      pallas_stream.py:_stream_int_kernel (entry stream_step_int); the
+//      tail is K2's (int_stages.cuh), element-exact.
+//
+// The function, per stream s (P = nfft - 1, F = (C - 1) / hop + 1;
+// start[s] = P - count and prev[s] with the reset already merged by the
+// caller):
+//   E[q] = carry[s, q]                                   for q < P,
+//          emph(chunk[s, q-P], q == P ? prev[s] : chunk[s, q-P-1])
+//                                                        for P <= q < P+C,
+//          0                                              beyond (the zero
+//          pad of streaming._chunk_step_batch);
+//   frame f, point j = E[start[s] + f*hop + j] for f < F, then the batch
+//   tail; the new carry is E[C : C+P].
+// Frame slots past a stream's valid count are computed from the zero-padded
+// signal like the others (the caller masks them), so kernel and plain
+// version agree on every slot.
+//
+// Emphasis.  Float: x - 0.96875f * p in f32, rounded twice (__fmul_rn /
+// __fsub_rn: nvcc would contract it into an FMA, which changes the carry of
+// f32 input that is not integer-valued), then the value goes to FP64 for
+// the tail.  For int16-valued input the f32 value is exact, so a streamed
+// frame is K1's frame, operation for operation.  INT: wrap16(x + (p >> 5)
+// - p) mod 2^32 on int32 (preemph32): int32 chunks are taken as they are,
+// not mod 2^16 (the TPU step casts them to int32).
+//
+// Design, one thread block per (stream, tile of frames), as in K1 and K2:
+// framing is addressing into the carry and the chunk, each point reading its
+// sample and the one before it through L1; the carry and the chunk are read
+// in place through a stream stride and a position stride, so the (S, P) and
+// (P, S) carries and the (S, C) and (C, S) chunks need no relayout pass
+// (the (C, S) chunk is read with a stride of S per point, uncoalesced).  The
+// new carry is a separate output (the other tiles of the stream still read
+// the old one), written by each stream's first tile.  Offsets are 64-bit:
+// S*C passes 2^31 at S=4096 x C=2^19.  Float tiles are K1's (4 frames at
+// nfft 512: F = 7 at C = 1024 takes 2 tiles), INT tiles K2's (8 frames: one
+// tile at C = 1024, one slot idle).
+//
+// What bounds it at the serving shape (S=4096 x C=1024 int16, hop 170: 7
+// frame slots, ~6 valid per stream): ~8.4 MB of chunk, ~16.7 MB of carry in
+// and out, ~3.7 MB of features, ~9 us of HBM time; the tails' operations
+// (chip_smoke.py counts them per valid frame) bound it: ~14 us of FP64 for
+// the float step, ~41 us of int32 issue for the INT step.
+//
+// Not carried from the TPU kernels: the [carry | chunk] scratch concat, the
+// barrel-shifter alignment (_barrel_sublane), the even/odd and sigma frame
+// rebuilds, the (X, bs) 128-lane stream blocks and their narrow-lane
+// fallback.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fladder_stages.cuh"
+#include "int_stages.cuh"
+
+namespace {
+
+// Element strides of the per-stream operands.
+struct Strides {
+  long long carry_s, carry_p;     // old carry: stream, position
+  long long chunk_s, chunk_t;     // chunk: stream, time
+  long long ncarry_s, ncarry_p;   // new carry: stream, position
+};
+
+constexpr float kEmphF = 0.96875f;   // 1 - 1/32
+
+__device__ __forceinline__ float to_f32(int16_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// E[q] of the float step for one stream (cs, xs: its carry and chunk).
+template <typename In>
+__device__ __forceinline__ float emph_f32(const float* cs, const In* xs,
+                                          float pv, long long q, int P, int C,
+                                          const Strides& st) {
+  if (q < 0) return 0.0f;
+  if (q < P) return cs[q * st.carry_p];
+  const long long t = q - P;
+  if (t >= C) return 0.0f;
+  const float x = to_f32(xs[t * st.chunk_t]);
+  const float p = t == 0 ? pv : to_f32(xs[(t - 1) * st.chunk_t]);
+  return __fsub_rn(x, __fmul_rn(kEmphF, p));
+}
+
+// E[q] of the INT step.
+template <typename In>
+__device__ __forceinline__ int emph_int(const int* cs, const In* xs, int pv,
+                                        long long q, int P, int C,
+                                        const Strides& st) {
+  if (q < 0) return 0;
+  if (q < P) return cs[q * st.carry_p];
+  const long long t = q - P;
+  if (t >= C) return 0;
+  const int x = static_cast<int>(xs[t * st.chunk_t]);
+  const int p = t == 0 ? pv : static_cast<int>(xs[(t - 1) * st.chunk_t]);
+  return int_stages::preemph32(x, p);
+}
+
+template <typename In>
+__global__ void __launch_bounds__(fladder_stages::kThreads)
+stream_f32_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
+                  const int* __restrict__ start, const float* __restrict__ prev,
+                  float* __restrict__ out, float* __restrict__ ncarry, int P,
+                  int C, int F, int hop, int log2n, int nfilters, int ncep,
+                  int frames_per_block, int tiles_per_stream, Strides st,
+                  const double* __restrict__ win, const double2* __restrict__ tw,
+                  const double* __restrict__ mel, const double* __restrict__ dct,
+                  const int2* __restrict__ band, double mel_floor) {
+  using namespace fladder_stages;
+  extern __shared__ double2 smem[];
+  const int FT = frames_per_block;
+  const int log2m = log2n - 1;
+  const int M = 1 << log2m;
+  const Smem sm = carve(smem, FT, log2n, nfilters);
+
+  const long long s = blockIdx.x / tiles_per_stream;
+  const int tile = static_cast<int>(blockIdx.x % tiles_per_stream);
+  const int f0 = tile * FT;
+  const float* cs = carry + s * st.carry_s;
+  const In* xs = chunk + s * st.chunk_s;
+  const int s0 = start[s];
+  const float pv = prev[s];
+
+  load_constants(sm, tw, band, M, nfilters);
+
+  // ingest: E at sample pairs, window * 1/nfft, packed z[m] = y[2m] + i*y[2m+1]
+  for (int i = threadIdx.x; i < FT * M; i += blockDim.x) {
+    const int f = i >> log2m;
+    const int m = i & (M - 1);
+    const int g = f0 + f;
+    double2 z = make_double2(0.0, 0.0);
+    if (g < F) {
+      const long long q = s0 + static_cast<long long>(g) * hop + 2 * m;
+      const double a = static_cast<double>(emph_f32(cs, xs, pv, q, P, C, st));
+      const double b = static_cast<double>(emph_f32(cs, xs, pv, q + 1, P, C, st));
+      z = make_double2(a * win[2 * m], b * win[2 * m + 1]);
+    }
+    sm.buf[f * sm.R + pad(m)] = z;
+  }
+  if (tile == 0) {
+    float* nc = ncarry + s * st.ncarry_s;
+    for (int i = threadIdx.x; i < P; i += blockDim.x)
+      nc[i * st.ncarry_p] = emph_f32(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
+  }
+  __syncthreads();
+
+  ladder_tail(sm, FT, log2n, nfilters, ncep, mel, dct, mel_floor,
+              out + s * F * ncep, f0, F);
+}
+
+template <typename In>
+__global__ void __launch_bounds__(int_stages::kThreads)
+stream_int_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
+                  const int* __restrict__ start, const int* __restrict__ prev,
+                  int* __restrict__ out, int* __restrict__ ncarry, int P, int C,
+                  int F, int hop, int tiles_per_stream, Strides st,
+                  const int* __restrict__ curve, const int2* __restrict__ tw,
+                  int_stages::Tail c) {
+  using namespace int_stages;
+  __shared__ Smem sm;
+  const long long s = blockIdx.x / tiles_per_stream;
+  const int tile = static_cast<int>(blockIdx.x % tiles_per_stream);
+  const int f0 = tile * kFrames;
+  const int* cs = carry + s * st.carry_s;
+  const In* xs = chunk + s * st.chunk_s;
+  const int s0 = start[s];
+  const int pv = prev[s];
+
+  load_twiddles(sm, tw, c);
+  for (int b = threadIdx.x; b < kFrames * kNfft; b += blockDim.x) {
+    const int f = b >> kLog2Nfft;
+    const int p = b & (kNfft - 1);
+    const int g = f0 + f;
+    int v = 0;
+    if (g < F) {
+      const long long q = s0 + static_cast<long long>(g) * hop + p;
+      v = window(emph_int(cs, xs, pv, q, P, C, st), curve[p]);
+    }
+    store_point(sm, f, p, v);
+  }
+  if (tile == 0) {
+    int* nc = ncarry + s * st.ncarry_s;
+    for (int i = threadIdx.x; i < P; i += blockDim.x)
+      nc[i * st.ncarry_p] = emph_int(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
+  }
+  run_tail(sm, c);
+  int* o = out + s * F * c.ncep;
+  for (int i = threadIdx.x; i < kFrames * c.ncep; i += blockDim.x) {
+    const int f = i / c.ncep;
+    const int k = i - f * c.ncep;
+    const int g = f0 + f;
+    if (g < F) o[static_cast<long long>(g) * c.ncep + k] = sm.re[f * kRow + pad(k)];
+  }
+}
+
+// Checks shared by both steps; returns the tiles per stream, or 0.
+long long tiles_for(long long S, int P, int C, int F, int hop, int nfft,
+                    int frames_per_tile) {
+  if (S < 0 || C < 1 || hop < 1 || P != nfft - 1 || F != (C - 1) / hop + 1)
+    return 0;
+  const long long tiles = (F + frames_per_tile - 1) / frames_per_tile;
+  if (S * tiles > 0x7fffffffLL) return 0;
+  return tiles;
+}
+
+template <typename In>
+int launch_f32(const float* carry, const In* chunk, const int* start,
+               const float* prev, float* out, float* ncarry, long long S,
+               int P, int C, int F, int hop, int nfft, int nfilters, int ncep,
+               const Strides& st, const double* win, const double* tw,
+               const double* mel, const double* dct, const int* band,
+               double mel_floor, void* stream) {
+  using namespace fladder_stages;
+  const int log2n = log2_nfft(nfft);
+  const int FT = log2n < 0 ? 1 : frames_per_block(nfft);
+  const long long tiles = tiles_for(S, P, C, F, hop, nfft, FT);
+  if (log2n < 0 || tiles == 0 || nfilters < 1 || ncep < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return 0;
+  const size_t smem = smem_bytes(FT, nfft, nfilters);
+  const int err = allow_smem(stream_f32_kernel<In>, smem);
+  if (err != 0) return err;
+  stream_f32_kernel<In><<<static_cast<unsigned>(S * tiles), kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      carry, chunk, start, prev, out, ncarry, P, C, F, hop, log2n, nfilters,
+      ncep, FT, static_cast<int>(tiles), st, win,
+      reinterpret_cast<const double2*>(tw), mel, dct,
+      reinterpret_cast<const int2*>(band), mel_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In>
+int launch_int(const int* carry, const In* chunk, const int* start,
+               const int* prev, int* out, int* ncarry, long long S, int P,
+               int C, int F, int hop, const Strides& st, int nfilters,
+               int ncep, int fb_shift, int log_precision, int log_width,
+               const int* curve, const int* tw, const int* dtw,
+               const long long* fbw, const int* band, void* stream) {
+  using namespace int_stages;
+  const Tail c = make_tail(fbw, band, dtw, nfilters, ncep, fb_shift,
+                           log_precision, log_width);
+  const long long tiles = tiles_for(S, P, C, F, hop, kNfft, kFrames);
+  if (!tail_ok(c) || tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return 0;
+  stream_int_kernel<In><<<static_cast<unsigned>(S * tiles), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      carry, chunk, start, prev, out, ncarry, P, C, F, hop,
+      static_cast<int>(tiles), st, curve, reinterpret_cast<const int2*>(tw), c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes (mfcc_tpu_torch/kernels/build.py).
+// Every pointer is a device pointer.  carry and ncarry (new carry, which
+// must not overlap carry) hold S x P values and chunk S x C, each addressed
+// through its (stream, position) element strides; start (S,) int32 and prev
+// (S,) (f32 for the float step, int32 for the INT step); out is (S, F, ncep)
+// contiguous.  The tables are K1's (window/nfft, twiddles, mel, dct, band:
+// see fladder.cu) for the float step and K2's (curve, tw, dtw, fbw, band:
+// see int_mfcc.cu) for the INT step.  Launches on `stream`, on the calling
+// thread's current device (the caller sets it), without synchronizing;
+// returns a cudaError_t (0 = launched).
+extern "C" int mfcc_stream_f32_i16(const float* carry, const int16_t* chunk, const int* start,
+                      const float* prev, float* out, float* ncarry, long long S,
+                      int P, int C, int F, int hop, int nfft, int nfilters,
+                      int ncep, long long carry_s, long long carry_p,
+                      long long chunk_s, long long chunk_t, long long ncarry_s,
+                      long long ncarry_p, const double* win, const double* tw,
+                      const double* mel, const double* dct, const int* band,
+                      double mel_floor, void* stream) {
+  const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
+  return launch_f32(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
+                    nfft, nfilters, ncep, st, win, tw, mel, dct, band,
+                    mel_floor, stream);
+}
+
+extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk, const int* start,
+                      const float* prev, float* out, float* ncarry, long long S,
+                      int P, int C, int F, int hop, int nfft, int nfilters,
+                      int ncep, long long carry_s, long long carry_p,
+                      long long chunk_s, long long chunk_t, long long ncarry_s,
+                      long long ncarry_p, const double* win, const double* tw,
+                      const double* mel, const double* dct, const int* band,
+                      double mel_floor, void* stream) {
+  const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
+  return launch_f32(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
+                    nfft, nfilters, ncep, st, win, tw, mel, dct, band,
+                    mel_floor, stream);
+}
+
+extern "C" int mfcc_stream_int_i16(const int* carry, const int16_t* chunk, const int* start,
+                      const int* prev, int* out, int* ncarry, long long S,
+                      int P, int C, int F, int hop, long long carry_s,
+                      long long carry_p, long long chunk_s, long long chunk_t,
+                      long long ncarry_s, long long ncarry_p, int nfilters,
+                      int ncep, int fb_shift, int log_precision, int log_width,
+                      const int* curve, const int* tw, const int* dtw,
+                      const long long* fbw, const int* band, void* stream) {
+  const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
+  return launch_int(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
+                    st, nfilters, ncep, fb_shift, log_precision, log_width,
+                    curve, tw, dtw, fbw, band, stream);
+}
+
+extern "C" int mfcc_stream_int_i32(const int* carry, const int* chunk, const int* start,
+                      const int* prev, int* out, int* ncarry, long long S,
+                      int P, int C, int F, int hop, long long carry_s,
+                      long long carry_p, long long chunk_s, long long chunk_t,
+                      long long ncarry_s, long long ncarry_p, int nfilters,
+                      int ncep, int fb_shift, int log_precision, int log_width,
+                      const int* curve, const int* tw, const int* dtw,
+                      const long long* fbw, const int* band, void* stream) {
+  const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
+  return launch_int(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
+                    st, nfilters, ncep, fb_shift, log_precision, log_width,
+                    curve, tw, dtw, fbw, band, stream);
+}

@@ -52,11 +52,28 @@ _INT_I16_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
 #                     stream)
 _INT_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P, _P]
+# mfcc_stream_f32_{i16,f32}(carry, chunk, start, prev, out, ncarry, S, P, C,
+#                           F, hop, nfft, nfilters, ncep, carry_s, carry_p,
+#                           chunk_s, chunk_t, ncarry_s, ncarry_p, win, tw,
+#                           mel, dct, band, mel_floor, stream)
+_STREAM_F32_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_P] * 5
+                    + [ctypes.c_double, _P])
+# mfcc_stream_int_{i16,i32}(carry, chunk, start, prev, out, ncarry, S, P, C,
+#                           F, hop, carry_s, carry_p, chunk_s, chunk_t,
+#                           ncarry_s, ncarry_p, nfilters, ncep, fb_shift,
+#                           log_precision, log_width, curve, tw, dtw, fbw,
+#                           band, stream)
+_STREAM_INT_ARGS = ([_P] * 6 + [_LL] + [_I] * 4 + [_LL] * 6 + [_I] * 5
+                    + [_P] * 6)
 SIGNATURES = {
     "mfcc_fladder_i16": _FLADDER_ARGS,
     "mfcc_fladder_f32": _FLADDER_ARGS,
     "mfcc_int_i16": _INT_I16_ARGS,
     "mfcc_int_frames_i32": _INT_FRAMES_ARGS,
+    "mfcc_stream_f32_i16": _STREAM_F32_ARGS,
+    "mfcc_stream_f32_f32": _STREAM_F32_ARGS,
+    "mfcc_stream_int_i16": _STREAM_INT_ARGS,
+    "mfcc_stream_int_i32": _STREAM_INT_ARGS,
 }
 
 
@@ -128,3 +145,14 @@ def library() -> types.SimpleNamespace:
         fn.restype = ctypes.c_int
         fns[name] = fn
     return types.SimpleNamespace(**fns)
+
+
+def launch(fn, device, *args) -> None:
+    """Call the C entry point ``fn`` on ``device`` (set for this call only,
+    the caller's restored after) and its current stream, which ``fn`` takes
+    as its last argument; raise on a non-zero cudaError_t."""
+    import torch
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")

@@ -107,6 +107,37 @@ def _resolve(operators, cfg, device) -> LadderOperators:
     return operators
 
 
+def check_operators(ops: LadderOperators, cfg: MFCCConfig,
+                    device: torch.device, what: str) -> None:
+    """Raise unless the operators are the contiguous float64 (int32 band)
+    tensors of ``cfg``'s shapes on ``device`` that the kernels read."""
+    nbins, nfilters, ncep = cfg.nfft // 2, cfg.nfilters, cfg.nceptrums
+    for name, t, shape, dtype in (
+            ("window", ops.window, (cfg.nfft,), torch.float64),
+            ("mel", ops.mel, (nbins, nfilters), torch.float64),
+            ("dct", ops.dct, (nfilters, ncep), torch.float64),
+            ("band", ops.band, (nfilters, 2), torch.int32)):
+        if (t.device != device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{what} operator {name} must be a contiguous "
+                             f"{dtype} {shape} tensor on {device}")
+
+
+def ladder_tail_plain(frames64: torch.Tensor, ops: LadderOperators,
+                      cfg: MFCCConfig, mel_floor: float = 0.0
+                      ) -> torch.Tensor:
+    """The kernels' tail as plain torch ops, on (..., F, nfft) float64
+    pre-emphasized frames: window * 1/nfft, FFT, power on bins [0, nfft/2),
+    mel, optional floor, log2, DCT; rounded to f32 once.  Shared by K1's
+    and K4-float's plain versions."""
+    spec = torch.fft.rfft(frames64 * ops.window, dim=-1)[..., : cfg.nfft // 2]
+    power = spec.real * spec.real + spec.imag * spec.imag
+    melspec = power @ ops.mel
+    if mel_floor:
+        melspec = torch.clamp_min(melspec, mel_floor)
+    return (torch.log2(melspec) @ ops.dct).to(torch.float32)
+
+
 def mfcc_float_ladder_plain(audio: torch.Tensor,
                             cfg: MFCCConfig = MFCCConfig(),
                             mel_floor: float = 0.0,
@@ -117,12 +148,7 @@ def mfcc_float_ladder_plain(audio: torch.Tensor,
     ops = _resolve(operators, cfg, audio.device)
     emph = framing.preemphasis(audio.to(torch.float64))
     frames = framing.extract_frames(emph, cfg.nfft, cfg.hop)
-    spec = torch.fft.rfft(frames * ops.window, dim=-1)[..., : cfg.nfft // 2]
-    power = spec.real * spec.real + spec.imag * spec.imag
-    melspec = power @ ops.mel
-    if mel_floor:
-        melspec = torch.clamp_min(melspec, mel_floor)
-    return (torch.log2(melspec) @ ops.dct).to(torch.float32)
+    return ladder_tail_plain(frames, ops, cfg, mel_floor)
 
 
 def mfcc_float_ladder(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
@@ -144,16 +170,8 @@ def mfcc_float_ladder(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
     if not audio.is_contiguous():
         raise ValueError("K1 needs contiguous audio")
     ops = _resolve(operators, cfg, audio.device)
-    nbins, nfilters, ncep = cfg.nfft // 2, cfg.nfilters, cfg.nceptrums
-    for name, t, shape, dtype in (
-            ("window", ops.window, (cfg.nfft,), torch.float64),
-            ("mel", ops.mel, (nbins, nfilters), torch.float64),
-            ("dct", ops.dct, (nfilters, ncep), torch.float64),
-            ("band", ops.band, (nfilters, 2), torch.int32)):
-        if (t.device != audio.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"K1 operator {name} must be a contiguous "
-                             f"{dtype} {shape} tensor on {audio.device}")
+    check_operators(ops, cfg, audio.device, "K1")
+    nfilters, ncep = cfg.nfilters, cfg.nceptrums
     lead, T = audio.shape[:-1], audio.shape[-1]
     n_frames = framing.num_frames(T, cfg.hop, cfg.nfft)
     x = audio.reshape(-1, T)
@@ -165,15 +183,9 @@ def mfcc_float_ladder(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
     lib = build.library()
     fn = (lib.mfcc_fladder_i16 if audio.dtype == torch.int16
           else lib.mfcc_fladder_f32)
-    # the kernel launches on the current device: set it to the audio's
-    # for this call only, and restore the caller's after
-    with torch.cuda.device(audio.device):
-        stream = torch.cuda.current_stream(audio.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), S, T, n_frames, cfg.hop,
-                 cfg.nfft, nfilters, ncep, ops.window.data_ptr(),
-                 tw.data_ptr(), ops.mel.data_ptr(), ops.dct.data_ptr(),
-                 ops.band.data_ptr(), float(mel_floor), stream)
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
+    build.launch(fn, audio.device, x.data_ptr(), out.data_ptr(), S, T,
+                 n_frames, cfg.hop, cfg.nfft, nfilters, ncep,
+                 ops.window.data_ptr(), tw.data_ptr(), ops.mel.data_ptr(),
+                 ops.dct.data_ptr(), ops.band.data_ptr(), float(mel_floor))
     LAUNCHES += 1
     return out.reshape(lead + (n_frames, ncep))

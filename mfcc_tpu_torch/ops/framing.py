@@ -50,6 +50,20 @@ def wrap_signed(v: torch.Tensor, bits: int) -> torch.Tensor:
     return ((v & mask) ^ sign) - sign
 
 
+def align_rows(x: torch.Tensor, start: torch.Tensor, out_len: int
+               ) -> torch.Tensor:
+    """Per-row dynamic alignment, ``out[s, j] = x[s, start[s] + j]``, as
+    one indexed read (``torch.gather``).  The streaming step's contract is
+    ``start[s] + out_len <= x.shape[1]``; indices outside the row are
+    clamped to its ends, so a corrupt offset never faults the device.
+    (The JAX package builds this as a barrel shifter of rolls and selects,
+    because row-varying gathers are slow on a TPU; on a GPU it is one
+    load per element.)"""
+    idx = (start.to(torch.int64)[:, None]
+           + torch.arange(out_len, device=x.device)[None, :])
+    return torch.gather(x, 1, idx.clamp_(0, x.shape[1] - 1))
+
+
 def num_frames(n_samples: int, hop: int, windowlen: int) -> int:
     """Frames in a signal of ``n_samples``; raises for a signal shorter than
     one frame (the same message as the JAX package)."""

@@ -90,26 +90,18 @@ def _check(x: torch.Tensor, dtypes, what: str) -> None:
 
 
 def _launch(fn, x: torch.Tensor, *args) -> None:
-    """Call the C entry point on ``x``'s device and current stream; raise
-    on a non-zero cudaError_t."""
     global LAUNCHES
-    # the kernel launches on the current device: set it to the input's for
-    # this call only, and restore the caller's after
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
+    build.launch(fn, x.device, *args)
     LAUNCHES += 1
 
 
-def _tail_args(cfg: MFCCConfig, ops: IntOperators) -> tuple:
+def tail_args(cfg: MFCCConfig, ops: IntOperators) -> tuple:
     """(nfilters, ncep, fb_shift, log_precision, log_width)."""
     return (cfg.nfilters, min(cfg.nceptrums, cfg.nfilters), ops.fb_shift,
             cfg.log_precision, cfg.log_width_output)
 
 
-def _table_ptrs(ops: IntOperators) -> tuple:
+def table_ptrs(ops: IntOperators) -> tuple:
     return (ops.curve.data_ptr(), ops.tw.data_ptr(), ops.dtw.data_ptr(),
             ops.fbw.data_ptr(), ops.band.data_ptr())
 
@@ -150,10 +142,10 @@ def mfcc_int_fused(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
         x = framing.wrap_signed(x, 16).to(torch.int16)
     S = x.shape[0]
     ops = int_operators(cfg, audio.device)
-    tail = _tail_args(cfg, ops)
+    tail = tail_args(cfg, ops)
     out = torch.empty((S, F, tail[1]), dtype=torch.int32, device=audio.device)
     _launch(build.library().mfcc_int_i16, audio, x.data_ptr(),
-            out.data_ptr(), S, T, F, cfg.hop, *tail, *_table_ptrs(ops))
+            out.data_ptr(), S, T, F, cfg.hop, *tail, *table_ptrs(ops))
     return out.reshape(lead + (F, tail[1]))
 
 
@@ -172,8 +164,8 @@ def mfcc_int_fused_frames(frames: torch.Tensor,
     lead = frames.shape[:-1]
     M = frames.numel() // cfg.nfft
     ops = int_operators(cfg, frames.device)
-    tail = _tail_args(cfg, ops)
+    tail = tail_args(cfg, ops)
     out = torch.empty((M, tail[1]), dtype=torch.int32, device=frames.device)
     _launch(build.library().mfcc_int_frames_i32, frames, frames.data_ptr(),
-            out.data_ptr(), M, *tail, *_table_ptrs(ops))
+            out.data_ptr(), M, *tail, *table_ptrs(ops))
     return out.reshape(lead + (tail[1],))

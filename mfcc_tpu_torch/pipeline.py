@@ -35,6 +35,24 @@ from .ops import fladder, float_ops, int_fused, int_ops
 _STATE = ("window", "mel", "dct")    # the module's state_dict
 
 
+def resolve_device(device, what: str) -> torch.device:
+    """An entry point's device: ``None`` is the card (the current CUDA
+    device) and raises on a host without one, naming ``device="cpu"``;
+    anything else is taken as given, a CUDA device without an index as the
+    current one (so that it compares equal to its tensors' device)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what}() runs on the CUDA card by default and this host "
+                "has none (torch.cuda.is_available() is false): pass "
+                "device=\"cpu\" to run on the host")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _rederive(module: "MFCC", incompatible_keys) -> None:
     """load_state_dict post-hook: rebuild the derived operators."""
     module._derive()
@@ -62,13 +80,7 @@ class MFCC(nn.Module):
         raises on a host without one; ``device="cpu"`` runs the plain
         torch versions on the host."""
         super().__init__()
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "MFCC() runs on the CUDA card by default and this host "
-                    "has none (torch.cuda.is_available() is false): pass "
-                    "device=\"cpu\" to run on the host")
-            device = torch.device("cuda")
+        device = resolve_device(device, "MFCC")
         if precision not in ("highest", "fast"):
             raise NotImplementedError(
                 f"precision={precision!r} is not ported to the torch package "

@@ -1,6 +1,8 @@
 """The torch package's CUDA kernels on the card: K1 (float) against its
 plain version within TOL, K2 and K3 (INT) against theirs element for
-element (``torch.equal``).
+element (``torch.equal``), the serving step K4 (float within TOL, INT and
+every carry ``torch.equal``), streaming against batch, and the
+``FeatureServer`` on the card.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The file imports neither JAX nor ``mfcc_tpu``, so it runs on
@@ -13,9 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from mfcc_tpu_torch import MFCC, MFCCConfig, MIC_CONFIG
-from mfcc_tpu_torch.ops import fladder, float_ops, framing, int_fused
+from mfcc_tpu_torch import (MFCC, MFCCConfig, MIC_CONFIG, FeatureServer,
+                            StreamingMFCC)
+from mfcc_tpu_torch.kernels import build
+from mfcc_tpu_torch.ops import (fladder, float_ops, framing, int_fused,
+                                stream_fused)
 from mfcc_tpu_torch.ref import float_ref, int_ref
+from mfcc_tpu_torch.server import stream_samples
 
 # Kernel and plain version both compute in float64 and round once to f32:
 # they differ by an f32 ulp at most (measured 2.4e-7 at the headline
@@ -233,3 +239,137 @@ def test_int_wrapper_checks_on_card(dev):
                                                     device=dev))
     with pytest.raises(ValueError, match="shorter than one frame"):
         int_fused.mfcc_int_fused(x[:, :511].contiguous())
+
+
+# -- the serving step K4 -----------------------------------------------------------
+
+def _k4_run(dev, int_path, S, C, cfg, steps=4, seed=0):
+    """A multi-step run of K4 and its plain version on the same inputs,
+    with a reset of every other stream at step 2; chunks alternate int16,
+    the state dtype (int32 INT chunks outside int16 range), and the layouts
+    rotate.  Every feature slot and every carry are compared."""
+    rng = np.random.default_rng(seed)
+    P = cfg.nfft - 1
+    sdt = torch.int32 if int_path else torch.float32
+    step = (stream_fused.stream_step_int if int_path
+            else stream_fused.stream_step_float)
+    plain = (stream_fused.stream_step_int_plain if int_path
+             else stream_fused.stream_step_float_plain)
+    carry = torch.zeros(S, P, dtype=sdt, device=dev)
+    count = torch.zeros(S, dtype=torch.int32, device=dev)
+    prev = torch.zeros(S, dtype=sdt, device=dev)
+    err = 0.0
+    for k in range(steps):
+        if k % 2 == 0:
+            x = torch.from_numpy(rng.integers(-32768, 32768, (S, C))
+                                 .astype(np.int16))
+        elif int_path:
+            x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (S, C))
+                                 .astype(np.int32))
+        else:
+            x = torch.from_numpy((rng.integers(-25000, 25000, (S, C))
+                                  + rng.random((S, C))).astype(np.float32))
+        x = x.to(dev)
+        if k == 2:
+            count[::2] = 0
+            prev[::2] = 0
+        ts, layout = k % 2 == 1, ("time", "positions", "stream")[k % 3]
+        xin = x.T.contiguous() if layout == "positions" else x
+        cin = carry.T.contiguous() if ts else carry
+        start = (P - count).to(torch.int32)
+        before = stream_fused.LAUNCHES
+        f, nc = step(cin, xin, start, prev, cfg, transposed_state=ts,
+                     chunk_layout=layout)
+        torch.cuda.synchronize()
+        assert stream_fused.LAUNCHES == before + 1
+        fp, ncp = plain(cin, xin, start, prev, cfg, transposed_state=ts,
+                        chunk_layout=layout)
+        assert f.shape == fp.shape == (S, (C - 1) // cfg.hop + 1,
+                                       cfg.nceptrums)
+        assert torch.equal(nc, ncp), (k, layout, ts)
+        if int_path:
+            assert torch.equal(f, fp), (k, layout, ts)
+        else:
+            assert torch.isfinite(f).all()
+            err = max(err, (f - fp).abs().max().item())
+        carry = nc.T if ts else nc
+        total = count + C
+        n_valid = torch.clamp_min((total - cfg.nfft) // cfg.hop + 1, 0)
+        count = (total - n_valid * cfg.hop).to(torch.int32)
+        prev = x[:, -1].to(sdt)
+    assert err <= TOL
+
+
+@pytest.mark.parametrize("int_path", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("C", [1, 170, 600, 1024, 2048])
+@pytest.mark.parametrize("hop", [170, 160])
+def test_stream_kernel_matches_plain(dev, int_path, C, hop):
+    _k4_run(dev, int_path, 130, C, MFCCConfig(step=hop), seed=C + hop)
+
+
+def test_streaming_equals_batch_on_card(dev):
+    """Streaming through K4 equals batch K2 element for element and batch
+    K1 within TOL (bit for bit predicted: the same FP64 operations on the
+    same values); K4 launches once per full-chunk step, K1/K2 never, K3 on
+    the INT flush step."""
+    sig = _tonal(8, 1024 * 12 + 300, 11).astype(np.int16)
+    x = torch.from_numpy(sig).to(dev)
+    fe = MFCC()
+    for int_path in (True, False):
+        k4, k3 = stream_fused.LAUNCHES, int_fused.LAUNCHES
+        k1 = fladder.LAUNCHES
+        got, _ = StreamingMFCC(int_path=int_path).process(x, 1024)
+        assert stream_fused.LAUNCHES == k4 + 12
+        assert fladder.LAUNCHES == k1
+        assert int_fused.LAUNCHES == k3 + (1 if int_path else 0)
+        want = (fe.int(x) if int_path else fe(x)).cpu().numpy()
+        full = MFCCConfig().n_frames(1024 * 12)
+        for s in range(len(sig)):
+            assert got[s].shape == want[s].shape
+            if int_path:
+                assert np.array_equal(got[s], want[s])
+            else:
+                assert np.abs(got[s][:full] - want[s][:full]).max() <= TOL
+                assert np.abs(got[s] - want[s]).max() <= GATE
+    # int64 numpy chunks: the INT step takes them as int32 (a chunk column
+    # becomes the next prev)
+    got, _ = StreamingMFCC(int_path=True).process(sig.astype(np.int64), 1024)
+    assert np.array_equal(np.stack(got), fe.int(x).cpu().numpy())
+
+
+def test_stream_wrapper_checks_on_card(dev):
+    P = 511
+    buf = torch.zeros(4, P, device=dev)
+    x = torch.zeros(4, 600, device=dev)
+    start = torch.zeros(4, dtype=torch.int32, device=dev)
+    prev = torch.zeros(4, device=dev)
+    with pytest.raises(TypeError, match="chunk"):
+        stream_fused.stream_step_float(buf, x.double(), start, prev)
+    with pytest.raises(ValueError, match="is on cpu"):
+        stream_fused.stream_step_float(buf, x, start.cpu(), prev)
+    with pytest.raises(ValueError, match="do not fit"):
+        stream_fused.stream_step_float(buf[:, :200], x, start, prev)
+    # a refused launch (P does not fit nfft) raises with its cudaError_t
+    lib = build.library()
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        build.launch(lib.mfcc_stream_int_i16, dev, *([0] * 6), 4,
+                             100, 600, 4, 170, *([1] * 6), 32, 32, 0, 11,
+                             15, *([0] * 5))
+
+
+def test_stream_fast_precision_raises_on_card(dev):
+    sm = StreamingMFCC(precision="fast")
+    with pytest.raises(NotImplementedError, match="K5"):
+        sm.step(torch.zeros(2, 1024, device=dev), sm.init(2))
+
+
+def test_feature_server_on_card(dev):
+    sig = _tonal(1, 3000, 12)[0].astype(np.int16)
+    srv = FeatureServer(MFCCConfig(), max_streams=4, chunk=1024).start()
+    try:
+        assert srv.device.type == "cuda"
+        host, port = srv.address
+        got = stream_samples(host, port, sig, 32, timeout=60)
+        assert np.array_equal(got, int_ref.mfcc_int(sig).astype(np.int16))
+    finally:
+        srv.stop()

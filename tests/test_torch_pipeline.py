@@ -223,7 +223,10 @@ def test_import_leaves_jax_out():
     res = _run(["-c", "import sys, mfcc_tpu_torch, mfcc_tpu_torch.pipeline, "
                 "mfcc_tpu_torch.kernels.build, mfcc_tpu_torch.ref.float_ref, "
                 "mfcc_tpu_torch.ref.int_ref, mfcc_tpu_torch.ops.int_ops, "
-                "mfcc_tpu_torch.ops.int_fused; "
+                "mfcc_tpu_torch.ops.int_fused, mfcc_tpu_torch.streaming, "
+                "mfcc_tpu_torch.server, mfcc_tpu_torch.io, "
+                "mfcc_tpu_torch.io.transport, mfcc_tpu_torch.io.native, "
+                "mfcc_tpu_torch.ops.stream_fused; "
                 "bad = sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'mfcc_tpu.')) "
                 "or m == 'mfcc_tpu'); print(bad); sys.exit(1 if bad else 0)"],
