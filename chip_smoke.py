@@ -1,5 +1,5 @@
-"""Drive the torch port's float and INT batch paths and its serving path on
-one CUDA card and check them.
+"""Drive the torch port's float and INT batch paths, its serving path and
+its fast and odd-hop float routes on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -45,11 +45,28 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      and serves 8 concurrent TCP clients from an INT and a float
      ``FeatureServer`` on the card, each client's frames held equal to the
      INT oracle, resp. to ``StreamingMFCC(mel_floor=1.0)`` on its signal,
-     and the frames sent read back over the status plane.
+     and the frames sent read back over the status plane;
+  6. the fast dial and odd hops: compares K5 and K5-frames (``ops/
+     float_fused.py``, 3/4/6 passes, nfft 256/512/1024, S=130 at three
+     lengths, and the headline input and frames) and K6 (K1's kernel at
+     hops 171, 165, 341, and hop 171 on the headline input) with their plain
+     versions, and the split-DFT serving step over the K4 runs (every carry
+     equal to the plain version's and to K4-float's); holds the fast gate
+     (2e-3) on the JAX bench's gate input for K5, K5-frames and streamed
+     fast; drives ``MFCC(precision="fast")(audio)``, its ``frames`` and
+     ``MFCC(MFCCConfig(step=171))(audio)`` on the headline input and
+     ``StreamingMFCC(precision="fast").process`` on S=64 x 64 chunks with
+     their launch counts, reads the spread streams against the oracle
+     (fast within ``FAST_LONG_GATE``, K6 within ``GATE``), checks streamed
+     fast against batch K5; times K1, K5 at 3 and 6 passes, both modules,
+     K5-frames on the headline frames, K6 at hop 171 and the split-DFT step
+     at S=4096 x C=1024 beside their plain versions.
 
 Times are CUDA events, median of 10 after warm-up.  Each main path
 (``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``,
-``StreamingMFCC().process``) is driven with every launch count set to 0
+``StreamingMFCC().process``, ``MFCC(precision="fast")(audio)`` and its
+``frames``, ``MFCC(MFCCConfig(step=171))(audio)``,
+``StreamingMFCC(precision="fast").process``) is driven with every launch count set to 0
 just before and read just after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
 exits with an error before printing anything else.  The line before the
 last is a JSON summary of the kernels (with each one's bound: the larger
@@ -71,6 +88,18 @@ import torch
 
 KERNEL_TOL = 5e-5   # kernel vs its plain version (both float64 inside)
 GATE = 5e-4         # the float contract: max-abs vs the float64 oracle
+# K5 (split DFT) vs its plain version: both sum exact limb products in
+# float64, the f32 mel/log2/DCT sums differ in order; the JAX kernel's own
+# distance from the plain version on the CPU tests
+R2_TOL = 2e-4
+# the fast mode's gate (bench.FAST_GATE), on the JAX bench's gate input
+# (bench.accuracy_of: make_audio(2, 512 + 4*170, seed=7)), where the JAX
+# kernel holds it
+FAST_GATE = 2e-3
+# the fast mode on the headline's 8 spread streams x 4 s: the JAX kernel
+# itself reads 1.2e-2 there (tests/test_torch_float_fused.py::
+# test_fast_mode_long_input_reads_as_jax); the 3-pass limb split sets it
+FAST_LONG_GATE = 2e-2
 S_MAIN, T_MAIN = 1024, 63_922   # 4 s per stream at 16 kHz: 374 frames
 S_SERVE, C_SERVE = 4096, 1024   # the serving shape: streams x chunk samples
 ITERS, WARMUP = 10, 3
@@ -78,6 +107,8 @@ ITERS, WARMUP = 10, 3
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores
+FP32_FLOPS = 67e12          # FP32 outside the tensor cores
+BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 # int32 operations: the issue limit of 4 schedulers x 32 lanes per clock
 # per SM, 132 SMs at the 1.98 GHz boost clock (the float32 FMA lane rate,
 # half of its 67 TFLOP/s); counting only the 64 INT32 lanes per SM gives
@@ -146,9 +177,14 @@ def time_ms(fn) -> float:
 
 
 def zero_counts(*modules) -> None:
-    """Set the launch count of every kernel module to 0."""
+    """Set every launch count of every kernel module to 0 (``LAUNCHES``, an
+    int, or a dict of ints per kernel)."""
     for m in modules:
-        m.LAUNCHES = 0
+        if isinstance(m.LAUNCHES, dict):
+            for k in m.LAUNCHES:
+                m.LAUNCHES[k] = 0
+        else:
+            m.LAUNCHES = 0
 
 
 def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
@@ -502,13 +538,15 @@ def int_phases(dev, card: str) -> list[dict]:
 
 
 def k4_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
-           seed: int = 0) -> float:
+           seed: int = 0, dft_passes: int | None = None) -> float:
     """K4 against its plain version over a multi-step run on the card, with
     a reset of every other stream at step 2 (which desynchronizes the carry
     phases); chunks alternate int16 and the state dtype (INT: int32 outside
     int16 range; float: values that are not integers), and the carry and
     chunk layouts rotate.  Every feature slot and every carry are compared:
     INT and carries with ``torch.equal``, float features within KERNEL_TOL.
+    With ``dft_passes`` 3 or 4 the float step is the split-DFT step: its
+    features within R2_TOL, its carry also equal to K4-float's.
     Returns the float max-abs difference (0 for INT)."""
     from mfcc_tpu_torch.ops import stream_fused
     rng = np.random.default_rng(seed)
@@ -522,7 +560,11 @@ def k4_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
     count = torch.zeros(S, dtype=torch.int32, device=dev)
     prev = torch.zeros(S, dtype=sdt, device=dev)
     err = 0 if int_path else 0.0
-    what = f"K4-{'INT' if int_path else 'float'} S={S} C={C} hop {cfg.hop}"
+    split = dft_passes in (3, 4)
+    kw = {"dft_passes": dft_passes} if split else {}
+    tol = R2_TOL if split else KERNEL_TOL
+    kind = "INT" if int_path else (f"split {dft_passes}" if split else "float")
+    what = f"K4-{kind} S={S} C={C} hop {cfg.hop}"
     for k in range(steps):
         if k % 2 == 0:
             x = rng.integers(-32768, 32768, (S, C)).astype(np.int16)
@@ -540,9 +582,9 @@ def k4_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
         cin = carry.T.contiguous() if ts else carry
         start = (P - count).to(torch.int32)
         f, nc = step(cin, xin, start, prev, cfg, transposed_state=ts,
-                     chunk_layout=layout)
+                     chunk_layout=layout, **kw)
         fp, ncp = plain(cin, xin, start, prev, cfg, transposed_state=ts,
-                        chunk_layout=layout)
+                        chunk_layout=layout, **kw)
         torch.cuda.synchronize()
         where = f"{what} step {k} ({x.dtype}, {layout}, " \
                 f"transposed_state={ts})"
@@ -553,8 +595,13 @@ def k4_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
             compare_exact(f, fp, f"{where} features")
         else:
             e = compare(f, fp, f"{where} features")
-            check(e <= KERNEL_TOL, f"{where}: {e} > {KERNEL_TOL}")
+            check(e <= tol, f"{where}: {e} > {tol}")
             err = max(err, e)
+            if split:
+                compare_exact(nc, step(cin, xin, start, prev, cfg,
+                                       transposed_state=ts,
+                                       chunk_layout=layout)[1],
+                              f"{where} carry vs K4-float's")
         carry = nc.T if ts else nc
         total = count + C
         n_valid = torch.clamp_min((total - cfg.nfft) // cfg.hop + 1, 0)
@@ -605,14 +652,17 @@ def serving_phases(dev, card: str) -> list[dict]:
             zero_counts(fladder, int_fused, stream_fused)
             outs, _ = StreamingMFCC(int_path=int_path).process(x, C)
             torch.cuda.synchronize()
-            n = {"K4": stream_fused.LAUNCHES, "K1": fladder.LAUNCHES,
+            k4 = "K4-INT" if int_path else "K4-float"
+            n = {**stream_fused.LAUNCHES, "K1": fladder.LAUNCHES,
                  "K2/K3": int_fused.LAUNCHES}
-            want_k3 = int(flush and int_path)
-            check(n == {"K4": n_full, "K1": 0, "K2/K3": want_k3},
+            want_n = {"K4-float": 0, "K4-split": 0, "K4-INT": 0, "K1": 0,
+                      "K2/K3": int(flush and int_path)}
+            want_n[k4] = n_full
+            check(n == want_n,
                   f"launches {n} for {n_full} full steps and "
                   f"{int(flush)} flush step")
             if C == C_SERVE:
-                launches[int_path] = n["K4"]
+                launches[int_path] = n[k4]
             kind = "INT" if int_path else "float"
             got = np.stack(outs)
             want = k2_int if int_path else k1_float
@@ -761,18 +811,390 @@ def serving_phases(dev, card: str) -> list[dict]:
             sent = sum(len(w) for w in wants)
             check(stats["frames_tx"] >= sent and stats["steps"] >= 1,
                   f"STATS {stats} for {sent} frames")
-            check(stream_fused.LAUNCHES >= 1, "the server never ran K4")
+            k4_n = stream_fused.LAUNCHES["K4-INT" if int_path else "K4-float"]
+            check(k4_n >= 1, "the server never ran K4")
             print(f"FeatureServer({kind}) on the card, 8 concurrent clients "
                   f"of {len(local[0])} samples: every frame equal to "
                   + ("the INT oracle" if int_path else
                      "clamp(round(StreamingMFCC(mel_floor=1.0)))")
                   + f"; STATS steps {stats['steps']}, frames_tx "
                   f"{stats['frames_tx']} ({sent} expected); K4 launches "
-                  f"{stream_fused.LAUNCHES}, K3 {int_fused.LAUNCHES}; "
+                  f"{k4_n}, K3 {int_fused.LAUNCHES}; "
                   f"{secs:.2f} s wall")
         finally:
             srv.stop()
     return entries
+
+
+def r2_flops_per_frame(cfg, passes: int) -> int:
+    """Operations of K5's function per frame, as the TPU computes it: the
+    split-DFT product, 2 signals x nfft/2 rows x nfft/2 columns x 2 (a
+    multiply-add), once per limb product (3 or 4; one f32 product at 6
+    passes).  The rest of the tail (window, recombination, power, banded
+    mel, log2, DCT) is < 3% of it and not counted."""
+    nh = cfg.nfft // 2
+    return {3: 3, 4: 4, 6: 1}[passes] * 2 * nh * nh * 2
+
+
+def r2_bound(nbytes: int, frames: int, cfg, passes: int
+             ) -> tuple[float, str, float]:
+    """(ms, kind, operations) of K5's function: the limb products at the
+    bf16 tensor-core rate (3 and 4 passes), the f32 product at the f32 rate
+    (6 passes)."""
+    ops = frames * r2_flops_per_frame(cfg, passes)
+    ms, by = bound(nbytes, ops, FP32_FLOPS if passes == 6 else BF16_FLOPS)
+    return ms, by, ops
+
+
+def fast_phases(dev, card: str) -> list[dict]:
+    """K5 (batch and frames), the split-DFT serving step and K6 against
+    their plain versions, the fast and odd-hop main paths with their launch
+    counts, the fast gate, and the times; returns their entries of the
+    kernels line."""
+    from mfcc_tpu_torch import MFCC, MFCCConfig, StreamingMFCC
+    from mfcc_tpu_torch.ops import (fladder, float_fused, framing, int_fused,
+                                    stream_fused)
+    from mfcc_tpu_torch.ref import float_ref
+    mods = (fladder, float_fused, int_fused, stream_fused)
+
+    # -- K5 and K5-frames vs their plain versions -------------------------------
+    errs = {"K5": 0.0, "K5-frames": 0.0, "K6": 0.0, "K4-split": 0.0}
+    for nfft, hop in ((256, 86), (512, 170), (1024, 340)):
+        cfg = MFCCConfig(nfft=nfft, step=hop)
+        for T in (nfft, nfft + 5 * hop + 3, 16000):
+            sig = make_audio(130, T, seed=T + nfft)
+            for passes in (3, 4, 6):
+                for x, floor in ((torch.from_numpy(sig.astype(np.int16)), 0.0),
+                                 (torch.from_numpy(sig), 0.0),
+                                 (torch.zeros(2, T), 1.0)):
+                    x = x.to(dev)
+                    got = float_fused.mfcc_radix2(x, cfg, dft_passes=passes,
+                                                  mel_floor=floor)
+                    want = float_fused.mfcc_radix2_plain(
+                        x, cfg, dft_passes=passes, mel_floor=floor)
+                    torch.cuda.synchronize()
+                    e = compare(got, want, f"K5 nfft {nfft} T={T} passes "
+                                f"{passes} {x.dtype} floor {floor}")
+                    check(e <= R2_TOL, f"K5 nfft {nfft} T={T} passes "
+                          f"{passes}: {e} > {R2_TOL}")
+                    errs["K5"] = max(errs["K5"], e)
+                frames = framing.extract_frames(framing.preemphasis(
+                    torch.from_numpy(sig).to(dev)), nfft, hop)
+                got = float_fused.mfcc_frames_float(frames, cfg,
+                                                    dft_passes=passes)
+                want = float_fused.mfcc_frames_float_plain(frames, cfg,
+                                                           dft_passes=passes)
+                torch.cuda.synchronize()
+                e = compare(got, want, f"K5-frames nfft {nfft} T={T} passes "
+                            f"{passes}")
+                check(e <= R2_TOL, f"K5-frames nfft {nfft}: {e} > {R2_TOL}")
+                errs["K5-frames"] = max(errs["K5-frames"], e)
+    print(f"K5 vs plain: S=130 x T in {{nfft, nfft+5*hop+3, 16000}}, nfft "
+          f"256/512/1024, passes 3/4/6, int16, f32 and silent with "
+          f"mel_floor=1: max-abs {errs['K5']:.3e}; K5-frames on the same "
+          f"frames {errs['K5-frames']:.3e} (tolerance {R2_TOL})")
+
+    # -- K6 vs its plain version ------------------------------------------------
+    for step in (171, 165, 341):
+        cfg = MFCCConfig(step=step)
+        x = torch.from_numpy(make_audio(130, 16000, seed=step)).to(dev)
+        for xi in (x.to(torch.int16), x):
+            got = float_fused.mfcc_recomp_t(xi, cfg)
+            want = float_fused.mfcc_recomp_t_plain(xi, cfg)
+            torch.cuda.synchronize()
+            e = compare(got, want, f"K6 hop {step} {xi.dtype}")
+            check(e <= KERNEL_TOL, f"K6 hop {step}: {e} > {KERNEL_TOL}")
+            errs["K6"] = max(errs["K6"], e)
+    print(f"K6 vs plain (K1's kernel at an odd hop): S=130 x 1 s, hop 171, "
+          f"165 and 341, int16 and f32: max-abs {errs['K6']:.3e}")
+
+    # -- the split-DFT step vs its plain version ----------------------------------
+    for passes in (3, 4):
+        for C in (1, 170, 600, 1024, 2048):
+            errs["K4-split"] = max(errs["K4-split"], k4_run(
+                dev, False, 130, C, MFCCConfig(), seed=C + passes,
+                dft_passes=passes))
+    errs["K4-split"] = max(errs["K4-split"], k4_run(
+        dev, False, S_SERVE, C_SERVE, MFCCConfig(), steps=3, seed=2,
+        dft_passes=3))
+    print(f"K4-split vs plain: S=130 x C in {{1, 170, 600, 1024, 2048}}, "
+          f"passes 3 and 4, 4 steps each over every layout, and S={S_SERVE} x "
+          f"C={C_SERVE}: every carry equal to the plain version's and to "
+          f"K4-float's, features max-abs {errs['K4-split']:.3e}")
+
+    # -- the fast gate on the JAX bench's gate input --------------------------------
+    cfg = MFCCConfig()
+    gate_in = make_audio(2, 512 + 4 * 170, seed=7)
+    want = np.stack([float_ref.mfcc_float(s_, cfg) for s_ in gate_in])
+    g = torch.from_numpy(gate_in.astype(np.int16)).to(dev)
+    gfr = framing.extract_frames(framing.preemphasis(
+        torch.from_numpy(gate_in).to(dev)), 512, cfg.hop).contiguous()
+    streamed, _ = StreamingMFCC(precision="fast").process(g, 298)
+    readings = {
+        "K5 3 passes": float_fused.mfcc_radix2(g, cfg, dft_passes=3),
+        "K5-frames 3 passes": float_fused.mfcc_frames_float(gfr, cfg,
+                                                            dft_passes=3),
+        "streamed fast (C=298)": torch.from_numpy(np.stack(streamed)),
+    }
+    for name, out in readings.items():
+        e = float(np.abs(out.cpu().numpy() - want).max())
+        print(f"fast gate input (make_audio(2, 1192, seed=7)): {name} vs "
+              f"float64 oracle {e:.3e} (gate {FAST_GATE})")
+        check(bool(torch.isfinite(out).all()) and e <= FAST_GATE,
+              f"fast gate: {name} {e} > {FAST_GATE}")
+
+    # -- the fast and odd-hop main paths --------------------------------------------
+    sig = make_audio(S_MAIN, T_MAIN)
+    audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    spread = np.linspace(0, S_MAIN - 1, 8).astype(int)
+    want = np.stack([float_ref.mfcc_float(sig[i], cfg) for i in spread])
+    n_frames = cfg.n_frames(T_MAIN)
+    fe = MFCC(precision="fast")
+    check(fe.window.device.type == "cuda", "MFCC(precision='fast') on "
+          f"{fe.window.device}")
+    calls = 2
+    zero_counts(*mods)
+    outs = [fe(audio) for _ in range(calls)]
+    torch.cuda.synchronize()
+    k5_launches = float_fused.LAUNCHES["K5"]
+    check(k5_launches == calls and fladder.LAUNCHES == 0
+          and float_fused.LAUNCHES["K6"] == 0,
+          f"MFCC(precision='fast') launches {float_fused.LAUNCHES}, K1 "
+          f"{fladder.LAUNCHES} for {calls} calls")
+    out = outs[0]
+    check(tuple(out.shape) == (S_MAIN, n_frames, cfg.nceptrums)
+          and out.dtype == torch.float32, f"fast output {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite fast cepstra")
+    check(torch.equal(outs[0], outs[1]), "two fast calls differ")
+    e3 = float(np.abs(out[spread].cpu().numpy() - want).max())
+    k5_6 = float_fused.mfcc_radix2(audio, cfg, dft_passes=6)
+    e6 = float(np.abs(k5_6[spread].cpu().numpy() - want).max())
+    print(f"MFCC(precision='fast')(audio) {tuple(audio.shape)} int16 -> "
+          f"{tuple(out.shape)}: K5 launches {k5_launches} in {calls} calls, "
+          f"K1 {fladder.LAUNCHES}; max-abs vs float64 oracle on 8 spread "
+          f"streams {e3:.3e} (3 passes; the JAX kernel reads 1.2e-2 here, "
+          f"gate {FAST_LONG_GATE}), K5 at 6 passes {e6:.3e}")
+    check(e3 <= FAST_LONG_GATE, f"fast on the spread streams: {e3}")
+    del outs, k5_6
+
+    hframes = framing.extract_frames(framing.preemphasis(
+        audio.to(torch.float32)), 512, cfg.hop).contiguous()
+    zero_counts(*mods)
+    out_frames = fe.frames(hframes)
+    torch.cuda.synchronize()
+    kf_launches = float_fused.LAUNCHES["K5-frames"]
+    check(kf_launches == 1 and float_fused.LAUNCHES["K5"] == 0,
+          f"MFCC(precision='fast').frames launches {float_fused.LAUNCHES}")
+    ef = compare(out_frames, out, "K5-frames vs K5 on the headline")
+    check(ef <= R2_TOL, f"K5-frames vs K5 on the headline: {ef}")
+    print(f"MFCC(precision='fast').frames {tuple(hframes.shape)} f32 "
+          f"({hframes.nbytes / 1e9:.2f} GB): K5-frames launches "
+          f"{kf_launches}; max-abs vs batch K5 {ef:.3e}")
+    del out_frames, out
+
+    cfg171 = MFCCConfig(step=171)
+    fe171 = MFCC(cfg171)
+    zero_counts(*mods)
+    odd = fe171(audio)
+    torch.cuda.synchronize()
+    k6_launches = float_fused.LAUNCHES["K6"]
+    check(k6_launches == 1 and fladder.LAUNCHES == 0,
+          f"MFCC(step=171) launches {float_fused.LAUNCHES}, K1 "
+          f"{fladder.LAUNCHES}")
+    n171 = cfg171.n_frames(T_MAIN)
+    check(tuple(odd.shape) == (S_MAIN, n171, cfg.nceptrums)
+          and bool(torch.isfinite(odd).all()), f"K6 output {odd.shape}")
+    want171 = np.stack([float_ref.mfcc_float(sig[i], cfg171) for i in spread])
+    e171 = float(np.abs(odd[spread].cpu().numpy() - want171).max())
+    print(f"MFCC(MFCCConfig(step=171))(audio) -> {tuple(odd.shape)}: K6 "
+          f"launches {k6_launches}, K1 {fladder.LAUNCHES}; max-abs vs float64 "
+          f"oracle on 8 spread streams {e171:.3e} (gate {GATE})")
+    check(e171 <= GATE, f"K6 gate: {e171} > {GATE}")
+    del odd
+
+    # -- K5, K5-frames and K6 vs their plain versions at the headline shape -----------
+    headline = [(f"K5 {p} passes", "K5", R2_TOL, audio,
+                 lambda x, p=p: float_fused.mfcc_radix2(x, cfg, dft_passes=p),
+                 lambda x, p=p: float_fused.mfcc_radix2_plain(
+                     x, cfg, dft_passes=p)) for p in (3, 6)]
+    headline += [
+        ("K5-frames 3 passes", "K5-frames", R2_TOL, hframes,
+         lambda x: float_fused.mfcc_frames_float(x, cfg, dft_passes=3),
+         lambda x: float_fused.mfcc_frames_float_plain(x, cfg,
+                                                       dft_passes=3)),
+        ("K6 hop 171", "K6", KERNEL_TOL, audio,
+         lambda x: float_fused.mfcc_recomp_t(x, cfg171),
+         lambda x: float_fused.mfcc_recomp_t_plain(x, cfg171))]
+    for name, key, tol, x, kern, plain in headline:
+        got, want_p = kern(x), plain(x)
+        torch.cuda.synchronize()
+        e = compare(got, want_p, f"{name} at the headline shape")
+        print(f"{name} vs plain at the headline shape {tuple(x.shape)} "
+              f"{str(x.dtype)[6:]} -> {tuple(got.shape)}: max-abs {e:.3e} "
+              f"(tolerance {tol})")
+        check(e <= tol, f"{name} at the headline shape: {e} > {tol}")
+        errs[key] = max(errs[key], e)
+        del got, want_p
+
+    # -- streamed fast: bit-identical to batch K5 -------------------------------------
+    S = 64
+    ssig = make_audio(S, 64 * C_SERVE, seed=5).astype(np.int16)
+    saudio = torch.from_numpy(ssig).to(dev)
+    batch = float_fused.mfcc_radix2(saudio, cfg, dft_passes=3).cpu().numpy()
+    zero_counts(*mods)
+    outs, _ = StreamingMFCC(precision="fast").process(saudio, C_SERVE)
+    torch.cuda.synchronize()
+    split_launches = stream_fused.LAUNCHES["K4-split"]
+    n = {**stream_fused.LAUNCHES, "K1": fladder.LAUNCHES,
+         "K5": float_fused.LAUNCHES["K5"]}
+    check(n == {"K4-split": 64, "K4-float": 0, "K4-INT": 0, "K1": 0,
+                "K5": 0},
+          f"streamed fast launches {n} for 64 full steps")
+    got = np.stack(outs)
+    check(got.shape == batch.shape and bool(np.isfinite(got).all()),
+          f"streamed fast {got.shape} vs batch {batch.shape}")
+    same = bool(np.array_equal(got, batch))
+    es = float(np.abs(got - batch).max())
+    check(es <= 5e-5, f"streamed fast vs batch K5: {es}")
+    sp = np.linspace(0, S - 1, 8).astype(int)
+    eso = float(np.abs(got[sp] - np.stack(
+        [float_ref.mfcc_float(ssig[i], cfg) for i in sp])).max())
+    print(f"StreamingMFCC(precision='fast').process S={S} x "
+          f"T={ssig.shape[1]} int16, C={C_SERVE}: launches {n}; vs batch K5 "
+          f"at 3 passes bit-identical: {same} (max-abs {es:.3e}); vs float64 "
+          f"oracle on 8 spread streams {eso:.3e} (read, not gated: the JAX "
+          f"kernel reads 0.17 on these streams, "
+          f"tests/test_torch_float_fused.py)")
+    del batch, outs, saudio
+
+    # -- times at the headline shape ----------------------------------------------------
+    frames_n = S_MAIN * n_frames
+    fe_high = MFCC()
+    times = {}
+    for name, fn in (
+            ("K1 kernel (mfcc_float_ladder), hop 170",
+             lambda: fladder.mfcc_float_ladder(audio, cfg)),
+            ("K5 kernel, 3 passes",
+             lambda: float_fused.mfcc_radix2(audio, cfg, dft_passes=3)),
+            ("K5 kernel, 6 passes",
+             lambda: float_fused.mfcc_radix2(audio, cfg, dft_passes=6)),
+            ("MFCC(precision='fast')(audio), K5 route", lambda: fe(audio)),
+            ("MFCC()(audio), K1 route", lambda: fe_high(audio)),
+            ("K5 plain version, 3 passes",
+             lambda: float_fused.mfcc_radix2_plain(audio, cfg,
+                                                   dft_passes=3)),
+            ("K5-frames kernel, 3 passes",
+             lambda: float_fused.mfcc_frames_float(hframes, cfg,
+                                                   dft_passes=3)),
+            ("K5-frames plain version, 3 passes",
+             lambda: float_fused.mfcc_frames_float_plain(hframes, cfg,
+                                                         dft_passes=3))):
+        times[name] = time_ms(fn)
+        print(f"time {name}: {times[name]:.4f} ms, "
+              f"{frames_n / times[name] * 1e3:.4e} frames/s (S={S_MAIN} x "
+              f"T={T_MAIN} int16, {frames_n} frames, median of {ITERS}; "
+              f"{card})")
+    del hframes
+    frames171 = S_MAIN * n171
+    for name, fn in (
+            ("K6 kernel, hop 171",
+             lambda: float_fused.mfcc_recomp_t(audio, cfg171)),
+            ("K6 plain version, hop 171",
+             lambda: float_fused.mfcc_recomp_t_plain(audio, cfg171))):
+        times[name] = time_ms(fn)
+        print(f"time {name}: {times[name]:.4f} ms, "
+              f"{frames171 / times[name] * 1e3:.4e} frames/s (S={S_MAIN} x "
+              f"T={T_MAIN} int16, {frames171} frames, median of {ITERS}; "
+              f"{card})")
+
+    ops = float_fused.default_operators(cfg, dev)
+    tables = sum(t.nbytes for t in ops if t is not ops.dft)
+    out_bytes = frames_n * cfg.nceptrums * 4
+    k5 = r2_bound(audio.nbytes + out_bytes + tables, frames_n, cfg, 3)
+    k5_6 = r2_bound(audio.nbytes + out_bytes + tables, frames_n, cfg, 6)
+    kf = r2_bound(frames_n * 512 * 4 + out_bytes + tables, frames_n, cfg, 3)
+    lops = fladder.default_operators(cfg171, dev)
+    k6_nbytes = (audio.nbytes + frames171 * cfg.nceptrums * 4
+                 + sum(t.nbytes for t in lops))
+    k6_ops = frames171 * k1_flops_per_frame(cfg171, lops.band.cpu())
+    k6 = bound(k6_nbytes, k6_ops, FP64_FLOPS)
+    print(f"K5 bound, 3 passes: {k5[2]:.4e} operations of bf16 limb products "
+          f"at {BF16_FLOPS:.3e}/s -> {k5[0]:.4f} ms ({k5[1]}); 6 passes: "
+          f"{k5_6[2]:.4e} f32 at {FP32_FLOPS:.3e}/s -> {k5_6[0]:.4f} ms "
+          f"({k5_6[1]}); K5-frames, 3 passes: {kf[0]:.4f} ms ({kf[1]}); K6: "
+          f"{k6_nbytes} bytes, {k6_ops:.4e} FP64 operations -> {k6[0]:.4f} ms "
+          f"({k6[1]})")
+
+    # -- the split-DFT step at the serving shape -------------------------------------------
+    steps = 16
+    serve = torch.from_numpy(make_audio(S_SERVE, (steps + 2) * C_SERVE,
+                                        seed=6).astype(np.int16)).to(dev)
+    chunks = [serve[:, i * C_SERVE:(i + 1) * C_SERVE].contiguous()
+              for i in range(steps + 2)]
+    sm = StreamingMFCC(precision="fast")
+    state = sm.init(S_SERVE)
+    for c in chunks[:2]:
+        _, _, state = sm.step(c, state)
+    valid = int(sm.step(chunks[2], state)[1].sum())
+    start = (cfg.windowlen - 1 - state.count).to(torch.int32)
+    args = (state.buffer, chunks[2], start, state.prev, cfg)
+    s_ms = time_ms(lambda: stream_fused.stream_step_float(*args,
+                                                          dft_passes=3))
+    sp_ms = time_ms(lambda: stream_fused.stream_step_float_plain(
+        *args, dft_passes=3))
+    k4f_ms = time_ms(lambda: stream_fused.stream_step_float(*args))
+
+    def chain():
+        st = state
+        for c in chunks[2:]:
+            _, _, st = sm.step(c, st)
+    step_ms = time_ms(chain) / steps
+    for name, ms in (("K4-split kernel, 3 passes", s_ms),
+                     ("K4-split plain version, 3 passes", sp_ms),
+                     ("K4-float kernel (same inputs)", k4f_ms),
+                     (f"StreamingMFCC(precision='fast').step, mean of a "
+                      f"chain of {steps}", step_ms)):
+        print(f"time {name}: {ms:.4f} ms per step, "
+              f"{S_SERVE * C_SERVE / 16000 / (ms / 1e3):.4e} real-time "
+              f"streams (S={S_SERVE} x C={C_SERVE} int16, median of "
+              f"{ITERS}; {card})")
+    P = cfg.windowlen - 1
+    F = stream_fused.frames_per_step(C_SERVE, cfg)
+    s_bytes = (chunks[2].nbytes + 2 * S_SERVE * P * 4 + S_SERVE * 8
+               + S_SERVE * F * cfg.nceptrums * 4 + tables)
+    ks = r2_bound(s_bytes, valid, cfg, 3)
+    print(f"K4-split bound: {s_bytes} bytes, {valid} valid frames, "
+          f"{ks[2]:.4e} bf16 limb-product operations -> {ks[0]:.4f} ms "
+          f"({ks[1]})")
+    del serve, chunks, state, args
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, b):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+    return [
+        entry("radix2 split-DFT audio, 3 passes (K5)",
+              "mfcc_tpu_torch/csrc/float_fused.cu",
+              "mfcc_tpu/ops/pallas_mfcc.py:1333", k5_launches, errs["K5"],
+              times["K5 kernel, 3 passes"],
+              times["K5 plain version, 3 passes"], k5),
+        entry("radix2 split-DFT frames, 3 passes (K5-frames)",
+              "mfcc_tpu_torch/csrc/float_fused.cu",
+              "mfcc_tpu/ops/pallas_mfcc.py:1256", kf_launches,
+              errs["K5-frames"], times["K5-frames kernel, 3 passes"],
+              times["K5-frames plain version, 3 passes"], kf),
+        entry("recomp_t odd hop on K1's kernel (K6)",
+              "mfcc_tpu_torch/csrc/fladder.cu",
+              "mfcc_tpu/ops/pallas_mfcc.py:840", k6_launches, errs["K6"],
+              times["K6 kernel, hop 171"], times["K6 plain version, hop 171"],
+              k6),
+        entry("stream_step split-DFT, 3 passes (K4-split)",
+              "mfcc_tpu_torch/csrc/stream_step.cu",
+              "mfcc_tpu/ops/pallas_stream.py:421", split_launches,
+              errs["K4-split"], s_ms, sp_ms, ks),
+    ]
 
 
 def main() -> int:
@@ -799,6 +1221,8 @@ def main() -> int:
     kernels += int_phases(dev, card)
     torch.cuda.empty_cache()
     kernels += serving_phases(dev, card)
+    torch.cuda.empty_cache()
+    kernels += fast_phases(dev, card)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,18 @@
 // The serving step K4 for Hopper (sm_90a): one chunk of every stream in,
-// its completed frames' cepstra and the new carry out, in one kernel.  Two
-// kernels, float and bit-exact INT:
+// its completed frames' cepstra and the new carry out, in one kernel.  Three
+// kernels, float, split-DFT float and bit-exact INT:
 //
 //  mfcc_stream_f32_{i16,f32}:  carry (S, P) f32, chunk (S, C) int16 or f32
 //      -> (S, F, ncep) f32 + new carry (S, P) f32.  Replaces the TPU kernel
 //      mfcc_tpu/ops/pallas_stream.py:_stream_fladder_kernel (entry
 //      stream_step_float); the tail is K1's (fladder_stages.cuh).
+//  mfcc_stream_r2_{i16,f32}:  the same operands and new carry, with K5's
+//      split-DFT tail (radix2_stages.cuh) at dft_passes 3, 4 or 6.
+//      Replaces pallas_stream.py:_stream_float_kernel (stream_step_float
+//      where use_ladder is false: the precision="fast" serving step).  Its
+//      ingest and new carry are K4-float's, so the carry is the same
+//      tensor, and a streamed int16 frame reaches the tail with the f32
+//      values K5's batch ingest gives it: the same operations.
 //  mfcc_stream_int_{i16,i32}:  carry (S, P) int32, chunk (S, C) int16 or
 //      int32 -> (S, F, ncep) int32 + new carry (S, P) int32.  Replaces
 //      pallas_stream.py:_stream_int_kernel (entry stream_step_int); the
@@ -49,7 +56,9 @@
 // frame slots, ~6 valid per stream): ~8.4 MB of chunk, ~16.7 MB of carry in
 // and out, ~3.7 MB of features, ~9 us of HBM time; the tails' operations
 // (chip_smoke.py counts them per valid frame) bound it: ~14 us of FP64 for
-// the float step, ~41 us of int32 issue for the INT step.
+// the float step, ~41 us of int32 issue for the INT step; the split-DFT
+// step's limb products bound it at the bf16 tensor-core rate, and its
+// FP64 product loop bounds this design (see radix2_stages.cuh).
 //
 // Not carried from the TPU kernels: the [carry | chunk] scratch concat, the
 // barrel-shifter alignment (_barrel_sublane), the even/odd and sigma frame
@@ -61,6 +70,7 @@
 
 #include "fladder_stages.cuh"
 #include "int_stages.cuh"
+#include "radix2_stages.cuh"
 
 namespace {
 
@@ -156,6 +166,58 @@ stream_f32_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
               out + s * F * ncep, f0, F);
 }
 
+// The split-DFT float step: K4-float's ingest (the same f32 emphasized
+// values and the same new carry) in front of K5's tail.
+template <typename In, int PASSES, int ST>
+__global__ void __launch_bounds__(radix2_stages::kThreads)
+stream_r2_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
+                 const int* __restrict__ start, const float* __restrict__ prev,
+                 float* __restrict__ out, float* __restrict__ ncarry, int P,
+                 int C, int F, int hop, int nfft, int nfilters, int ncep,
+                 int frames_per_block, int tiles_per_stream, Strides st,
+                 const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                 const float* __restrict__ we, const float* __restrict__ wo,
+                 const float2* __restrict__ tw, const float* __restrict__ mel,
+                 const float* __restrict__ dct, const int2* __restrict__ band,
+                 float mel_floor) {
+  using namespace radix2_stages;
+  extern __shared__ double2 smem[];
+  const int FT = frames_per_block;
+  const Smem sm = carve(smem, FT, nfft, nfilters);
+  const int nh = sm.nh;
+
+  const long long s = blockIdx.x / tiles_per_stream;
+  const int tile = static_cast<int>(blockIdx.x % tiles_per_stream);
+  const int f0 = tile * FT;
+  const float* cs = carry + s * st.carry_s;
+  const In* xs = chunk + s * st.chunk_s;
+  const int s0 = start[s];
+  const float pv = prev[s];
+
+  load_constants<PASSES>(sm, cos_t, sin_t, tw, band, nfilters);
+  for (int i = threadIdx.x; i < FT * nh; i += blockDim.x) {
+    const int f = i >> sm.log2nh;
+    const int m = i & (nh - 1);
+    const int g = f0 + f;
+    if (g < F) {
+      const long long q = s0 + static_cast<long long>(g) * hop + 2 * m;
+      put_pair<PASSES>(sm, f, m, emph_f32(cs, xs, pv, q, P, C, st),
+                       emph_f32(cs, xs, pv, q + 1, P, C, st), we, wo);
+    } else {
+      put_zero(sm, f, m);
+    }
+  }
+  if (tile == 0) {
+    float* nc = ncarry + s * st.ncarry_s;
+    for (int i = threadIdx.x; i < P; i += blockDim.x)
+      nc[i * st.ncarry_p] = emph_f32(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
+  }
+  __syncthreads();
+
+  radix2_tail<PASSES, ST>(sm, FT, nfilters, ncep, mel, dct, mel_floor,
+                          out + s * F * ncep, f0, F);
+}
+
 template <typename In>
 __global__ void __launch_bounds__(int_stages::kThreads)
 stream_int_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
@@ -237,6 +299,47 @@ int launch_f32(const float* carry, const In* chunk, const int* start,
   return static_cast<int>(cudaGetLastError());
 }
 
+using R2Tables = radix2_stages::Tables;
+
+template <typename In, int PASSES, int ST>
+int launch_r2_p(const float* carry, const In* chunk, const int* start,
+                const float* prev, float* out, float* ncarry, long long S,
+                int P, int C, int F, int hop, int nfft, int nfilters, int ncep,
+                const Strides& st, const R2Tables& tb, float mel_floor,
+                void* stream) {
+  using namespace radix2_stages;
+  const int FT = frames_per_block(nfft);
+  const long long tiles = tiles_for(S, P, C, F, hop, nfft, FT);
+  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return 0;
+  const size_t smem = smem_bytes(FT, nfft, nfilters);
+  const int err = fladder_stages::allow_smem(stream_r2_kernel<In, PASSES, ST>, smem);
+  if (err != 0) return err;
+  stream_r2_kernel<In, PASSES, ST><<<static_cast<unsigned>(S * tiles), kThreads,
+                                     smem, static_cast<cudaStream_t>(stream)>>>(
+      carry, chunk, start, prev, out, ncarry, P, C, F, hop, nfft, nfilters,
+      ncep, FT, static_cast<int>(tiles), st, tb.cos_t, tb.sin_t, tb.we, tb.wo,
+      reinterpret_cast<const float2*>(tb.tw), tb.mel, tb.dct,
+      reinterpret_cast<const int2*>(tb.band), mel_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In>
+int launch_r2(const float* carry, const In* chunk, const int* start,
+              const float* prev, float* out, float* ncarry, long long S, int P,
+              int C, int F, int hop, int nfft, int nfilters, int ncep,
+              const Strides& st, int passes, const R2Tables& tb,
+              double mel_floor, void* stream) {
+  if (!radix2_stages::geometry_ok(nfft, passes, nfilters, ncep))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float fl = static_cast<float>(mel_floor);
+  return radix2_stages::dispatch(passes, nfft, [&](auto p, auto nt) {
+    return launch_r2_p<In, decltype(p)::value, decltype(nt)::value>(
+        carry, chunk, start, prev, out, ncarry, S, P, C, F, hop, nfft,
+        nfilters, ncep, st, tb, fl, stream);
+  });
+}
+
 template <typename In>
 int launch_int(const int* carry, const In* chunk, const int* start,
                const int* prev, int* out, int* ncarry, long long S, int P,
@@ -295,6 +398,39 @@ extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk, const
   return launch_f32(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
                     nfft, nfilters, ncep, st, win, tw, mel, dct, band,
                     mel_floor, stream);
+}
+
+// The split-DFT float step: the arguments of mfcc_stream_f32_* up to the
+// strides, then passes (3, 4 or 6) and K5's tables (cos_t, sin_t, we, wo,
+// tw, mel, dct, band: see float_fused.cu).
+extern "C" int mfcc_stream_r2_i16(const float* carry, const int16_t* chunk, const int* start,
+                      const float* prev, float* out, float* ncarry, long long S,
+                      int P, int C, int F, int hop, int nfft, int nfilters,
+                      int ncep, long long carry_s, long long carry_p,
+                      long long chunk_s, long long chunk_t, long long ncarry_s,
+                      long long ncarry_p, int passes, const float* cos_t,
+                      const float* sin_t, const float* we, const float* wo,
+                      const float* tw, const float* mel, const float* dct,
+                      const int* band, double mel_floor, void* stream) {
+  const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
+  const R2Tables tb{cos_t, sin_t, we, wo, tw, mel, dct, band};
+  return launch_r2(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
+                   nfft, nfilters, ncep, st, passes, tb, mel_floor, stream);
+}
+
+extern "C" int mfcc_stream_r2_f32(const float* carry, const float* chunk, const int* start,
+                      const float* prev, float* out, float* ncarry, long long S,
+                      int P, int C, int F, int hop, int nfft, int nfilters,
+                      int ncep, long long carry_s, long long carry_p,
+                      long long chunk_s, long long chunk_t, long long ncarry_s,
+                      long long ncarry_p, int passes, const float* cos_t,
+                      const float* sin_t, const float* we, const float* wo,
+                      const float* tw, const float* mel, const float* dct,
+                      const int* band, double mel_floor, void* stream) {
+  const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
+  const R2Tables tb{cos_t, sin_t, we, wo, tw, mel, dct, band};
+  return launch_r2(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
+                   nfft, nfilters, ncep, st, passes, tb, mel_floor, stream);
 }
 
 extern "C" int mfcc_stream_int_i16(const int* carry, const int16_t* chunk, const int* start,

@@ -65,9 +65,28 @@ _STREAM_F32_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_P] * 5
 #                           band, stream)
 _STREAM_INT_ARGS = ([_P] * 6 + [_LL] + [_I] * 4 + [_LL] * 6 + [_I] * 5
                     + [_P] * 6)
+# the split-DFT tables of K5: cos_t, sin_t, we, wo, tw, mel, dct, band
+_R2_TABLES = [_P] * 8
+# mfcc_radix2_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
+#                       passes, <tables>, mel_floor, stream)
+_RADIX2_ARGS = ([_P, _P, _LL, _LL] + [_I] * 6 + _R2_TABLES
+                + [ctypes.c_double, _P])
+# mfcc_frames_float_f32(frames, out, M, nfft, nfilters, ncep, passes,
+#                       <tables>, mel_floor, stream)
+_FRAMES_FLOAT_ARGS = ([_P, _P, _LL] + [_I] * 4 + _R2_TABLES
+                      + [ctypes.c_double, _P])
+# mfcc_stream_r2_{i16,f32}(<mfcc_stream_f32_* up to ncarry_p>, passes,
+#                          <tables>, mel_floor, stream)
+_STREAM_R2_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_I]
+                   + _R2_TABLES + [ctypes.c_double, _P])
 SIGNATURES = {
     "mfcc_fladder_i16": _FLADDER_ARGS,
     "mfcc_fladder_f32": _FLADDER_ARGS,
+    "mfcc_radix2_i16": _RADIX2_ARGS,
+    "mfcc_radix2_f32": _RADIX2_ARGS,
+    "mfcc_frames_float_f32": _FRAMES_FLOAT_ARGS,
+    "mfcc_stream_r2_i16": _STREAM_R2_ARGS,
+    "mfcc_stream_r2_f32": _STREAM_R2_ARGS,
     "mfcc_int_i16": _INT_I16_ARGS,
     "mfcc_int_frames_i32": _INT_FRAMES_ARGS,
     "mfcc_stream_f32_i16": _STREAM_F32_ARGS,

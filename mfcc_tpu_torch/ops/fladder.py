@@ -171,6 +171,17 @@ def mfcc_float_ladder(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
         raise ValueError("K1 needs contiguous audio")
     ops = _resolve(operators, cfg, audio.device)
     check_operators(ops, cfg, audio.device, "K1")
+    out = launch_ladder(audio, cfg, mel_floor, ops)
+    LAUNCHES += 1
+    return out
+
+
+def launch_ladder(audio: torch.Tensor, cfg: MFCCConfig, mel_floor: float,
+                  ops: LadderOperators) -> torch.Tensor:
+    """Launch ``mfcc_fladder_{i16,f32}`` on contiguous (..., T) int16 or
+    f32 CUDA audio with checked operators, at ``cfg``'s hop (the kernel
+    frames by address, so any hop >= 1); counts nothing.  Shared by K1 and
+    K6 (``float_fused.mfcc_recomp_t``), each counting its own launches."""
     nfilters, ncep = cfg.nfilters, cfg.nceptrums
     lead, T = audio.shape[:-1], audio.shape[-1]
     n_frames = framing.num_frames(T, cfg.hop, cfg.nfft)
@@ -187,5 +198,4 @@ def mfcc_float_ladder(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
                  n_frames, cfg.hop, cfg.nfft, nfilters, ncep,
                  ops.window.data_ptr(), tw.data_ptr(), ops.mel.data_ptr(),
                  ops.dct.data_ptr(), ops.band.data_ptr(), float(mel_floor))
-    LAUNCHES += 1
     return out.reshape(lead + (n_frames, ncep))

@@ -12,7 +12,9 @@ frames (identical numerics spec).  This chain is the route of
 ``MFCC.frames`` and of configurations outside the fused kernel's family,
 and the plain baseline that the kernels are timed against.
 
-Only ``precision="highest"`` is ported: the matmuls run in full float32.
+Only ``precision="highest"`` is ported here: the matmuls run in full
+float32.  The ``"fast"`` dial is a kernel route (``ops/float_fused.py``),
+not a precision of this chain.
 """
 
 from __future__ import annotations
@@ -73,9 +75,10 @@ def default_operators(cfg: MFCCConfig, dtype: torch.dtype,
 def _check_precision(precision: str) -> None:
     if precision != "highest":
         raise NotImplementedError(
-            f"precision={precision!r} is not ported to the torch package "
-            "yet (a later slice of the port: fast/split/f64ish); "
-            "use precision='highest'")
+            f"precision={precision!r} is not ported to the torch package's "
+            "chain yet (split, f64ish, high, default and bf16 wait for a "
+            "later slice of the port; fast is the split-DFT kernel route of "
+            "MFCC and StreamingMFCC); use precision='highest'")
 
 
 def _resolve(operators, cfg, dtype, device) -> Operators:

@@ -1,13 +1,18 @@
-"""K4: the fused serving-step kernels, float and bit-exact INT.
+"""K4: the fused serving-step kernels, float, split-DFT float and bit-exact
+INT.
 
 The counterpart of ``mfcc_tpu.ops.pallas_stream``: one streaming step of
 every stream in one CUDA kernel (``csrc/stream_step.cu``) -- pre-emphasis
 with the carried previous sample, the per-stream frame alignment by start
-offset, the F frames a chunk of C samples can complete, the batch tail (K1's
-for the float step, K2's for the INT step) and the new carry as a second
-output.
+offset, the F frames a chunk of C samples can complete, the batch tail and
+the new carry as a second output.
 
-  * ``stream_step_float``: carry f32, chunk int16 or f32 -> (S, F, ncep) f32;
+  * ``stream_step_float``: carry f32, chunk int16 or f32 -> (S, F, ncep)
+    f32.  At ``dft_passes=6`` (the default) on K1's family it runs K1's
+    tail (``mfcc_stream_f32_*``), as JAX's ``use_ladder``; otherwise
+    (``dft_passes`` 3 or 4: the ``precision="fast"`` step) K5's split-DFT
+    tail (``mfcc_stream_r2_*``, ``float_fused``), with the same ingest and
+    the same new carry;
   * ``stream_step_int``: carry int32, chunk int16 or int32 -> (S, F, ncep)
     int32, element-exact.
 
@@ -15,8 +20,9 @@ A CUDA tensor launches the kernel (or the wrapper raises), a CPU tensor
 takes the plain version, ``stream_step_float_plain`` /
 ``stream_step_int_plain``: the same function as torch ops (emphasis with
 carry, ``[carry | emph]``, a per-row aligned read, ``extract_frames``, then
-``fladder.ladder_tail_plain`` resp. ``int_ops.mfcc_int_frames``).
-``LAUNCHES`` counts kernel launches of both steps.
+``fladder.ladder_tail_plain``, ``float_fused.radix2_tail_plain`` resp.
+``int_ops.mfcc_int_frames``).  ``LAUNCHES`` counts kernel launches per
+kernel: ``"K4-float"``, ``"K4-split"`` and ``"K4-INT"``.
 
 Frame slots past a stream's valid count are computed from the zero-padded
 signal, by the kernel and the plain version alike; the caller masks them.
@@ -35,9 +41,10 @@ import torch.nn.functional as F
 
 from ..config import MFCCConfig
 from ..kernels import build
-from . import fladder, framing, int_fused, int_ops
+from . import fladder, float_fused, framing, int_fused, int_ops
 
-LAUNCHES = 0     # kernel launches by stream_step_float/int (never the plain)
+# kernel launches per kernel (never the plain versions)
+LAUNCHES = {"K4-float": 0, "K4-split": 0, "K4-INT": 0}
 
 LAYOUTS = ("time", "stream", "positions")
 
@@ -123,10 +130,15 @@ def _strides(buffer, chunk, ncarry, transposed_state, layout) -> tuple:
     return (*bs, *xs, *ns)
 
 
-def _launch(fn, device: torch.device, *args) -> None:
-    global LAUNCHES
+def _launch(kernel: str, fn, device: torch.device, *args) -> None:
     build.launch(fn, device, *args)
-    LAUNCHES += 1
+    LAUNCHES[kernel] += 1
+
+
+def use_ladder(cfg: MFCCConfig, dft_passes: int) -> bool:
+    """The float step's tail, as JAX's ``use_ladder``: K1's at 6 passes on
+    K1's family, else K5's split DFT."""
+    return dft_passes == 6 and fladder.fladder_config_ok(cfg)
 
 
 def _new_carry(buffer: torch.Tensor, transposed_state: bool, S: int, P: int
@@ -149,18 +161,28 @@ def stream_step_float_plain(buffer, chunk, start, prev,
                             transposed_state: bool = False,
                             mel_floor: float = 0.0,
                             chunk_layout: str | None = None,
-                            operators: fladder.LadderOperators | None = None):
+                            dft_passes: int | None = None,
+                            operators=None):
     """K4-float as plain torch ops: emphasis in f32 (two roundings, as the
-    JAX step), frames from ``[carry | emph]``, then K1's tail in float64.
-    Returns (feats (S, F, ncep) f32, new carry)."""
+    JAX step), frames from ``[carry | emph]``, then K1's tail in float64
+    (``use_ladder``) or K5's split-DFT tail in f32 at ``dft_passes``.
+    ``operators`` are the tail's (``fladder.LadderOperators`` or
+    ``float_fused.Radix2Operators``).  Returns (feats (S, F, ncep) f32, new
+    carry)."""
+    passes = 6 if dft_passes is None else dft_passes
     buf, x = _rows(buffer, chunk, transposed_state, _layout(chunk_layout))
     C, P = x.shape[1], cfg.windowlen - 1
     emph = framing.preemphasis(x.to(torch.float32), prev.to(torch.float32))
     signal = torch.cat([buf.to(torch.float32), emph], dim=1)
     frames = step_frames(signal, start, cfg, frames_per_step(C, cfg))
-    ops = operators or fladder.default_operators(cfg, chunk.device)
-    feats = fladder.ladder_tail_plain(frames.to(torch.float64), ops, cfg,
-                                      mel_floor)
+    if use_ladder(cfg, passes):
+        ops = operators or fladder.default_operators(cfg, chunk.device)
+        feats = fladder.ladder_tail_plain(frames.to(torch.float64), ops, cfg,
+                                          mel_floor)
+    else:
+        ops = operators or float_fused.default_operators(cfg, chunk.device)
+        feats = float_fused.radix2_tail_plain(frames, ops, cfg, passes,
+                                              mel_floor)
     return feats, _carry_out(signal, C, P, transposed_state)
 
 
@@ -168,44 +190,60 @@ def stream_step_float(buffer, chunk, start, prev,
                       cfg: MFCCConfig = MFCCConfig(), *,
                       transposed_state: bool = False, mel_floor: float = 0.0,
                       chunk_layout: str | None = None,
-                      operators: fladder.LadderOperators | None = None):
+                      dft_passes: int | None = None, operators=None):
     """K4-float, the counterpart of ``pallas_stream.stream_step_float``.
 
     buffer (S, P) f32 emphasized carry ((P, S) with ``transposed_state``);
     chunk (S, C) int16 or f32 raw samples ((C, S) with
     ``chunk_layout="positions"``); start (S,) int32 = P - count and prev
-    (S,) f32 raw previous sample, the reset already merged.  Returns
-    (feats (S, F, ncep) f32, new carry in the buffer's layout),
-    F = (C - 1) // hop + 1.  A CUDA tensor launches the kernel or raises; a
-    CPU tensor takes ``stream_step_float_plain``."""
+    (S,) f32 raw previous sample, the reset already merged.
+    ``dft_passes`` (None = 6, or 3 or 4): 6 runs K1's tail, 3 and 4 the
+    split-DFT tail (``use_ladder``); the split-DFT operators need a zero
+    Nyquist mel row (``ValueError`` otherwise).  Returns (feats (S, F,
+    ncep) f32, new carry in the buffer's layout), F = (C - 1) // hop + 1.
+    A CUDA tensor launches the kernel or raises; a CPU tensor takes
+    ``stream_step_float_plain``."""
     layout = _layout(chunk_layout)
-    if not (stream_config_ok(cfg) and fladder.fladder_config_ok(cfg)):
+    passes = float_fused.check_passes(6 if dft_passes is None
+                                      else dft_passes)
+    ladder = use_ladder(cfg, passes)
+    if not stream_config_ok(cfg) or (passes == 6 and not ladder):
         raise ValueError(f"config outside K4-float's family: {cfg}")
+    if not ladder:
+        float_fused.radix2_operators(cfg)     # raises where they cannot exist
     S, P, C = _check_step(buffer, chunk, start, prev, cfg, transposed_state,
                           layout, torch.float32,
                           (torch.int16, torch.float32), "K4-float")
     if chunk.device.type == "cpu":
         return stream_step_float_plain(
             buffer, chunk, start, prev, cfg, transposed_state=transposed_state,
-            mel_floor=mel_floor, chunk_layout=layout, operators=operators)
+            mel_floor=mel_floor, chunk_layout=layout, dft_passes=passes,
+            operators=operators)
     start, prev = start.contiguous(), prev.contiguous()   # (S,): cheap
-    ops = operators or fladder.default_operators(cfg, chunk.device)
-    fladder.check_operators(ops, cfg, chunk.device, "K4-float")
     n_frames, ncep = frames_per_step(C, cfg), cfg.nceptrums
     out = torch.empty((S, n_frames, ncep), dtype=torch.float32,
                       device=chunk.device)
     ncarry = _new_carry(buffer, transposed_state, S, P)
     lib = build.library()
-    fn = (lib.mfcc_stream_f32_i16 if chunk.dtype == torch.int16
-          else lib.mfcc_stream_f32_f32)
-    tw = fladder.twiddles(cfg.nfft, chunk.device)
-    _launch(fn, chunk.device, buffer.data_ptr(), chunk.data_ptr(),
-            start.data_ptr(), prev.data_ptr(), out.data_ptr(),
-            ncarry.data_ptr(), S, P, C, n_frames, cfg.hop, cfg.nfft,
-            cfg.nfilters, ncep,
-            *_strides(buffer, chunk, ncarry, transposed_state, layout),
-            ops.window.data_ptr(), tw.data_ptr(), ops.mel.data_ptr(),
-            ops.dct.data_ptr(), ops.band.data_ptr(), float(mel_floor))
+    head = (buffer.data_ptr(), chunk.data_ptr(), start.data_ptr(),
+            prev.data_ptr(), out.data_ptr(), ncarry.data_ptr(), S, P, C,
+            n_frames, cfg.hop, cfg.nfft, cfg.nfilters, ncep,
+            *_strides(buffer, chunk, ncarry, transposed_state, layout))
+    int16 = chunk.dtype == torch.int16
+    if ladder:
+        ops = operators or fladder.default_operators(cfg, chunk.device)
+        fladder.check_operators(ops, cfg, chunk.device, "K4-float")
+        fn = lib.mfcc_stream_f32_i16 if int16 else lib.mfcc_stream_f32_f32
+        tw = fladder.twiddles(cfg.nfft, chunk.device)
+        _launch("K4-float", fn, chunk.device, *head, ops.window.data_ptr(),
+                tw.data_ptr(), ops.mel.data_ptr(), ops.dct.data_ptr(),
+                ops.band.data_ptr(), float(mel_floor))
+    else:
+        ops = operators or float_fused.default_operators(cfg, chunk.device)
+        float_fused.check_operators(ops, cfg, chunk.device, "K4-split")
+        fn = lib.mfcc_stream_r2_i16 if int16 else lib.mfcc_stream_r2_f32
+        _launch("K4-split", fn, chunk.device, *head, passes,
+                *float_fused.tail_ptrs(ops), float(mel_floor))
     return out, ncarry
 
 
@@ -261,7 +299,7 @@ def stream_step_int(buffer, chunk, start, prev,
     lib = build.library()
     fn = (lib.mfcc_stream_int_i16 if chunk.dtype == torch.int16
           else lib.mfcc_stream_int_i32)
-    _launch(fn, chunk.device, buffer.data_ptr(), chunk.data_ptr(),
+    _launch("K4-INT", fn, chunk.device, buffer.data_ptr(), chunk.data_ptr(),
             start.data_ptr(), prev.data_ptr(), out.data_ptr(),
             ncarry.data_ptr(), S, P, C, n_frames, cfg.hop,
             *_strides(buffer, chunk, ncarry, transposed_state, layout),

@@ -8,9 +8,17 @@ route.  Float path (``forward``, ``frames``):
   * ``method="dft"``, float32, ``precision="highest"`` and a config in K1's
     family (``ops.fladder.fladder_config_ok``) -> K1, the fused kernel
     (launched for CUDA tensors; its plain torch version for CPU tensors);
-  * a case the JAX package sends to its split-DFT / recompute kernels
-    (``precision="fast"``, odd hop) -> not ported for CUDA tensors
-    (``NotImplementedError``); the ``float_ops`` chain for CPU tensors;
+  * the cases the JAX package sends to its split-DFT / recompute kernels
+    (``method="dft"``, float32, no ``mel_floor``, a config in
+    ``ops.float_fused.float_config_ok``): ``precision="fast"`` with an even
+    hop -> K5 at 3 passes (``float_fused.mfcc_radix2``), and
+    ``precision="highest"`` with an odd hop -> K6
+    (``float_fused.mfcc_recomp_t``, on K1's kernel), for CUDA tensors; CPU
+    tensors take the "highest" ``float_ops`` chain, which is what the JAX
+    package computes off its accelerator;
+  * ``frames`` under ``precision="fast"`` in that family -> K5-frames at 3
+    passes (``float_fused.mfcc_frames_float``) for CUDA tensors, the chain
+    for CPU tensors;
   * everything else -> the ``float_ops`` chain, as in JAX.
 
 INT path (``int``, ``int_frames``): a config in the fused kernels' family
@@ -30,7 +38,7 @@ from torch import nn
 
 from . import tables
 from .config import MFCCConfig
-from .ops import fladder, float_ops, int_fused, int_ops
+from .ops import fladder, float_fused, float_ops, int_fused, int_ops
 
 _STATE = ("window", "mel", "dct")    # the module's state_dict
 
@@ -70,10 +78,12 @@ class MFCC(nn.Module):
                  method: str = "dft", precision: str = "highest",
                  dtype: torch.dtype = torch.float32, mel_floor: float = 0.0,
                  device=None):
-        """``precision`` is ``"highest"`` (the 5e-4 float contract, full
-        f32) or ``"fast"``, which the JAX package serves with its 3-pass
-        split-DFT kernel where that applies and with the "highest" chain
-        elsewhere; other precisions are not ported yet.
+        """``precision`` is ``"highest"`` (the 5e-4 float contract) or
+        ``"fast"``: the 3-pass split-DFT kernel K5 (the JAX package's fast
+        mode, ~1e-3 against the float64 oracle on short inputs) where the
+        JAX package runs it, the "highest" chain elsewhere.  ``"split"``,
+        ``"f64ish"``, ``"high"``, ``"default"`` and ``"bf16"`` are not
+        ported yet.
 
         ``device`` is where the operators live and the work runs:
         ``None`` is the card (``"cuda"``, the current CUDA device), and
@@ -94,23 +104,18 @@ class MFCC(nn.Module):
         fast = precision == "fast"
         # the JAX package's split-DFT family: pallas_mfcc.pallas_float_config_ok
         fused_ok = (method == "dft" and dtype == torch.float32
-                    and mel_floor == 0.0 and cfg.windowlen == cfg.nfft
-                    and cfg.nfft in (256, 512, 1024)
-                    and fladder.nyquist_mel_row_zero(cfg))
-        self._not_ported = None     # TPU kernel this case would need on CUDA
+                    and mel_floor == 0.0 and float_fused.float_config_ok(cfg))
+        # the route of CUDA tensors; CPU tensors take the chain outside K1's
         if (method == "dft" and dtype == torch.float32
                 and precision == "highest" and fladder.fladder_config_ok(cfg)):
             self._route = "ladder"
+        elif fused_ok and fast and cfg.hop % 2 == 0:
+            self._route = "radix2"          # K5, 3 passes
+        elif fused_ok and precision == "highest" and cfg.hop % 2:
+            self._route = "recomp_t"        # K6
         else:
             self._route = "chain"
-            if fused_ok and (precision == "highest"
-                             or (fast and cfg.hop % 2 == 0)):
-                self._not_ported = (
-                    "pallas_mfcc.mfcc_pallas_radix2 (K5)" if cfg.hop % 2 == 0
-                    else "pallas_mfcc.mfcc_pallas_recomp_t (K6)")
-        self._frames_not_ported = (
-            "pallas_mfcc.mfcc_pallas_frames_float (K5)"
-            if fast and fused_ok else None)
+        self._frames_route = "radix2" if fast and fused_ok else "chain"
         self._int_route = "fused" if int_fused.int_config_ok(cfg) else "chain"
 
         # float64 buffers: K1 computes in float64; the chain casts them to
@@ -155,6 +160,23 @@ class MFCC(nn.Module):
             getattr(self, name).copy_(torch.as_tensor(value))
         self._derive()
 
+    def _ladder_ops(self) -> fladder.LadderOperators:
+        """K1's (and K6's) operators, from the module's state."""
+        return fladder.LadderOperators(
+            self.ladder_window, self.mel[: self.cfg.nfft // 2], self.dct,
+            self.mel_band)
+
+    def _radix2_ops(self) -> float_fused.Radix2Operators:
+        """K5's operators: the window, mel and dct from the module's state
+        (f32), the DFT tables and twiddles from the config."""
+        nh = self.cfg.nfft // 2
+        ops = float_fused.default_operators(self.cfg, self.window.device)
+        return ops._replace(
+            we=self.window[0::2].float().contiguous(),
+            wo=self.window[1::2].float().contiguous(),
+            mel=self.mel[:nh].float().contiguous(),
+            dct=self.dct.float().contiguous(), band=self.mel_band)
+
     def _chain_ops(self) -> float_ops.Operators:
         return float_ops.Operators(*(getattr(self, name).to(self.dtype)
                                      for name in float_ops.Operators._fields))
@@ -180,15 +202,15 @@ class MFCC(nn.Module):
         if self._route == "ladder":
             if audio.dtype != torch.int16:
                 audio = audio.to(torch.float32)   # never truncated to int16
-            ops = fladder.LadderOperators(
-                self.ladder_window, self.mel[: self.cfg.nfft // 2], self.dct,
-                self.mel_band)
             return fladder.mfcc_float_ladder(
-                audio.contiguous(), self.cfg, self.mel_floor, operators=ops)
-        if self._not_ported and audio.is_cuda:
-            raise NotImplementedError(
-                f"this configuration runs {self._not_ported} in the JAX "
-                "package; that kernel is not ported to CUDA yet")
+                audio.contiguous(), self.cfg, self.mel_floor,
+                operators=self._ladder_ops())
+        if self._route != "chain" and audio.device.type != "cpu":
+            if self._route == "radix2":
+                return float_fused.mfcc_radix2(audio, self.cfg, dft_passes=3,
+                                               operators=self._radix2_ops())
+            return float_fused.mfcc_recomp_t(
+                audio, self.cfg, operators=self._ladder_ops())
         return float_ops.mfcc_batch(
             audio, self.cfg, method=self.method,
             precision="highest", dtype=self.dtype,
@@ -197,10 +219,9 @@ class MFCC(nn.Module):
     def frames(self, frames) -> torch.Tensor:
         """(..., F, nfft) pre-emphasized frames -> (..., F, nceptrums)."""
         frames = self._as_input(frames)
-        if self._frames_not_ported and frames.is_cuda:
-            raise NotImplementedError(
-                f"this configuration runs {self._frames_not_ported} in the "
-                "JAX package; that kernel is not ported to CUDA yet")
+        if self._frames_route == "radix2" and frames.device.type != "cpu":
+            return float_fused.mfcc_frames_float(
+                frames, self.cfg, dft_passes=3, operators=self._radix2_ops())
         return float_ops.mfcc_frames(
             frames, self.cfg, method=self.method,
             precision="highest", dtype=self.dtype,

@@ -22,10 +22,11 @@ Routing, as ``mfcc_tpu.streaming`` routes:
     to K4 (``ops/stream_fused.py``): the INT step for ``int_path=True``, the
     float step for ``method="dft"``, float32, ``precision="highest"`` and a
     config in K1's family;
-  * ``precision="fast"``, or a float config of the fused geometry outside
-    K1's family, runs the split-DFT stream kernel in the JAX package: not
-    ported for CUDA tensors (``NotImplementedError``), the chain for CPU
-    tensors;
+  * full-chunk steps under ``precision="fast"`` (``method="dft"``, float32,
+    a zero Nyquist mel row) go to the split-DFT step at 3 passes
+    (``stream_step_float(dft_passes=3)``, K5's tail) for CUDA tensors, and
+    to the "highest" chain for CPU tensors, as ``mfcc_tpu.streaming`` runs
+    its chain off the TPU;
   * flush steps (``lengths`` given) and every other config take the chain:
     ``_chunk_step_batch`` and the features function (the INT frames kernel
     K3, or the ``float_ops`` chain).
@@ -141,6 +142,12 @@ class StreamingMFCC:
         the card (``"cuda"``) and raises on a host without one;
         ``device="cpu"`` runs the plain torch versions on the host.
 
+        ``precision``: ``"highest"`` or ``"fast"``, whose full-chunk steps
+        on the card run the 3-pass split-DFT step (the JAX package's fast
+        serving mode); flush steps and the CPU run the "highest" chain.
+        ``"split"``, ``"f64ish"``, ``"high"``, ``"default"`` and ``"bf16"``
+        are not ported yet.
+
         ``transposed_state=True`` stores the carry buffer (P, S);
         ``transposed_chunks=True`` makes ``step`` take chunks (C, S).  The
         kernel reads either layout in place; the chain transposes at its
@@ -165,8 +172,7 @@ class StreamingMFCC:
                 "yet (a later slice of the port: split/f64ish)")
         self.dtype = torch.int32 if int_path else dtype
 
-        self._route = "chain"
-        self._not_ported = None     # TPU kernel a full step would need on CUDA
+        self._route = "chain"       # of full steps; "split" only off the CPU
         fused_geometry = stream_fused.stream_config_ok(cfg)
         if int_path:
             self._emphasize = functools.partial(framing.preemphasis_int,
@@ -189,10 +195,9 @@ class StreamingMFCC:
             if fused_geometry and method == "dft" and dtype == torch.float32:
                 if precision == "highest" and fladder.fladder_config_ok(cfg):
                     self._route = "fused"
-                else:
-                    self._not_ported = (
-                        "pallas_stream._stream_float_kernel (the K4 "
-                        "split-DFT tail, ported with K5)")
+                elif (precision == "fast"
+                      and fladder.nyquist_mel_row_zero(cfg)):
+                    self._route = "split"
 
     # -- state ---------------------------------------------------------------
 
@@ -229,7 +234,9 @@ class StreamingMFCC:
         mask[s, k] marks which of the F_max frame slots are real frames.
         """
         chunks = self._as_tensor(chunks)
-        fused = lengths is None and self._route == "fused"
+        fused = lengths is None and (
+            self._route == "fused"
+            or (self._route == "split" and chunks.device.type != "cpu"))
         if not (chunks.dtype == torch.int16 and fused):
             # the kernel takes the int16 wire dtype as it is; every other
             # path computes in the state dtype
@@ -239,11 +246,6 @@ class StreamingMFCC:
                  if reset is None else self._as_tensor(reset, torch.bool))
         if fused:
             return self._fused_step(chunks, state, reset)
-        if (lengths is None and self._not_ported
-                and chunks.device.type != "cpu"):
-            raise NotImplementedError(
-                f"this configuration runs {self._not_ported} in the JAX "
-                "package; that kernel is not ported to CUDA yet")
         if lengths is not None:
             lengths = self._as_tensor(lengths, torch.int32)
         return self._chain_step(chunks, state, reset, lengths)
@@ -262,7 +264,8 @@ class StreamingMFCC:
             feats, newbuf = stream_fused.stream_step_float(
                 state.buffer, chunks, start, prev, cfg,
                 transposed_state=self.transposed_state,
-                mel_floor=self.mel_floor, chunk_layout=layout)
+                mel_floor=self.mel_floor, chunk_layout=layout,
+                dft_passes=3 if self._route == "split" else None)
         C = chunks.shape[0 if self.transposed_chunks else 1]
         total = count + C
         n_valid = _valid_frames(total, cfg)

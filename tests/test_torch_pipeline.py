@@ -17,7 +17,7 @@ from mfcc_tpu.ref import float_ref
 
 import mfcc_tpu_torch
 from mfcc_tpu_torch import MFCC, MFCCConfig
-from mfcc_tpu_torch.ops import fladder
+from mfcc_tpu_torch.ops import fladder, framing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,23 +99,23 @@ def test_load_numpy_operators_changes_output(sig2):
         fe.load_numpy_operators({"mel": np.zeros((10, 32))})
 
 
-@pytest.mark.parametrize("kw,route,not_ported", [
-    ({}, "ladder", None),
-    (dict(mel_floor=1.0), "ladder", None),
-    (dict(method="rfft"), "chain", None),
-    (dict(dtype=torch.float64), "chain", None),
-    (dict(precision="fast"), "chain", "K5"),
-    (dict(cfg=MFCCConfig(step=171)), "chain", "K6"),
-    (dict(cfg=MFCCConfig(step=171), precision="fast"), "chain", None),
-    (dict(cfg=MFCCConfig(step=160, window_samples=400)), "chain", None),
+@pytest.mark.parametrize("kw,route", [
+    ({}, "ladder"),
+    (dict(mel_floor=1.0), "ladder"),
+    (dict(method="rfft"), "chain"),
+    (dict(dtype=torch.float64), "chain"),
+    (dict(precision="fast"), "radix2"),
+    (dict(cfg=MFCCConfig(step=171)), "recomp_t"),
+    (dict(cfg=MFCCConfig(step=171), precision="fast"), "chain"),
+    (dict(cfg=MFCCConfig(step=160, window_samples=400)), "chain"),
 ])
-def test_routes_mirror_jax(sig2, kw, route, not_ported):
+def test_routes_mirror_jax(sig2, kw, route):
+    """The route of CUDA tensors is the JAX package's on its TPU: K1, K5 at
+    3 passes ("radix2"), K6 ("recomp_t") or the chain.  On the CPU every
+    route computes, K1's through its plain version and the others through
+    the chain, and matches JAX's CPU route (the chain)."""
     fe = MFCC(**kw, device="cpu")
     assert fe._route == route
-    assert (fe._not_ported is None) == (not_ported is None)
-    if not_ported:
-        assert not_ported in fe._not_ported
-    # on the CPU every route computes; the chain routes match JAX's chain
     cfg = kw.get("cfg", MFCCConfig())
     got = fe(torch.from_numpy(sig2)).numpy()
     assert got.shape == (2, cfg.n_frames(sig2.shape[-1]), cfg.nceptrums)
@@ -127,9 +127,19 @@ def test_routes_mirror_jax(sig2, kw, route, not_ported):
     assert np.abs(got - want).max() <= TOL_JAX
 
 
-def test_fast_frames_route_flag():
-    assert "K5" in MFCC(precision="fast", device="cpu")._frames_not_ported
-    assert MFCC(device="cpu")._frames_not_ported is None
+def test_fast_frames_route_flag(sig2):
+    """``frames`` under ``precision="fast"`` takes K5-frames on the card
+    (the JAX package's ``mfcc_pallas_frames_float`` route) and the chain on
+    the CPU; other precisions and configs outside the family take the
+    chain."""
+    fe = MFCC(precision="fast", device="cpu")
+    assert fe._frames_route == "radix2"
+    assert MFCC(device="cpu")._frames_route == "chain"
+    assert MFCC(precision="fast", mel_floor=1.0,
+                device="cpu")._frames_route == "chain"
+    frames = framing.extract_frames(framing.preemphasis(
+        torch.from_numpy(sig2)), 512, 170)
+    assert torch.equal(fe.frames(frames), MFCC(device="cpu").frames(frames))
 
 
 @pytest.mark.parametrize("precision", ["split", "f64ish", "high", "default"])
@@ -226,7 +236,8 @@ def test_import_leaves_jax_out():
                 "mfcc_tpu_torch.ops.int_fused, mfcc_tpu_torch.streaming, "
                 "mfcc_tpu_torch.server, mfcc_tpu_torch.io, "
                 "mfcc_tpu_torch.io.transport, mfcc_tpu_torch.io.native, "
-                "mfcc_tpu_torch.ops.stream_fused; "
+                "mfcc_tpu_torch.ops.stream_fused, "
+                "mfcc_tpu_torch.ops.float_fused; "
                 "bad = sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'mfcc_tpu.')) "
                 "or m == 'mfcc_tpu'); print(bad); sys.exit(1 if bad else 0)"],

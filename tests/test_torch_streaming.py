@@ -225,7 +225,7 @@ def test_stream_step_checks():
     with pytest.raises(ValueError, match="family"):
         stream_fused.stream_step_float(buf, x, start, prev,
                                        MFCCConfig(step=171))
-    before = stream_fused.LAUNCHES
+    before = dict(stream_fused.LAUNCHES)
     stream_fused.stream_step_float(buf, x, start, prev)
     assert stream_fused.LAUNCHES == before        # the CPU never launches
 
@@ -476,25 +476,22 @@ def test_transposed_layouts_agree(int_path, ts, tc):
     assert torch.equal(buf, wstate.buffer)
 
 
-@pytest.mark.parametrize("kw,route,not_ported", [
-    (dict(int_path=True), "fused", None),
-    ({}, "fused", None),
-    (dict(precision="fast"), "chain", "K5"),
-    (dict(method="rfft"), "chain", None),
-    (dict(dtype=torch.float64), "chain", None),
-    (dict(cfg=MFCCConfig(step=171)), "chain", None),
-    (dict(cfg=MFCCConfig(step=171), int_path=True), "chain", None),
-    (dict(cfg=MFCCConfig(nfft=256, step=86)), "chain", None),
+@pytest.mark.parametrize("kw,route", [
+    (dict(int_path=True), "fused"),
+    ({}, "fused"),
+    (dict(precision="fast"), "split"),
+    (dict(method="rfft"), "chain"),
+    (dict(dtype=torch.float64), "chain"),
+    (dict(cfg=MFCCConfig(step=171)), "chain"),
+    (dict(cfg=MFCCConfig(step=171), int_path=True), "chain"),
+    (dict(cfg=MFCCConfig(nfft=256, step=86)), "chain"),
 ])
-def test_routes_mirror_jax(kw, route, not_ported):
-    """Full-chunk steps go to K4 where the JAX package runs its fused step;
-    the split-DFT case is marked; every route computes on the CPU and
-    matches the oracle."""
+def test_routes_mirror_jax(kw, route):
+    """Full-chunk steps go to K4 where the JAX package runs its fused step
+    (the split-DFT step for ``precision="fast"`` off the CPU); every route
+    computes on the CPU and matches the oracle."""
     sm = StreamingMFCC(device="cpu", **kw)
     assert sm._route == route
-    assert (sm._not_ported is None) == (not_ported is None)
-    if not_ported:
-        assert not_ported in sm._not_ported
     cfg = kw.get("cfg", CFG)
     sig = _signal(1, 1500, seed=4)
     got, _ = sm.process(sig, 400)
@@ -507,17 +504,31 @@ def test_routes_mirror_jax(kw, route, not_ported):
         assert np.abs(got[0] - want).max() <= GATE
 
 
-def test_fast_precision_raises_off_the_cpu():
-    """precision="fast" runs the split-DFT stream kernel in the JAX package,
-    which is not ported: a full step raises on any device but the CPU
-    (here the meta device stands in for the card), and the CPU takes the
-    chain."""
+def test_fast_precision_raises_off_the_cpu(monkeypatch):
+    """precision="fast": a full step on any device but the CPU goes to the
+    split-DFT step at 3 passes (here the meta device stands in for the
+    card, and the wrapper raises for it, as it does for any tensor that is
+    neither CUDA nor CPU); the CPU takes the "highest" chain and never
+    launches."""
     sm = StreamingMFCC(precision="fast", device="meta")
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(ValueError, match="CUDA or CPU tensors, got meta"):
         sm.step(torch.zeros(2, 1024, device="meta"), sm.init(2))
+    seen = []
+    monkeypatch.setattr(stream_fused, "stream_step_float",
+                        lambda *a, **k: seen.append(k["dft_passes"])
+                        or (torch.zeros(2, 7, 32, device="meta"), a[0]))
+    sm.step(torch.zeros(2, 1024, device="meta"), sm.init(2))
+    assert seen == [3]
+    monkeypatch.undo()
     cpu = StreamingMFCC(precision="fast", device="cpu")
-    f, m, _ = cpu.step(torch.zeros(2, 1024), cpu.init(2))
+    before = dict(stream_fused.LAUNCHES)
+    x = torch.from_numpy(_signal(2, 1024, seed=3).astype(np.float32))
+    f, m, _ = cpu.step(x, cpu.init(2))
     assert f.shape == (2, 7, 32)
+    want, _, _ = StreamingMFCC(device="cpu")._chain_step(
+        x, cpu.init(2), torch.zeros(2, dtype=torch.bool), None)
+    assert torch.equal(f, want)
+    assert stream_fused.LAUNCHES == before
 
 
 @pytest.mark.parametrize("precision", ["split", "f64ish", "high"])
