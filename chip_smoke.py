@@ -1,5 +1,6 @@
-"""Drive the torch port's float and INT batch paths, its serving path and
-its fast and odd-hop float routes on one CUDA card and check them.
+"""Drive the torch port's float and INT batch paths, its serving path, its
+fast and odd-hop float routes and its f64ish and split precisions on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -60,13 +61,31 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      (fast within ``FAST_LONG_GATE``, K6 within ``GATE``), checks streamed
      fast against batch K5; times K1, K5 at 3 and 6 passes, both modules,
      K5-frames on the headline frames, K6 at hop 171 and the split-DFT step
-     at S=4096 x C=1024 beside their plain versions.
+     at S=4096 x C=1024 beside their plain versions;
+  7. f64ish and split: compares K7 and K7-frames (``ops/f64ish.py``) with
+     their plain versions at nfft 256/86, 512/170 and 1024/340 on S=130 x
+     1 s (int16, f32 on the grid, [-1, 1] f32 with and without the wire
+     grid, 2^20-scaled f32 without it, samples whose emphasized values sit
+     on the grid's ties; frames, and frames at x*32 = k+0.5) and at the
+     headline shape, prints whether K7 on int16 is K1 bit for bit; holds
+     the f64ish gate (``gate_units`` <= 1.0, finite) on the JAX bench's
+     gate input and the 8 spread streams; drives
+     ``MFCC(precision="f64ish")(audio)`` and its ``frames`` on the headline
+     input and ``StreamingMFCC(precision="f64ish").process`` on S=64 at
+     C=1024 and C=149 (a flush) with their launch counts (K7 once per call,
+     K1 never; K7-frames once per step) against batch K7; holds
+     ``MFCC(precision="split")`` and ``method="segmented"`` to the float
+     gate on the gate input; times K7, K7-frames, the module and K1 beside
+     the plain versions at the headline shape and at the JAX bench's f64ish
+     shape (S=512 x T=16,322).
 
 Times are CUDA events, median of 10 after warm-up.  Each main path
 (``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``,
 ``StreamingMFCC().process``, ``MFCC(precision="fast")(audio)`` and its
 ``frames``, ``MFCC(MFCCConfig(step=171))(audio)``,
-``StreamingMFCC(precision="fast").process``) is driven with every launch count set to 0
+``StreamingMFCC(precision="fast").process``, ``MFCC(precision="f64ish")``
+and its ``frames``, ``StreamingMFCC(precision="f64ish").process``) is
+driven with every launch count set to 0
 just before and read just after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
 exits with an error before printing anything else.  The line before the
 last is a JSON summary of the kernels (with each one's bound: the larger
@@ -100,6 +119,9 @@ FAST_GATE = 2e-3
 # itself reads 1.2e-2 there (tests/test_torch_float_fused.py::
 # test_fast_mode_long_input_reads_as_jax); the 3-pass limb split sets it
 FAST_LONG_GATE = 2e-2
+# the f64ish contract (bench.F64ISH_GATE): |got - oracle| <= max(1e-5,
+# 2 ulp(oracle)) elementwise, read in gate units (<= 1.0 passes)
+F64ISH_GATE = 1e-5
 S_MAIN, T_MAIN = 1024, 63_922   # 4 s per stream at 16 kHz: 374 frames
 S_SERVE, C_SERVE = 4096, 1024   # the serving shape: streams x chunk samples
 ITERS, WARMUP = 10, 3
@@ -185,6 +207,16 @@ def zero_counts(*modules) -> None:
                 m.LAUNCHES[k] = 0
         else:
             m.LAUNCHES = 0
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b
+                 ) -> dict:
+    """One kernel's entry of the kernels line; ``b`` is ``bound``'s
+    (ms, kind)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None}
 
 
 def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
@@ -1168,33 +1200,302 @@ def fast_phases(dev, card: str) -> list[dict]:
           f"({ks[1]})")
     del serve, chunks, state, args
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, b):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
-
     return [
-        entry("radix2 split-DFT audio, 3 passes (K5)",
-              "mfcc_tpu_torch/csrc/float_fused.cu",
-              "mfcc_tpu/ops/pallas_mfcc.py:1333", k5_launches, errs["K5"],
-              times["K5 kernel, 3 passes"],
-              times["K5 plain version, 3 passes"], k5),
-        entry("radix2 split-DFT frames, 3 passes (K5-frames)",
-              "mfcc_tpu_torch/csrc/float_fused.cu",
-              "mfcc_tpu/ops/pallas_mfcc.py:1256", kf_launches,
-              errs["K5-frames"], times["K5-frames kernel, 3 passes"],
-              times["K5-frames plain version, 3 passes"], kf),
-        entry("recomp_t odd hop on K1's kernel (K6)",
-              "mfcc_tpu_torch/csrc/fladder.cu",
-              "mfcc_tpu/ops/pallas_mfcc.py:840", k6_launches, errs["K6"],
-              times["K6 kernel, hop 171"], times["K6 plain version, hop 171"],
-              k6),
-        entry("stream_step split-DFT, 3 passes (K4-split)",
-              "mfcc_tpu_torch/csrc/stream_step.cu",
-              "mfcc_tpu/ops/pallas_stream.py:421", split_launches,
-              errs["K4-split"], s_ms, sp_ms, ks),
+        kernel_entry("radix2 split-DFT audio, 3 passes (K5)",
+                     "mfcc_tpu_torch/csrc/float_fused.cu",
+                     "mfcc_tpu/ops/pallas_mfcc.py:1333", k5_launches,
+                     errs["K5"], times["K5 kernel, 3 passes"],
+                     times["K5 plain version, 3 passes"], k5),
+        kernel_entry("radix2 split-DFT frames, 3 passes (K5-frames)",
+                     "mfcc_tpu_torch/csrc/float_fused.cu",
+                     "mfcc_tpu/ops/pallas_mfcc.py:1256", kf_launches,
+                     errs["K5-frames"], times["K5-frames kernel, 3 passes"],
+                     times["K5-frames plain version, 3 passes"], kf),
+        kernel_entry("recomp_t odd hop on K1's kernel (K6)",
+                     "mfcc_tpu_torch/csrc/fladder.cu",
+                     "mfcc_tpu/ops/pallas_mfcc.py:840", k6_launches,
+                     errs["K6"], times["K6 kernel, hop 171"],
+                     times["K6 plain version, hop 171"], k6),
+        kernel_entry("stream_step split-DFT, 3 passes (K4-split)",
+                     "mfcc_tpu_torch/csrc/stream_step.cu",
+                     "mfcc_tpu/ops/pallas_stream.py:421", split_launches,
+                     errs["K4-split"], s_ms, sp_ms, ks),
     ]
+
+
+def k7_flops_per_frame(cfg, band: torch.Tensor, wire_grid: bool = True
+                       ) -> int:
+    """FP64 operations of csrc/f64ish.cu per frame: K1's count
+    (``k1_flops_per_frame``) with the ingest taken as K7 does it: per
+    sample the grid step (multiply, rint, multiply) when ``wire_grid`` and
+    the window, 8 (2) per packed point instead of K1's 6.  The batch
+    entry's f32 emphasis (2 per sample) runs on the f32 pipe, whose peak is
+    twice the FP64 one, so it never sets the bound and is not counted."""
+    m = cfg.nfft // 2
+    return k1_flops_per_frame(cfg, band) - 6 * m + (8 if wire_grid else 2) * m
+
+
+def gate_units(got: np.ndarray, want: np.ndarray) -> float:
+    """The f64ish metric (``bench.f64ish_gate_err``): the max over elements
+    of |got - want| / max(1e-5, 2 ulp(want)); inf unless finite; <= 1.0
+    passes."""
+    tol = np.maximum(F64ISH_GATE, 2 * np.abs(want) * np.finfo(np.float32).eps)
+    err = float((np.abs(got - want) / tol).max())
+    return err if np.isfinite(err) else float("inf")
+
+
+def tie_audio(S: int, T: int, seed: int) -> np.ndarray:
+    """Small f32 samples whose emphasized values sit exactly on the grid's
+    ties at every other sample: integers n at even t and odd multiples of
+    1/64 at odd t, so y = x - (31/32) n = odd/64 and y*32 = k + 0.5 (all
+    exact in f32).  Small, so that a sample moved by 1/32 moves the
+    cepstra far past KERNEL_TOL."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-8, 9, (S, T)).astype(np.float64)
+    x[:, 1::2] = (2 * rng.integers(-32, 32, (S, T // 2)) + 1) / 64
+    return x.astype(np.float32)
+
+
+def f64ish_phases(dev, card: str) -> list[dict]:
+    """K7 and K7-frames against their plain versions, the f64ish gate, the
+    f64ish batch, frames and streaming main paths with their launch counts,
+    the split and segmented chain, and the times; returns K7's entries of
+    the kernels line."""
+    from mfcc_tpu_torch import MFCC, MFCCConfig, StreamingMFCC
+    from mfcc_tpu_torch.ops import (f64ish, fladder, float_fused, float_ops,
+                                    framing, int_fused, stream_fused)
+    from mfcc_tpu_torch.ref import float_ref
+    mods = (f64ish, fladder, float_fused, int_fused, stream_fused)
+
+    # -- K7 and K7-frames vs their plain versions -----------------------------------
+    errs = {"K7": 0.0, "K7-frames": 0.0}
+    for nfft, hop in ((256, 86), (512, 170), (1024, 340)):
+        cfg = MFCCConfig(nfft=nfft, step=hop)
+        sig = make_audio(130, 16000, seed=nfft + 1)
+        norm = sig / np.float32(32768)
+        inputs = [
+            ("int16", sig.astype(np.int16), True),
+            ("f32 on the grid", sig, True),
+            ("[-1, 1] f32, wire_grid", norm, True),
+            ("[-1, 1] f32, wire_grid=False", norm, False),
+            ("2^20-scaled f32, wire_grid=False",
+             (sig * np.float32(2.0 ** 20)).astype(np.float32), False),
+            ("x*32 at k+0.5 on every other sample", tie_audio(130, 16000,
+                                                              nfft), True),
+        ]
+        for name, x, wg in inputs:
+            xt = torch.from_numpy(x).to(dev)
+            got = f64ish.mfcc_f64ish(xt, cfg, wire_grid=wg)
+            want = f64ish.mfcc_batch_f64ish_plain(xt, cfg, wire_grid=wg)
+            torch.cuda.synchronize()
+            e = compare(got, want, f"K7 nfft {nfft} {name}")
+            print(f"K7 vs plain, nfft {nfft}/{hop}, {name} {tuple(xt.shape)}: "
+                  f"max-abs {e:.3e}")
+            check(e <= KERNEL_TOL, f"K7 nfft {nfft} {name}: {e} > "
+                  f"{KERNEL_TOL}")
+            errs["K7"] = max(errs["K7"], e)
+            if name == "int16":
+                same = torch.equal(got, fladder.mfcc_float_ladder(xt, cfg))
+                print(f"K7 on int16 bit-identical to K1, nfft {nfft}: {same}")
+            if name.startswith("x*32"):
+                # the grid step rounds ties half to even, as the plain version
+                shifted = f64ish.mfcc_f64ish(xt, cfg, wire_grid=False)
+                moved = float((shifted - got).abs().max())
+                check(moved > 100 * KERNEL_TOL, f"ties moved by {moved}")
+        sig_frames = framing.extract_frames(framing.preemphasis(
+            torch.from_numpy(norm).to(dev)), nfft, hop).contiguous()
+        k = torch.from_numpy(np.random.default_rng(nfft).integers(
+            -2 ** 19, 2 ** 19, (2, 9, nfft)).astype(np.float64)).to(dev)
+        ties = ((k + 0.5) / 32).to(torch.float32)
+        for name, fr, wg in (("[-1, 1] frames, wire_grid", sig_frames, True),
+                             ("[-1, 1] frames, wire_grid=False", sig_frames,
+                              False),
+                             ("frames at x*32 = k+0.5, (2, 9, nfft)", ties,
+                              True)):
+            got = f64ish.mfcc_f64ish_frames(fr, cfg, wire_grid=wg)
+            want = f64ish.mfcc_frames_f64ish_plain(fr, cfg, wire_grid=wg)
+            torch.cuda.synchronize()
+            e = compare(got, want, f"K7-frames nfft {nfft} {name}")
+            print(f"K7-frames vs plain, nfft {nfft}, {name}: max-abs {e:.3e}")
+            check(e <= KERNEL_TOL, f"K7-frames nfft {nfft} {name}: {e}")
+            errs["K7-frames"] = max(errs["K7-frames"], e)
+        even = (torch.round(ties.double() * 32) / 32).to(torch.float32)
+        check(torch.equal(f64ish.mfcc_f64ish_frames(ties, cfg),
+                          f64ish.mfcc_f64ish_frames(even, cfg,
+                                                    wire_grid=False)),
+              f"K7-frames nfft {nfft}: ties not rounded half to even")
+
+    # -- the f64ish gate -----------------------------------------------------------
+    cfg = MFCCConfig()
+    gate_in = make_audio(2, 512 + 4 * 170, seed=7)
+    want_g = np.stack([float_ref.mfcc_float(s_, cfg) for s_ in gate_in])
+    g = torch.from_numpy(gate_in.astype(np.int16)).to(dev)
+    gfr = framing.extract_frames(framing.preemphasis(
+        torch.from_numpy(gate_in).to(dev)), 512, cfg.hop).contiguous()
+    for name, out in (("K7", f64ish.mfcc_f64ish(g, cfg)),
+                      ("K7-frames", f64ish.mfcc_f64ish_frames(gfr, cfg))):
+        u = gate_units(out.cpu().numpy(), want_g)
+        print(f"f64ish gate input (make_audio(2, 1192, seed=7)): {name} "
+              f"{u:.4f} gate units (<= 1.0 passes)")
+        check(u <= 1.0, f"f64ish gate: {name} {u}")
+
+    # -- the f64ish main paths: MFCC(precision="f64ish") and its frames ------------
+    sig = make_audio(S_MAIN, T_MAIN)
+    audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    spread = np.linspace(0, S_MAIN - 1, 8).astype(int)
+    want = np.stack([float_ref.mfcc_float(sig[i], cfg) for i in spread])
+    n_frames = cfg.n_frames(T_MAIN)
+    fe = MFCC(precision="f64ish")
+    check(fe.window.device.type == "cuda", "MFCC(precision='f64ish') on "
+          f"{fe.window.device}")
+    calls = 2
+    zero_counts(*mods)
+    outs = [fe(audio) for _ in range(calls)]
+    torch.cuda.synchronize()
+    k7_launches = f64ish.LAUNCHES["K7"]
+    check(k7_launches == calls and fladder.LAUNCHES == 0
+          and f64ish.LAUNCHES["K7-frames"] == 0,
+          f"MFCC(precision='f64ish') launches {f64ish.LAUNCHES}, K1 "
+          f"{fladder.LAUNCHES} for {calls} calls")
+    out = outs[0]
+    check(tuple(out.shape) == (S_MAIN, n_frames, cfg.nceptrums)
+          and out.dtype == torch.float32, f"f64ish output {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite f64ish cepstra")
+    check(torch.equal(outs[0], outs[1]), "two f64ish calls differ")
+    u = gate_units(out[spread].cpu().numpy(), want)
+    e_or = float(np.abs(out[spread].cpu().numpy() - want).max())
+    print(f"MFCC(precision='f64ish')(audio) {tuple(audio.shape)} int16 -> "
+          f"{tuple(out.shape)}: K7 launches {k7_launches} in {calls} calls, "
+          f"K1 {fladder.LAUNCHES}; vs float64 oracle on 8 spread streams "
+          f"{u:.4f} gate units, max-abs {e_or:.3e}")
+    check(u <= 1.0, f"f64ish gate on the spread streams: {u}")
+    k1_same = torch.equal(out, fladder.mfcc_float_ladder(audio, cfg))
+    print(f"K7 on the headline int16 bit-identical to K1: {k1_same}")
+    del outs
+
+    hframes = framing.extract_frames(framing.preemphasis(
+        audio.to(torch.float32)), 512, cfg.hop).contiguous()
+    zero_counts(*mods)
+    out_frames = fe.frames(hframes)
+    torch.cuda.synchronize()
+    kf_launches = f64ish.LAUNCHES["K7-frames"]
+    check(kf_launches == 1 and f64ish.LAUNCHES["K7"] == 0,
+          f"MFCC(precision='f64ish').frames launches {f64ish.LAUNCHES}")
+    ef = compare(out_frames, out, "K7-frames vs K7 on the headline")
+    check(ef <= KERNEL_TOL, f"K7-frames vs K7 on the headline: {ef}")
+    print(f"MFCC(precision='f64ish').frames {tuple(hframes.shape)} f32: "
+          f"K7-frames launches {kf_launches}; vs batch K7 max-abs {ef:.3e} "
+          f"(bit-identical: {torch.equal(out_frames, out)})")
+    del out_frames
+
+    # -- K7 and K7-frames vs their plain versions at the headline shape ------------
+    for name, key, x, kern, plain in (
+            ("K7", "K7", audio, f64ish.mfcc_f64ish,
+             f64ish.mfcc_batch_f64ish_plain),
+            ("K7-frames", "K7-frames", hframes, f64ish.mfcc_f64ish_frames,
+             f64ish.mfcc_frames_f64ish_plain)):
+        got, want_p = kern(x, cfg), plain(x, cfg)
+        torch.cuda.synchronize()
+        e = compare(got, want_p, f"{name} at the headline shape")
+        print(f"{name} vs plain at the headline shape {tuple(x.shape)}: "
+              f"max-abs {e:.3e} (tolerance {KERNEL_TOL})")
+        check(e <= KERNEL_TOL, f"{name} at the headline shape: {e}")
+        errs[key] = max(errs[key], e)
+        del got, want_p
+
+    # -- streamed f64ish: K7-frames once per step, against batch K7 -----------------
+    S = 64
+    ssig = make_audio(S, 64 * C_SERVE, seed=5)
+    saudio = torch.from_numpy(ssig.astype(np.int16)).to(dev)
+    for C, T in ((C_SERVE, ssig.shape[1]), (149, T_MAIN)):
+        x = saudio[:, :T]
+        batch = f64ish.mfcc_f64ish(x, cfg).cpu().numpy()
+        steps = -(-T // C)
+        zero_counts(*mods)
+        outs, _ = StreamingMFCC(precision="f64ish").process(x, C)
+        torch.cuda.synchronize()
+        n = {**f64ish.LAUNCHES, **stream_fused.LAUNCHES,
+             "K1": fladder.LAUNCHES}
+        check(n == {"K7": 0, "K7-frames": steps, "K4-float": 0,
+                    "K4-split": 0, "K4-INT": 0, "K1": 0},
+              f"streamed f64ish launches {n} for {steps} steps")
+        got = np.stack(outs)
+        check(got.shape == batch.shape and bool(np.isfinite(got).all()),
+              f"streamed f64ish {got.shape} vs batch {batch.shape}")
+        es = float(np.abs(got - batch).max())
+        check(es <= KERNEL_TOL, f"streamed f64ish C={C} vs batch K7: {es}")
+        print(f"StreamingMFCC(precision='f64ish').process S={S} x T={T} "
+              f"int16, C={C} ({T // C} full steps, {int(T % C != 0)} flush): "
+              f"launches {n}; vs batch K7 max-abs {es:.3e} (bit-identical: "
+              f"{bool(np.array_equal(got, batch))})")
+    del saudio, batch, outs
+
+    # -- the split and segmented chain -----------------------------------------------
+    for name, kw in (("MFCC(precision='split')", dict(precision="split")),
+                     ("MFCC(method='segmented')", dict(method="segmented")),
+                     ("MFCC(method='segmented', precision='split')",
+                      dict(method="segmented", precision="split"))):
+        fe_s = MFCC(**kw)
+        e = float(np.abs(fe_s(g).cpu().numpy() - want_g).max())
+        print(f"{name} on the f64ish gate input vs float64 oracle: max-abs "
+              f"{e:.3e} (gate {GATE})")
+        check(e <= GATE, f"{name}: {e} > {GATE}")
+    split_out = MFCC(precision="split")(audio)
+    e_split = float(np.abs(split_out[spread].cpu().numpy() - want).max())
+    print(f"MFCC(precision='split')(audio) on the headline: max-abs vs "
+          f"float64 oracle on 8 spread streams {e_split:.3e} (read, not "
+          f"gated: bf16 limbs keep ~16 mantissa bits)")
+    del split_out
+
+    # -- times ---------------------------------------------------------------------------
+    T_B = 512 + 93 * 170                        # the JAX bench's f64ish shape
+    bench = torch.from_numpy(make_audio(512, T_B, seed=3).astype(
+        np.int16)).to(dev)
+    bframes = framing.extract_frames(framing.preemphasis(
+        bench.to(torch.float32)), 512, cfg.hop).contiguous()
+    times, shapes = {}, {}
+    for tag, a, fr in (("headline", audio, hframes), ("bench", bench,
+                                                      bframes)):
+        nf = fr.shape[0] * fr.shape[1]
+        shapes[tag] = (f"S={a.shape[0]} x T={a.shape[1]} int16, {nf} "
+                       f"frames", nf)
+        for name, fn in (
+                ("K7 kernel", lambda a=a: f64ish.mfcc_f64ish(a, cfg)),
+                ("K7 plain version",
+                 lambda a=a: f64ish.mfcc_batch_f64ish_plain(a, cfg)),
+                ("MFCC(precision='f64ish')(audio), K7 route",
+                 lambda a=a: fe(a)),
+                ("K7-frames kernel",
+                 lambda fr=fr: f64ish.mfcc_f64ish_frames(fr, cfg)),
+                ("K7-frames plain version",
+                 lambda fr=fr: f64ish.mfcc_frames_f64ish_plain(fr, cfg)),
+                ("K1 kernel (mfcc_float_ladder)",
+                 lambda a=a: fladder.mfcc_float_ladder(a, cfg))):
+            times[(tag, name)] = ms = time_ms(fn)
+            print(f"time {name}: {ms:.4f} ms, {nf / ms * 1e3:.4e} frames/s "
+                  f"({shapes[tag][0]}, median of {ITERS}; {card})")
+    del hframes, bframes, bench
+
+    ops = fladder.default_operators(cfg, dev)
+    tables = sum(t.nbytes for t in ops)
+    nf = shapes["headline"][1]
+    out_bytes = nf * cfg.nceptrums * 4
+    flops = nf * k7_flops_per_frame(cfg, ops.band.cpu())
+    k7_b = bound(audio.nbytes + out_bytes + tables, flops, FP64_FLOPS)
+    kf_b = bound(nf * cfg.nfft * 4 + out_bytes + tables, flops, FP64_FLOPS)
+    print(f"K7 bound: {audio.nbytes + out_bytes + tables} bytes, {flops:.4e} "
+          f"FP64 operations -> {k7_b[0]:.4f} ms ({k7_b[1]}); K7-frames: "
+          f"{nf * cfg.nfft * 4 + out_bytes + tables} bytes -> {kf_b[0]:.4f} "
+          f"ms ({kf_b[1]})")
+
+    return [kernel_entry(
+        f"f64ish {what} ({key})", "mfcc_tpu_torch/csrc/f64ish.cu",
+        "mfcc_tpu/ops/pallas_df32.py:266", launches, errs[key],
+        times[("headline", f"{key} kernel")],
+        times[("headline", f"{key} plain version")], b)
+        for what, key, launches, b in (("audio", "K7", k7_launches, k7_b),
+                                       ("frames", "K7-frames", kf_launches,
+                                        kf_b))]
 
 
 def main() -> int:
@@ -1223,6 +1524,8 @@ def main() -> int:
     kernels += serving_phases(dev, card)
     torch.cuda.empty_cache()
     kernels += fast_phases(dev, card)
+    torch.cuda.empty_cache()
+    kernels += f64ish_phases(dev, card)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,14 @@ Ported so far:
     (the TCP server of the reference's wire formats) on top of it; its
     fused step kernels (K4 float and INT, ``ops/stream_fused.py``) are
     CUDA C++ for sm_90a in ``csrc/stream_step.cu``, on the tails of K1
-    (``csrc/fladder_stages.cuh``) and K2 (``csrc/int_stages.cuh``).
+    (``csrc/fladder_stages.cuh``) and K2 (``csrc/int_stages.cuh``);
+  * the ``precision="fast"`` dial and odd hops: K5 and K5-frames
+    (``ops/float_fused.py``, ``csrc/float_fused.cu``), the split-DFT
+    serving step, and K6 on K1's kernel;
+  * the ``precision="f64ish"`` dial (the max(1e-5, 2 ulp) contract) in
+    FP64: K7 and K7-frames (``ops/f64ish.py``, ``csrc/f64ish.cu``) behind
+    ``MFCC``, ``float_ops`` and ``StreamingMFCC``; and the ``"split"``
+    precision and ``method="segmented"`` of the ``float_ops`` chain.
 
 ``MFCC()``, ``StreamingMFCC()`` and ``FeatureServer()`` run on the CUDA
 card by default; ``device="cpu"`` runs the plain torch versions on the

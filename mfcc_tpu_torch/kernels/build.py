@@ -79,6 +79,13 @@ _FRAMES_FLOAT_ARGS = ([_P, _P, _LL] + [_I] * 4 + _R2_TABLES
 #                          <tables>, mel_floor, stream)
 _STREAM_R2_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_I]
                    + _R2_TABLES + [ctypes.c_double, _P])
+# mfcc_f64ish_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
+#                       win, tw, mel, dct, band, wire_grid, stream)
+_F64ISH_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
+                _P, _P, _P, _P, _P, _I, _P]
+# mfcc_f64ish_frames_f32(frames, out, M, nfft, nfilters, ncep, win, tw, mel,
+#                        dct, band, wire_grid, stream)
+_F64ISH_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
 SIGNATURES = {
     "mfcc_fladder_i16": _FLADDER_ARGS,
     "mfcc_fladder_f32": _FLADDER_ARGS,
@@ -93,6 +100,9 @@ SIGNATURES = {
     "mfcc_stream_f32_f32": _STREAM_F32_ARGS,
     "mfcc_stream_int_i16": _STREAM_INT_ARGS,
     "mfcc_stream_int_i32": _STREAM_INT_ARGS,
+    "mfcc_f64ish_i16": _F64ISH_ARGS,
+    "mfcc_f64ish_f32": _F64ISH_ARGS,
+    "mfcc_f64ish_frames_f32": _F64ISH_FRAMES_ARGS,
 }
 
 

@@ -19,7 +19,13 @@ route.  Float path (``forward``, ``frames``):
   * ``frames`` under ``precision="fast"`` in that family -> K5-frames at 3
     passes (``float_fused.mfcc_frames_float``) for CUDA tensors, the chain
     for CPU tensors;
-  * everything else -> the ``float_ops`` chain, as in JAX.
+  * ``precision="f64ish"`` (``method``, ``dtype`` and ``mel_floor``
+    ignored, as in JAX): ``forward`` -> K7 (``f64ish.mfcc_f64ish``) and
+    ``frames`` -> K7-frames (``f64ish.mfcc_f64ish_frames``) for a config in
+    ``f64ish.f64ish_config_ok``, launched for CUDA tensors, their plain
+    versions for CPU tensors; other configs -> the float64 chain;
+  * everything else, ``precision="split"`` included -> the ``float_ops``
+    chain, as in JAX.
 
 INT path (``int``, ``int_frames``): a config in the fused kernels' family
 (``ops.int_fused.int_config_ok``) -> K2 / K3 (launched for CUDA tensors;
@@ -38,9 +44,10 @@ from torch import nn
 
 from . import tables
 from .config import MFCCConfig
-from .ops import fladder, float_fused, float_ops, int_fused, int_ops
+from .ops import f64ish, fladder, float_fused, float_ops, int_fused, int_ops
 
 _STATE = ("window", "mel", "dct")    # the module's state_dict
+PRECISIONS = ("highest", "fast", "split", "f64ish")   # ported to the modules
 
 
 def resolve_device(device, what: str) -> torch.device:
@@ -61,6 +68,15 @@ def resolve_device(device, what: str) -> torch.device:
     return device
 
 
+def check_precision(precision: str) -> None:
+    """Raise ``NotImplementedError`` for a precision the modules do not
+    run (``"high"``, ``"default"`` and ``"bf16"`` wait for a decision)."""
+    if precision not in PRECISIONS:
+        raise NotImplementedError(
+            f"precision={precision!r} is not ported to the torch package "
+            "(high, default and bf16 wait for a decision)")
+
+
 def _rederive(module: "MFCC", incompatible_keys) -> None:
     """load_state_dict post-hook: rebuild the derived operators."""
     module._derive()
@@ -78,12 +94,13 @@ class MFCC(nn.Module):
                  method: str = "dft", precision: str = "highest",
                  dtype: torch.dtype = torch.float32, mel_floor: float = 0.0,
                  device=None):
-        """``precision`` is ``"highest"`` (the 5e-4 float contract) or
+        """``precision`` is ``"highest"`` (the 5e-4 float contract),
         ``"fast"``: the 3-pass split-DFT kernel K5 (the JAX package's fast
         mode, ~1e-3 against the float64 oracle on short inputs) where the
-        JAX package runs it, the "highest" chain elsewhere.  ``"split"``,
-        ``"f64ish"``, ``"high"``, ``"default"`` and ``"bf16"`` are not
-        ported yet.
+        JAX package runs it, the "highest" chain elsewhere; ``"f64ish"``:
+        the max(1e-5, 2 ulp) contract in FP64 (K7); or ``"split"``: the
+        chain with a split-bf16 DFT matmul.  ``"high"``, ``"default"`` and
+        ``"bf16"`` are not ported.
 
         ``device`` is where the operators live and the work runs:
         ``None`` is the card (``"cuda"``, the current CUDA device), and
@@ -91,10 +108,7 @@ class MFCC(nn.Module):
         torch versions on the host."""
         super().__init__()
         device = resolve_device(device, "MFCC")
-        if precision not in ("highest", "fast"):
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported to the torch package "
-                "yet (a later slice of the port: split/f64ish)")
+        check_precision(precision)
         self.cfg = cfg
         self.method = method
         self.precision = precision
@@ -106,7 +120,10 @@ class MFCC(nn.Module):
         fused_ok = (method == "dft" and dtype == torch.float32
                     and mel_floor == 0.0 and float_fused.float_config_ok(cfg))
         # the route of CUDA tensors; CPU tensors take the chain outside K1's
-        if (method == "dft" and dtype == torch.float32
+        # and K7's
+        if precision == "f64ish":
+            self._route = "f64ish"          # K7, or the float64 chain
+        elif (method == "dft" and dtype == torch.float32
                 and precision == "highest" and fladder.fladder_config_ok(cfg)):
             self._route = "ladder"
         elif fused_ok and fast and cfg.hop % 2 == 0:
@@ -115,7 +132,8 @@ class MFCC(nn.Module):
             self._route = "recomp_t"        # K6
         else:
             self._route = "chain"
-        self._frames_route = "radix2" if fast and fused_ok else "chain"
+        self._frames_route = ("f64ish" if precision == "f64ish" else
+                              "radix2" if fast and fused_ok else "chain")
         self._int_route = "fused" if int_fused.int_config_ok(cfg) else "chain"
 
         # float64 buffers: K1 computes in float64; the chain casts them to
@@ -177,9 +195,21 @@ class MFCC(nn.Module):
             mel=self.mel[:nh].float().contiguous(),
             dct=self.dct.float().contiguous(), band=self.mel_band)
 
-    def _chain_ops(self) -> float_ops.Operators:
-        return float_ops.Operators(*(getattr(self, name).to(self.dtype)
+    def _chain_ops(self, dtype=None) -> float_ops.Operators:
+        dtype = dtype or self.dtype
+        return float_ops.Operators(*(getattr(self, name).to(dtype)
                                      for name in float_ops.Operators._fields))
+
+    def _f64ish_ops(self):
+        """K7's operators (K1's) in its family, else the float64 chain's."""
+        if f64ish.f64ish_config_ok(self.cfg):
+            return self._ladder_ops()
+        return self._chain_ops(torch.float64)
+
+    @property
+    def _chain_precision(self) -> str:
+        """The chain's precision: "split" stays, "fast" runs "highest"."""
+        return "split" if self.precision == "split" else "highest"
 
     def _as_input(self, x) -> torch.Tensor:
         """A tensor must lie on the operators' device (as in any
@@ -199,6 +229,9 @@ class MFCC(nn.Module):
     def forward(self, audio) -> torch.Tensor:
         """(..., T) raw samples -> (..., F, nceptrums) float cepstra."""
         audio = self._as_input(audio)
+        if self._route == "f64ish":
+            return f64ish.mfcc_batch_f64ish(audio, self.cfg,
+                                            operators=self._f64ish_ops())
         if self._route == "ladder":
             if audio.dtype != torch.int16:
                 audio = audio.to(torch.float32)   # never truncated to int16
@@ -213,18 +246,21 @@ class MFCC(nn.Module):
                 audio, self.cfg, operators=self._ladder_ops())
         return float_ops.mfcc_batch(
             audio, self.cfg, method=self.method,
-            precision="highest", dtype=self.dtype,
+            precision=self._chain_precision, dtype=self.dtype,
             mel_floor=self.mel_floor, operators=self._chain_ops())
 
     def frames(self, frames) -> torch.Tensor:
         """(..., F, nfft) pre-emphasized frames -> (..., F, nceptrums)."""
         frames = self._as_input(frames)
+        if self._frames_route == "f64ish":
+            return f64ish.mfcc_frames_f64ish(frames, self.cfg,
+                                             operators=self._f64ish_ops())
         if self._frames_route == "radix2" and frames.device.type != "cpu":
             return float_fused.mfcc_frames_float(
                 frames, self.cfg, dft_passes=3, operators=self._radix2_ops())
         return float_ops.mfcc_frames(
             frames, self.cfg, method=self.method,
-            precision="highest", dtype=self.dtype,
+            precision=self._chain_precision, dtype=self.dtype,
             mel_floor=self.mel_floor, operators=self._chain_ops())
 
     # -- INT path (bit-exact RTL parity) ---------------------------------------

@@ -27,9 +27,14 @@ Routing, as ``mfcc_tpu.streaming`` routes:
     (``stream_step_float(dft_passes=3)``, K5's tail) for CUDA tensors, and
     to the "highest" chain for CPU tensors, as ``mfcc_tpu.streaming`` runs
     its chain off the TPU;
+  * ``precision="f64ish"`` runs every step, flush steps included, through
+    the chain step with f32 emphasis and ``f64ish.mfcc_frames_f64ish`` as
+    its features (K7-frames on the card once per step, for a config in
+    K7's family), as ``mfcc_tpu.streaming`` does; the fused step is not
+    used;
   * flush steps (``lengths`` given) and every other config take the chain:
     ``_chunk_step_batch`` and the features function (the INT frames kernel
-    K3, or the ``float_ops`` chain).
+    K3, or the ``float_ops`` chain, with ``precision="split"`` as given).
 
 The JAX package's barrel shifter (``_barrel_align``) is a TPU device: here
 the per-row alignment is one indexed read.  Nothing is compiled per chunk
@@ -47,8 +52,9 @@ import numpy as np
 import torch
 
 from .config import MFCCConfig
-from .ops import fladder, float_ops, framing, int_fused, int_ops, stream_fused
-from .pipeline import resolve_device
+from .ops import (f64ish, fladder, float_ops, framing, int_fused, int_ops,
+                  stream_fused)
+from .pipeline import check_precision, resolve_device
 
 
 class StreamState(NamedTuple):
@@ -142,11 +148,14 @@ class StreamingMFCC:
         the card (``"cuda"``) and raises on a host without one;
         ``device="cpu"`` runs the plain torch versions on the host.
 
-        ``precision``: ``"highest"`` or ``"fast"``, whose full-chunk steps
+        ``precision``: ``"highest"``; ``"fast"``, whose full-chunk steps
         on the card run the 3-pass split-DFT step (the JAX package's fast
-        serving mode); flush steps and the CPU run the "highest" chain.
-        ``"split"``, ``"f64ish"``, ``"high"``, ``"default"`` and ``"bf16"``
-        are not ported yet.
+        serving mode), flush steps and the CPU the "highest" chain;
+        ``"f64ish"``, every step on the chain with f64ish features (K7-frames
+        on the card; the state is f32 and ``dtype`` and ``mel_floor`` are
+        ignored, as in JAX); or ``"split"``, every step on the chain with a
+        split-bf16 DFT matmul.  ``"high"``, ``"default"`` and ``"bf16"``
+        are not ported.
 
         ``transposed_state=True`` stores the carry buffer (P, S);
         ``transposed_chunks=True`` makes ``step`` take chunks (C, S).  The
@@ -166,13 +175,15 @@ class StreamingMFCC:
         self.transposed_state = transposed_state
         self.transposed_chunks = transposed_chunks
         self.device = resolve_device(device, "StreamingMFCC")
-        if precision not in ("highest", "fast"):
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported to the torch package "
-                "yet (a later slice of the port: split/f64ish)")
-        self.dtype = torch.int32 if int_path else dtype
+        check_precision(precision)
+        if int_path:
+            self.dtype = torch.int32
+        else:
+            self.dtype = torch.float32 if precision == "f64ish" else dtype
 
-        self._route = "chain"       # of full steps; "split" only off the CPU
+        # the route of full steps; "split" (fast mode's split-DFT step) only
+        # off the CPU
+        self._route = "chain"
         fused_geometry = stream_fused.stream_config_ok(cfg)
         if int_path:
             self._emphasize = functools.partial(framing.preemphasis_int,
@@ -187,11 +198,17 @@ class StreamingMFCC:
                                                    cfg=cfg)
         else:
             self._emphasize = framing.preemphasis
-            # precision="fast" is a fused-kernel dial; the chain runs the
-            # "highest" chain so a fast-mode stream is never less accurate
-            self._features = functools.partial(
-                float_ops.mfcc_frames, cfg=cfg, method=method,
-                precision="highest", dtype=dtype, mel_floor=self.mel_floor)
+            if precision == "f64ish":
+                self._features = functools.partial(
+                    f64ish.mfcc_frames_f64ish, cfg=cfg)
+            else:
+                # precision="fast" is a fused-kernel dial; the chain runs
+                # the "highest" chain so a fast-mode stream is never less
+                # accurate
+                self._features = functools.partial(
+                    float_ops.mfcc_frames, cfg=cfg, method=method,
+                    precision="split" if precision == "split" else "highest",
+                    dtype=dtype, mel_floor=self.mel_floor)
             if fused_geometry and method == "dft" and dtype == torch.float32:
                 if precision == "highest" and fladder.fladder_config_ok(cfg):
                     self._route = "fused"

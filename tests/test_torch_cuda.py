@@ -2,8 +2,8 @@
 plain version within TOL, K2 and K3 (INT) against theirs element for
 element (``torch.equal``), the serving step K4 (float within TOL, INT and
 every carry ``torch.equal``), K5, K5-frames and the split-DFT step (within
-TOL_R2) and K6 (within TOL), streaming against batch, and the
-``FeatureServer`` on the card.
+TOL_R2), K6, K7 and K7-frames (within TOL), streaming against batch, the
+split chain and the ``FeatureServer`` on the card.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The file imports neither JAX nor ``mfcc_tpu``, so it runs on
@@ -19,8 +19,8 @@ import torch
 from mfcc_tpu_torch import (MFCC, MFCCConfig, MIC_CONFIG, FeatureServer,
                             StreamingMFCC)
 from mfcc_tpu_torch.kernels import build
-from mfcc_tpu_torch.ops import (fladder, float_fused, float_ops, framing,
-                                int_fused, stream_fused)
+from mfcc_tpu_torch.ops import (f64ish, fladder, float_fused, float_ops,
+                                framing, int_fused, stream_fused)
 from mfcc_tpu_torch.ref import float_ref, int_ref
 from mfcc_tpu_torch.server import stream_samples
 
@@ -35,6 +35,15 @@ GATE = 5e-4
 # plain version on the CPU tests; the fast mode's oracle gate is 2e-3.
 TOL_R2 = 2e-4
 FAST_GATE = 2e-3
+
+
+def gate_units(got, want):
+    """The f64ish metric: max |got - want| / max(1e-5, 2 ulp(want)), inf
+    unless finite; <= 1.0 passes (``bench.f64ish_gate_err``)."""
+    tol = np.maximum(1e-5, 2 * np.abs(want) * np.finfo(np.float32).eps)
+    err = float((np.abs(got - want) / tol).max())
+    return err if np.isfinite(err) else float("inf")
+
 
 pytestmark = pytest.mark.cuda
 
@@ -474,3 +483,100 @@ def test_feature_server_on_card(dev):
         assert np.array_equal(got, int_ref.mfcc_int(sig).astype(np.int16))
     finally:
         srv.stop()
+
+
+@pytest.mark.parametrize("nfft,hop", [(256, 86), (512, 170), (1024, 340)])
+def test_f64ish_kernel_matches_plain(dev, nfft, hop):
+    """K7 (int16, f32 on and off the wire grid, wire_grid False) and
+    K7-frames against their plain versions, one launch per call."""
+    cfg = MFCCConfig(nfft=nfft, step=hop)
+    sig = _tonal(6, 9000, seed=nfft + 7)
+    for x, wg in ((sig.astype(np.int16), True), (sig, True),
+                  (sig / np.float32(32768), True),
+                  (sig / np.float32(32768), False)):
+        xt = torch.from_numpy(np.array(x)).to(dev)
+        before = f64ish.LAUNCHES["K7"]
+        got = f64ish.mfcc_f64ish(xt, cfg, wire_grid=wg)
+        torch.cuda.synchronize()
+        assert f64ish.LAUNCHES["K7"] == before + 1
+        want = f64ish.mfcc_batch_f64ish_plain(xt, cfg, wire_grid=wg)
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= TOL
+    frames = framing.extract_frames(framing.preemphasis(
+        torch.from_numpy(sig / np.float32(32768)).to(dev)), nfft, hop)
+    frames = frames[:, :-1].contiguous()
+    before = f64ish.LAUNCHES["K7-frames"]
+    got = f64ish.mfcc_f64ish_frames(frames, cfg)
+    torch.cuda.synchronize()
+    assert f64ish.LAUNCHES["K7-frames"] == before + 1
+    assert got.shape == frames.shape[:-1] + (32,)
+    want = f64ish.mfcc_frames_f64ish_plain(frames, cfg)
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_f64ish_grid_ties_on_card(dev):
+    """K7-frames rounds x*32 = k + 0.5 half to even, as the plain version
+    and ``jnp.round``."""
+    k = torch.from_numpy(np.random.default_rng(1).integers(
+        -2 ** 19, 2 ** 19, (3, 5, 512)).astype(np.float64)).to(dev)
+    ties = ((k + 0.5) / 32).float()
+    even = (torch.round(ties.double() * 32) / 32).float()
+    got = f64ish.mfcc_f64ish_frames(ties, MFCCConfig())
+    assert torch.equal(got, f64ish.mfcc_f64ish_frames(even, MFCCConfig(),
+                                                      wire_grid=False))
+    want = f64ish.mfcc_frames_f64ish_plain(ties, MFCCConfig())
+    assert (got - want).abs().max().item() <= TOL
+
+
+def test_f64ish_routes_on_card(dev):
+    """``MFCC(precision="f64ish")`` launches K7 (never K1), ``.frames``
+    K7-frames; both within the f64ish gate of the oracle; an
+    out-of-family config takes the float64 chain on the card."""
+    sig = _tonal(2, 512 + 6 * 170, seed=17)
+    x = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    frames = framing.extract_frames(framing.preemphasis(
+        torch.from_numpy(sig).to(dev)), 512, 170)
+    fe = MFCC(precision="f64ish")
+    before, k1 = dict(f64ish.LAUNCHES), fladder.LAUNCHES
+    out, out_f = fe(x), fe.frames(frames)
+    torch.cuda.synchronize()
+    assert f64ish.LAUNCHES == {"K7": before["K7"] + 1,
+                               "K7-frames": before["K7-frames"] + 1}
+    assert fladder.LAUNCHES == k1
+    want = np.stack([float_ref.mfcc_float(s) for s in sig])
+    assert gate_units(out.cpu().numpy(), want) <= 1.0
+    assert gate_units(out_f.cpu().numpy(), want) <= 1.0
+    assert (out - out_f).abs().max().item() <= TOL
+    cfg = MFCCConfig(window_samples=400)
+    before = dict(f64ish.LAUNCHES)
+    chain = MFCC(cfg, precision="f64ish")(x)
+    assert f64ish.LAUNCHES == before
+    cpu = MFCC(cfg, precision="f64ish", device="cpu")(x.cpu())
+    assert (chain.cpu() - cpu).abs().max().item() <= TOL
+
+
+def test_stream_f64ish_on_card(dev):
+    """``StreamingMFCC(precision="f64ish")`` runs K7-frames once per step,
+    flush included, and matches batch K7."""
+    sig = _tonal(5, 1024 * 6 + 300, 33).astype(np.int16)
+    x = torch.from_numpy(sig).to(dev)
+    before = dict(f64ish.LAUNCHES)
+    got, _ = StreamingMFCC(precision="f64ish").process(x, 1024)
+    assert f64ish.LAUNCHES == {"K7": before["K7"],
+                               "K7-frames": before["K7-frames"] + 7}
+    want = f64ish.mfcc_f64ish(x).cpu().numpy()
+    for s in range(len(sig)):
+        assert got[s].shape == want[s].shape
+        assert np.abs(got[s] - want[s]).max() <= TOL
+
+
+def test_split_and_segmented_on_card(dev):
+    """The split chain and the segmented formulation on the card hold the
+    float gate on the JAX bench's gate input (2 streams x 5 frames)."""
+    sig = _tonal(2, 512 + 4 * 170, seed=7)
+    x = torch.from_numpy(sig).to(dev)
+    want = np.stack([float_ref.mfcc_float(s) for s in sig])
+    for kw in (dict(precision="split"), dict(method="segmented"),
+               dict(method="segmented", precision="split")):
+        got = MFCC(**kw)(x).cpu().numpy()
+        assert np.abs(got - want).max() <= GATE, kw

@@ -152,7 +152,7 @@ def test_chain_against_oracle(sig2):
     assert np.abs(got - want).max() <= 5e-5   # measured 1.0e-5 (f32 chain)
 
 
-@pytest.mark.parametrize("precision", ["split", "f64ish", "high", "bf16"])
+@pytest.mark.parametrize("precision", ["high", "default", "bf16"])
 def test_unported_precision_raises(sig2, precision):
     frames = torch.zeros(1, 512)
     for call in (

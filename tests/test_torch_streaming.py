@@ -531,7 +531,7 @@ def test_fast_precision_raises_off_the_cpu(monkeypatch):
     assert stream_fused.LAUNCHES == before
 
 
-@pytest.mark.parametrize("precision", ["split", "f64ish", "high"])
+@pytest.mark.parametrize("precision", ["high", "default", "bf16"])
 def test_unported_precision_raises(precision):
     with pytest.raises(NotImplementedError, match="not ported"):
         StreamingMFCC(precision=precision, device="cpu")
