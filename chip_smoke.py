@@ -77,16 +77,29 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      ``MFCC(precision="split")`` and ``method="segmented"`` to the float
      gate on the gate input; times K7, K7-frames, the module and K1 beside
      the plain versions at the headline shape and at the JAX bench's f64ish
-     shape (S=512 x T=16,322).
+     shape (S=512 x T=16,322);
+  8. the last TPU kernels' entries: compares K8's seven dense-DFT entries
+     (``ops/dense_fused.py``) with their plain versions at nfft 256/86,
+     512/170 and 1024/340 on int16 and non-integer f32 input, on silence
+     with ``mel_floor`` (fmaj) and on the headline input (``KERNEL_TOL``);
+     holds the f32-operand entries and raw to ``GATE`` on the 8 spread
+     streams, every entry to ``GATE`` on the JAX bench's gate input, and
+     prints the split entries' spread-stream reading; compares K9
+     (``int_fused.mfcc_int_v2``), K3-v1 (``mfcc_int_v1``) and K10
+     (``mfcc_int_split2``, two launches) with their plain versions and K2
+     element for element (K3-v1 with ``int_ref`` on int32 outside the
+     int16 range), and with the oracle on the headline's spread streams;
+     times every entry, its plain version, K2, and the float64
+     ``torch.matmul`` of the headline's DFT product (K8's library_ms).
 
 Times are CUDA events, median of 10 after warm-up.  Each main path
 (``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``,
 ``StreamingMFCC().process``, ``MFCC(precision="fast")(audio)`` and its
 ``frames``, ``MFCC(MFCCConfig(step=171))(audio)``,
 ``StreamingMFCC(precision="fast").process``, ``MFCC(precision="f64ish")``
-and its ``frames``, ``StreamingMFCC(precision="f64ish").process``) is
-driven with every launch count set to 0
-just before and read just after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
+and its ``frames``, ``StreamingMFCC(precision="f64ish").process``, and
+each entry of phase 8 on the headline input) is driven with every launch
+count set to 0 just before and read just after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
 exits with an error before printing anything else.  The line before the
 last is a JSON summary of the kernels (with each one's bound: the larger
 of its bytes over the memory rate and its operations over the peak rate
@@ -131,6 +144,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores
 FP32_FLOPS = 67e12          # FP32 outside the tensor cores
 BF16_FLOPS = 989e12         # bf16 tensor cores, dense
+FP64_TC_FLOPS = 67e12       # FP64 tensor cores (DMMA), dense
 # int32 operations: the issue limit of 4 schedulers x 32 lanes per clock
 # per SM, 132 SMs at the 1.98 GHz boost clock (the float32 FMA lane rate,
 # half of its 67 TFLOP/s); counting only the 64 INT32 lanes per SM gives
@@ -209,14 +223,14 @@ def zero_counts(*modules) -> None:
             m.LAUNCHES = 0
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b
-                 ) -> dict:
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b,
+                 library_ms=None) -> dict:
     """One kernel's entry of the kernels line; ``b`` is ``bound``'s
     (ms, kind)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-            "bound_by": b[1], "library_ms": None}
+            "bound_by": b[1], "library_ms": library_ms}
 
 
 def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
@@ -486,15 +500,17 @@ def int_phases(dev, card: str) -> list[dict]:
     zero_counts(fladder, int_fused, stream_fused)
     outs = [fe.int(audio) for _ in range(calls)]
     torch.cuda.synchronize()
-    k2_launches = int_fused.LAUNCHES
-    check(k2_launches == calls and fladder.LAUNCHES == 0,
+    k2_launches = int_fused.LAUNCHES["K2"]
+    check(k2_launches == calls and fladder.LAUNCHES == 0
+          and sum(int_fused.LAUNCHES.values()) == calls,
           f"K2 launches {k2_launches} (K1 {fladder.LAUNCHES}) for {calls} "
           "int() calls")
     zero_counts(fladder, int_fused, stream_fused)
     out_frames = fe.int_frames(hframes)
     torch.cuda.synchronize()
-    k3_launches = int_fused.LAUNCHES
-    check(k3_launches == 1 and fladder.LAUNCHES == 0,
+    k3_launches = int_fused.LAUNCHES["K3"]
+    check(k3_launches == 1 and fladder.LAUNCHES == 0
+          and sum(int_fused.LAUNCHES.values()) == 1,
           f"K3 launches {k3_launches} (K1 {fladder.LAUNCHES}) for one "
           "int_frames() call")
     out = outs[0]
@@ -686,7 +702,7 @@ def serving_phases(dev, card: str) -> list[dict]:
             torch.cuda.synchronize()
             k4 = "K4-INT" if int_path else "K4-float"
             n = {**stream_fused.LAUNCHES, "K1": fladder.LAUNCHES,
-                 "K2/K3": int_fused.LAUNCHES}
+                 "K2/K3": sum(int_fused.LAUNCHES.values())}
             want_n = {"K4-float": 0, "K4-split": 0, "K4-INT": 0, "K1": 0,
                       "K2/K3": int(flush and int_path)}
             want_n[k4] = n_full
@@ -851,7 +867,7 @@ def serving_phases(dev, card: str) -> list[dict]:
                      "clamp(round(StreamingMFCC(mel_floor=1.0)))")
                   + f"; STATS steps {stats['steps']}, frames_tx "
                   f"{stats['frames_tx']} ({sent} expected); K4 launches "
-                  f"{k4_n}, K3 {int_fused.LAUNCHES}; "
+                  f"{k4_n}, K3 {int_fused.LAUNCHES['K3']}; "
                   f"{secs:.2f} s wall")
         finally:
             srv.stop()
@@ -1497,6 +1513,322 @@ def f64ish_phases(dev, card: str) -> list[dict]:
                                        ("frames", "K7-frames", kf_launches,
                                         kf_b))]
 
+# K8's entries: (LAUNCHES key, function name, ingest, split, pallas_call of
+# the TPU kernel it replaces)
+K8_ENTRIES = (
+    ("emphasized", "mfcc_emphasized", "emphasized", False,
+     "mfcc_tpu/ops/pallas_mfcc.py:182"),
+    ("batch", "mfcc_batch_dense", "emphasize", False,
+     "mfcc_tpu/ops/pallas_mfcc.py:182"),
+    ("raw", "mfcc_raw", "fold", True, "mfcc_tpu/ops/pallas_mfcc.py:316"),
+    ("aligned", "mfcc_aligned", "emphasize", True,
+     "mfcc_tpu/ops/pallas_mfcc.py:448"),
+    ("recomp", "mfcc_recomp", "emphasize", True,
+     "mfcc_tpu/ops/pallas_mfcc.py:581"),
+    ("seg", "mfcc_seg", "emphasize", True, "mfcc_tpu/ops/pallas_mfcc.py:719"),
+    ("fmaj", "mfcc_fmaj", "emphasize", False,
+     "mfcc_tpu/ops/pallas_mfcc.py:1467"),
+)
+
+
+def dense_bound(nbytes: int, frames: int, cfg, band: torch.Tensor,
+                fold: bool) -> tuple[float, str, float]:
+    """(ms, kind, DFT operations) of K8's function: the product's 2 K nfft
+    operations a frame (K = nfft, or nfft + 1 folded) at the FP64 tensor
+    cores' rate; power (3 per bin), the banded mel sums (2 per weight), a
+    log2 per filter and the DCT (2 per weight) at the FP64 rate, the two
+    pipes taken as overlapping (the larger time).  The f32 emphasis and the
+    limb split run on the f32 pipe and are not counted."""
+    K = cfg.nfft + int(fold)
+    dft = frames * 2 * K * cfg.nfft
+    tail = frames * (3 * cfg.nfft // 2
+                     + 2 * int((band[:, 1] - band[:, 0]).sum())
+                     + cfg.nfilters + 2 * cfg.nfilters * cfg.nceptrums)
+    t_ops = max(dft / FP64_TC_FLOPS, tail / FP64_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((t_bytes, "bytes", dft) if t_bytes >= t_ops
+            else (t_ops, "operations", dft))
+
+
+def int_ops_split(cfg, band: torch.Tensor) -> tuple[int, int]:
+    """int32 operations per frame of K10's two launches: the front (window,
+    the 512-point ladder with all 256 bins live, since it stores them, and
+    the power of every bin) and the epilogue (filterbank, log2 and the DCT
+    ladder, as ``int_ops_per_frame`` counts them)."""
+    nfft = cfg.nfft
+    lg = nfft.bit_length() - 1
+    live = [True] * (nfft // 2) + [False] * (nfft // 2)
+    front = (3 * nfft + ladder_ops(lg, [True] * nfft, [False] * nfft, live,
+                                   live) + 4 * (nfft // 2))
+    used = [False] * nfft
+    for lo, hi in band.tolist():
+        used[lo:hi] = [True] * (hi - lo)
+    whole = int_ops_per_frame(cfg, band)
+    epi = whole - 3 * nfft - 4 * sum(used) - ladder_ops(
+        lg, [True] * nfft, [False] * nfft, used, used)
+    return front, epi
+
+
+def legacy_phases(dev, card: str) -> list[dict]:
+    """K8's seven entries, K9, K3-v1 and K10 against their plain versions,
+    their gates, launch counts and times; returns their entries of the
+    kernels line."""
+    from mfcc_tpu_torch import MFCCConfig
+    from mfcc_tpu_torch.ops import (dense_fused, fladder, float_fused, framing,
+                                    int_fused, stream_fused, f64ish)
+    from mfcc_tpu_torch.ref import float_ref, int_ref
+    mods = (dense_fused, fladder, float_fused, int_fused, stream_fused, f64ish)
+
+    def entry(name):
+        return (getattr(dense_fused, name),
+                getattr(dense_fused, name + "_plain"))
+
+    def k8_input(x, ingest):
+        """The entry's input: emphasized f32 for the emphasized ingest."""
+        if ingest == "emphasized":
+            return framing.preemphasis(x.to(torch.float32))
+        return x
+
+    # -- K8 vs its plain versions ---------------------------------------------------
+    errs = {key: 0.0 for key, *_ in K8_ENTRIES}
+    for nfft, hop in ((256, 86), (512, 170), (1024, 340)):
+        cfg = MFCCConfig(nfft=nfft, step=hop)
+        sig = make_audio(64, 16000, seed=nfft + 2)
+        rng = np.random.default_rng(nfft)
+        inputs = [("int16", torch.from_numpy(sig.astype(np.int16))),
+                  ("non-integer f32", torch.from_numpy(
+                      sig + rng.random(sig.shape, dtype=np.float32)))]
+        for key, name, ingest, _, _ in K8_ENTRIES:
+            if key == "aligned" and nfft != 512:
+                continue
+            kern, plain = entry(name)
+            for what, x in inputs:
+                xin = k8_input(x.to(dev), ingest)
+                got, want = kern(xin, cfg), plain(xin, cfg)
+                torch.cuda.synchronize()
+                e = compare(got, want, f"K8 {key} nfft {nfft} {what}")
+                check(e <= KERNEL_TOL, f"K8 {key} nfft {nfft} {what}: {e}")
+                errs[key] = max(errs[key], e)
+        print(f"K8 vs plain, nfft {nfft}/{hop}, S=64 x 1 s int16 and "
+              f"non-integer f32, every entry: max-abs "
+              f"{max(errs.values()):.3e}")
+    cfg = MFCCConfig()
+    silent = torch.zeros(2, 16000, dtype=torch.int16, device=dev)
+    got = dense_fused.mfcc_fmaj(silent, cfg, mel_floor=1.0)
+    e = compare(got, dense_fused.mfcc_fmaj_plain(silent, cfg, mel_floor=1.0),
+                "K8 fmaj silence, mel_floor=1")
+    check(e <= KERNEL_TOL and bool(torch.isfinite(got).all()),
+          f"K8 fmaj silence with mel_floor: {e}")
+    check(not bool(torch.isfinite(dense_fused.mfcc_fmaj(silent, cfg)).any()),
+          "K8 fmaj silence without mel_floor is finite")
+    errs["fmaj"] = max(errs["fmaj"], e)
+    print(f"K8 fmaj on silence: mel_floor=1.0 finite, {e:.3e} from plain; "
+          f"without it non-finite, as in JAX")
+
+    # -- K8 at the headline: kernel vs plain, launches, gates -----------------------
+    sig = make_audio(S_MAIN, T_MAIN)
+    audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    n_frames = cfg.n_frames(T_MAIN)
+    frames_n = S_MAIN * n_frames
+    spread = np.linspace(0, S_MAIN - 1, 8).astype(int)
+    want_or = np.stack([float_ref.mfcc_float(sig[i], cfg) for i in spread])
+    gate_in = make_audio(2, 512 + 4 * 170, seed=7)
+    want_g = np.stack([float_ref.mfcc_float(s_, cfg) for s_ in gate_in])
+    g16 = torch.from_numpy(gate_in.astype(np.int16)).to(dev)
+    k8_launches = {}
+    for key, name, ingest, split, _ in K8_ENTRIES:
+        kern, plain = entry(name)
+        xin = k8_input(audio, ingest)
+        zero_counts(*mods)
+        out = kern(xin, cfg)
+        torch.cuda.synchronize()
+        k8_launches[key] = dense_fused.LAUNCHES[key]
+        others = sum(sum(m.LAUNCHES.values()) if isinstance(m.LAUNCHES, dict)
+                     else m.LAUNCHES for m in mods) - k8_launches[key]
+        check(k8_launches[key] == 1 and others == 0,
+              f"K8 {key}: launches {dense_fused.LAUNCHES}, others {others}")
+        check(tuple(out.shape) == (S_MAIN, n_frames, cfg.nceptrums)
+              and bool(torch.isfinite(out).all()), f"K8 {key} output")
+        e = compare(out, plain(xin, cfg), f"K8 {key} at the headline")
+        check(e <= KERNEL_TOL, f"K8 {key} at the headline: {e}")
+        errs[key] = max(errs[key], e)
+        e_or = float(np.abs(out[spread].cpu().numpy() - want_or).max())
+        e_g = float(np.abs(kern(k8_input(g16, ingest), cfg).cpu().numpy()
+                           - want_g).max())
+        gated = not split or key == "raw"
+        print(f"dense_fused.{name} ({ingest}, split={split}) "
+              f"{tuple(audio.shape)} -> {tuple(out.shape)}: launches "
+              f"{k8_launches[key]}; vs plain {e:.3e}; vs float64 oracle on 8 "
+              f"spread streams {e_or:.3e} ("
+              + (f"gate {GATE}" if gated else "read, not gated") +
+              f"), on the gate input {e_g:.3e} (gate {GATE})")
+        check(e_g <= GATE, f"K8 {key} on the gate input: {e_g}")
+        if gated:
+            check(e_or <= GATE, f"K8 {key} on the spread streams: {e_or}")
+        del out
+
+    # -- K8 times ---------------------------------------------------------------
+    times = {}
+    for key, name, ingest, split, _ in K8_ENTRIES:
+        kern, plain = entry(name)
+        xin = k8_input(audio, ingest)
+        times[key] = time_ms(lambda: kern(xin, cfg))
+        times[key + " plain"] = time_ms(lambda: plain(xin, cfg))
+        print(f"time K8 {key} kernel: {times[key]:.4f} ms "
+              f"({frames_n / times[key] * 1e3:.4e} frames/s), plain "
+              f"{times[key + ' plain']:.4f} ms (S={S_MAIN} x T={T_MAIN}, "
+              f"{frames_n} frames, median of {ITERS}; {card})")
+    fr = torch.randn(frames_n, 512, dtype=torch.float64, device=dev)
+    op = torch.randn(512, 512, dtype=torch.float64, device=dev)
+    gemm_ms = time_ms(lambda: torch.matmul(fr, op))
+    del fr, op
+    print(f"time torch.matmul float64 ({frames_n} x 512) @ (512 x 512), the "
+          f"DFT product only: {gemm_ms:.4f} ms ({card})")
+    k1_ms = time_ms(lambda: fladder.mfcc_float_ladder(audio, cfg))
+    print(f"time K1 kernel in the same call: {k1_ms:.4f} ms")
+
+    band = dense_fused.dense_operators(cfg, dev, False, False).band.cpu()
+    out_bytes = frames_n * cfg.nceptrums * 4
+    k8_entries = []
+    for key, name, ingest, split, replaces in K8_ENTRIES:
+        ops = dense_fused.dense_operators(cfg, dev, ingest == "fold", split)
+        in_bytes = audio.nbytes * (2 if ingest == "emphasized" else 1)
+        nbytes = in_bytes + out_bytes + sum(t.nbytes for t in ops)
+        b = dense_bound(nbytes, frames_n, cfg, band, ingest == "fold")
+        print(f"K8 {key} bound: {nbytes} bytes, {b[2]:.4e} FP64 DFT "
+              f"operations -> {b[0]:.4f} ms ({b[1]})")
+        k8_entries.append(kernel_entry(
+            f"dense DFT {key} (K8, {ingest}, split={split})",
+            "mfcc_tpu_torch/csrc/dense_dft.cu", replaces, k8_launches[key],
+            errs[key], times[key], times[key + " plain"], b[:2], gemm_ms))
+
+    # -- K9, K3-v1 and K10 vs their plain versions ---------------------------------
+    rng = np.random.default_rng(8)
+    int_inputs = [
+        ("tonal int16, S=64 x 1 s", MFCCConfig(),
+         make_audio(64, 16000, seed=3).astype(np.int16)),
+        ("full-range int16", MFCCConfig(),
+         rng.integers(-32768, 32768, (16, 16000)).astype(np.int16)),
+        ("int32 outside int16 range", MFCCConfig(),
+         rng.integers(-2 ** 31, 2 ** 31, (4, 4000)).astype(np.int32)),
+        ("nfilters=16", MFCCConfig(nfilters=16, nceptrums=16),
+         make_audio(8, 16000, seed=4).astype(np.int16)),
+        ("hop 160", MFCCConfig(step=160),
+         make_audio(8, 16000, seed=5).astype(np.int16)),
+    ]
+    for what, icfg, x in int_inputs:
+        xt = torch.from_numpy(x).to(dev)
+        k2 = int_fused.mfcc_int_fused(xt, icfg)
+        for kname, kern, plain in (
+                ("K9", int_fused.mfcc_int_v2, int_fused.mfcc_int_fused_plain),
+                ("K3-v1", int_fused.mfcc_int_v1, int_fused.mfcc_int_v1_plain),
+                ("K10", int_fused.mfcc_int_split2,
+                 int_fused.mfcc_int_split2_plain)):
+            got = kern(xt, icfg)
+            torch.cuda.synchronize()
+            compare_exact(got, plain(xt, icfg), f"{kname} {what}")
+            if kname != "K3-v1" or x.dtype == np.int16:
+                compare_exact(got, k2, f"{kname} {what} vs K2")
+        if x.dtype == np.int32:
+            ref = np.stack([int_ref.mfcc_int(s_.astype(np.int64), icfg)
+                            for s_ in x])
+            check(np.array_equal(int_fused.mfcc_int_v1(xt, icfg).cpu().numpy(),
+                                 ref), "K3-v1 on int32 differs from int_ref")
+            check(not torch.equal(int_fused.mfcc_int_v1(xt, icfg), k2),
+                  "K3-v1 on int32 outside int16 range equals K2")
+        print(f"K9, K3-v1, K10 vs plain, {what} {tuple(xt.shape)} {xt.dtype}: "
+              "equal" + (", K3-v1 equal to int_ref (K2's wire rule differs)"
+                         if x.dtype == np.int32 else ", and equal to K2"))
+
+    # -- K9, K3-v1 and K10 at the headline: launches, K2, the oracle -----------------
+    zero_counts(*mods)
+    k2 = int_fused.mfcc_int_fused(audio, cfg)
+    int_launches = {}
+    outs = {}
+    for kname, keys, kern in (("K9", ("K9",), int_fused.mfcc_int_v2),
+                              ("K3-v1", ("K3-v1",), int_fused.mfcc_int_v1),
+                              ("K10", ("K10-front", "K10-epi"),
+                               int_fused.mfcc_int_split2)):
+        zero_counts(*mods)
+        outs[kname] = kern(audio, cfg)
+        torch.cuda.synchronize()
+        n = dict(int_fused.LAUNCHES)
+        check(all(n[k] == 1 for k in keys) and sum(n.values()) == len(keys)
+              and fladder.LAUNCHES == 0, f"{kname} launches {n}")
+        int_launches.update({k: n[k] for k in keys})
+        compare_exact(outs[kname], k2, f"{kname} at the headline vs K2")
+    want_i = np.stack([int_ref.mfcc_int(sig[i].astype(np.int16), cfg)
+                       for i in spread])
+    for kname, o in outs.items():
+        ndiff = int((o[spread].cpu().numpy() != want_i).sum())
+        check(ndiff == 0, f"{kname} differs from int_ref in {ndiff}")
+    hpower = int_fused.mfcc_int_front(audio, cfg)
+    compare_exact(hpower, int_fused.mfcc_int_front_plain(audio, cfg),
+                  "K10-front at the headline")
+    compare_exact(int_fused.mfcc_int_epi(hpower, cfg),
+                  int_fused.mfcc_int_epi_plain(hpower, cfg),
+                  "K10-epi at the headline")
+    print(f"MFCC int entries on {tuple(audio.shape)} int16: K9, K3-v1 and "
+          f"K10 equal to K2 and to int_ref on 8 spread streams; launches "
+          f"{int_launches}; K10's power rows {tuple(hpower.shape)}")
+    del outs
+
+    # -- K9, K3-v1 and K10 times and bounds ----------------------------------------
+    it = {}
+    for name, fn in (
+            ("K2", lambda: int_fused.mfcc_int_fused(audio, cfg)),
+            ("K9", lambda: int_fused.mfcc_int_v2(audio, cfg)),
+            ("K9 plain", lambda: int_fused.mfcc_int_fused_plain(audio, cfg)),
+            ("K3-v1", lambda: int_fused.mfcc_int_v1(audio, cfg)),
+            ("K3-v1 plain", lambda: int_fused.mfcc_int_v1_plain(audio, cfg)),
+            ("K10", lambda: int_fused.mfcc_int_split2(audio, cfg)),
+            ("K10-front", lambda: int_fused.mfcc_int_front(audio, cfg)),
+            ("K10-front plain",
+             lambda: int_fused.mfcc_int_front_plain(audio, cfg)),
+            ("K10-epi", lambda: int_fused.mfcc_int_epi(hpower, cfg)),
+            ("K10-epi plain",
+             lambda: int_fused.mfcc_int_epi_plain(hpower, cfg))):
+        it[name] = time_ms(fn)
+        print(f"time {name}: {it[name]:.4f} ms, "
+              f"{frames_n / it[name] * 1e3:.4e} frames/s (S={S_MAIN} x "
+              f"T={T_MAIN}, {frames_n} frames, median of {ITERS}; {card})")
+    ops = int_fused.int_operators(cfg, dev)
+    tables = sum(t.nbytes for t in ops[:5])
+    iband = ops.band.cpu()
+    per_frame = int_ops_per_frame(cfg, iband)
+    front_ops, epi_ops = int_ops_split(cfg, iband)
+    frames_bytes = frames_n * 512 * 4
+    k9_b = bound(audio.nbytes + out_bytes + tables,
+                 4 * S_MAIN * T_MAIN + frames_n * per_frame, INT32_OPS)
+    v1_b = bound(frames_bytes + out_bytes + tables, frames_n * per_frame,
+                 INT32_OPS)
+    front_b = bound(audio.nbytes + hpower.nbytes + tables,
+                    4 * S_MAIN * T_MAIN + frames_n * front_ops, INT32_OPS)
+    epi_b = bound(hpower.nbytes + out_bytes + tables, frames_n * epi_ops,
+                  INT32_OPS)
+    print(f"bounds: K9 {k9_b[0]:.4f} ms ({k9_b[1]}); K3-v1 (its kernel, on "
+          f"the {frames_bytes} bytes of frames) {v1_b[0]:.4f} ms ({v1_b[1]}); "
+          f"K10-front {front_b[0]:.4f} ms ({front_b[1]}, {front_ops} int32 "
+          f"operations a frame), K10-epi {epi_b[0]:.4f} ms ({epi_b[1]}, "
+          f"{epi_ops}); K2's per frame {per_frame}")
+    del hpower
+    src = "mfcc_tpu_torch/csrc/"
+    return k8_entries + [
+        kernel_entry("int v2 on K2's kernel (K9)", src + "int_mfcc.cu",
+                     "mfcc_tpu/ops/pallas_int.py:917", int_launches["K9"], 0,
+                     it["K9"], it["K9 plain"], k9_b),
+        kernel_entry("int v1 on K3's kernel (K3-v1)", src + "int_mfcc.cu",
+                     "mfcc_tpu/ops/pallas_int.py:1291",
+                     int_launches["K3-v1"], 0, it["K3-v1"],
+                     it["K3-v1 plain"], v1_b),
+        kernel_entry("int split2 front (K10-front)", src + "int_split2.cu",
+                     "tools/ab_int_r5.py:135", int_launches["K10-front"], 0,
+                     it["K10-front"], it["K10-front plain"], front_b),
+        kernel_entry("int split2 epilogue (K10-epi)", src + "int_split2.cu",
+                     "tools/ab_int_r5.py:159", int_launches["K10-epi"], 0,
+                     it["K10-epi"], it["K10-epi plain"], epi_b),
+    ]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1526,6 +1858,8 @@ def main() -> int:
     kernels += fast_phases(dev, card)
     torch.cuda.empty_cache()
     kernels += f64ish_phases(dev, card)
+    torch.cuda.empty_cache()
+    kernels += legacy_phases(dev, card)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

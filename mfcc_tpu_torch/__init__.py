@@ -27,7 +27,14 @@ Ported so far:
   * the ``precision="f64ish"`` dial (the max(1e-5, 2 ulp) contract) in
     FP64: K7 and K7-frames (``ops/f64ish.py``, ``csrc/f64ish.cu``) behind
     ``MFCC``, ``float_ops`` and ``StreamingMFCC``; and the ``"split"``
-    precision and ``method="segmented"`` of the ``float_ops`` chain.
+    precision and ``method="segmented"`` of the ``float_ops`` chain;
+  * the entries that no route of ``MFCC`` reaches, the counterparts of the
+    JAX package's bench candidates: K8, one FP64 dense-DFT kernel
+    (``csrc/dense_dft.cu``) behind the seven entries of
+    ``ops/dense_fused.py``; K9 (``int_fused.mfcc_int_v2``) on K2's
+    kernel, K3-v1 (``mfcc_int_v1``) on K3's, and K10
+    (``mfcc_int_split2``), K2's function in two launches
+    (``csrc/int_split2.cu``).
 
 ``MFCC()``, ``StreamingMFCC()`` and ``FeatureServer()`` run on the CUDA
 card by default; ``device="cpu"`` runs the plain torch versions on the

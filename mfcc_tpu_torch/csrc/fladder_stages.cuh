@@ -5,7 +5,8 @@
 // (stream_step.cu, from carry and chunk): each kernel has its own ingest,
 // which writes a tile of FT frames, packed as z[m] = y[2m] + i*y[2m+1]
 // after the window * 1/nfft, into the tile's shared rows; the tail is the
-// same arithmetic in the same order for both.
+// same arithmetic in the same order for both.  K8 (dense_dft.cu) shares
+// the stages after the power: mel_log2 and dct_store.
 //
 // Layout: the block's dynamic shared memory holds FT padded rows of M =
 // nfft/2 complex points (one pad double2 per 16, which spreads the
@@ -97,6 +98,48 @@ __device__ __forceinline__ void load_constants(const Smem& sm, const double2* tw
   for (int i = threadIdx.x; i < nfilters; i += blockDim.x) sm.sband[i] = band[i];
 }
 
+// The mel product of FT power rows (row f at power + f * nbins) over each
+// filter's band [lo, hi) of `band` ((nbins, nfilters) row-major mel), the
+// optional floor and log2, into logmel[f * nfilters + m].  Shared by K1's
+// tail and K8 (dense_dft.cu).
+__device__ __forceinline__ void mel_log2(const double* power, int FT,
+                                         int nbins, int nfilters,
+                                         const int2* band,
+                                         const double* __restrict__ mel,
+                                         double mel_floor, double* logmel) {
+  for (int o = threadIdx.x; o < FT * nfilters; o += blockDim.x) {
+    const int f = o / nfilters;
+    const int m = o - f * nfilters;
+    const double* p = power + f * nbins;
+    const int2 bd = band[m];
+    double acc = 0.0;
+    for (int k = bd.x; k < bd.y; ++k) acc = fma(p[k], mel[k * nfilters + m], acc);
+    if (mel_floor != 0.0) acc = fmax(acc, mel_floor);
+    logmel[o] = log2(acc);
+  }
+}
+
+// The DCT product ((nfilters, ncep) row-major) of FT log-mel rows (row f at
+// logmel + f * nfilters) and the store of frames f0 + f < F at
+// out[(f0 + f) * ncep + c], rounded to f32 once.  Shared by K1's tail and
+// K8 (dense_dft.cu).
+__device__ __forceinline__ void dct_store(const double* logmel, int FT,
+                                          int nfilters, int ncep,
+                                          const double* __restrict__ dct,
+                                          float* __restrict__ out, int f0,
+                                          int F) {
+  for (int o = threadIdx.x; o < FT * ncep; o += blockDim.x) {
+    const int f = o / ncep;
+    const int c = o - f * ncep;
+    const int g = f0 + f;
+    if (g >= F) continue;
+    const double* lm = logmel + f * nfilters;
+    double acc = 0.0;
+    for (int m = 0; m < nfilters; ++m) acc = fma(lm[m], dct[m * ncep + c], acc);
+    out[static_cast<long long>(g) * ncep + c] = static_cast<float>(acc);
+  }
+}
+
 // Everything after the ingest, which has filled sm.buf and ended with a
 // barrier: the FFT, |X|^2, mel, floor, log2 and the DCT product, storing
 // cepstra of frames f0 + f < F at out[(f0 + f) * ncep + c] (out points at
@@ -173,29 +216,11 @@ __device__ __forceinline__ void ladder_tail(const Smem& sm, int FT, int log2n,
   __syncthreads();
 
   // 3. mel product over each filter's band [lo, hi), floor, log2.
-  for (int o = threadIdx.x; o < FT * nfilters; o += blockDim.x) {
-    const int f = o / nfilters;
-    const int m = o - f * nfilters;
-    const double* p = sm.power + f * nbins;
-    const int2 bd = sm.sband[m];
-    double acc = 0.0;
-    for (int k = bd.x; k < bd.y; ++k) acc = fma(p[k], mel[k * nfilters + m], acc);
-    if (mel_floor != 0.0) acc = fmax(acc, mel_floor);
-    sm.logmel[o] = log2(acc);
-  }
+  mel_log2(sm.power, FT, nbins, nfilters, sm.sband, mel, mel_floor, sm.logmel);
   __syncthreads();
 
-  // 4. DCT product ((nfilters, ncep) row-major) and the store.
-  for (int o = threadIdx.x; o < FT * ncep; o += blockDim.x) {
-    const int f = o / ncep;
-    const int c = o - f * ncep;
-    const int g = f0 + f;
-    if (g >= F) continue;
-    const double* lm = sm.logmel + f * nfilters;
-    double acc = 0.0;
-    for (int m = 0; m < nfilters; ++m) acc = fma(lm[m], dct[m * ncep + c], acc);
-    out[static_cast<long long>(g) * ncep + c] = static_cast<float>(acc);
-  }
+  // 4. DCT product and the store.
+  dct_store(sm.logmel, FT, nfilters, ncep, dct, out, f0, F);
 }
 
 }  // namespace fladder_stages

@@ -2,8 +2,9 @@
 // arithmetic (mfcc_tpu_torch/ref/int_ref.py holds the derivations), for
 // the reference's 16-bit datapath (width 16, window precision 8, power
 // width 30, nfft 512).  Shared by the fused INT kernels of int_mfcc.cu (K2
-// from raw audio, K3 from pre-emphasized frames) and by the INT serving
-// step K4 of stream_step.cu, the same tail behind a carry-aware ingest.
+// from raw audio, K3 from pre-emphasized frames), by the INT serving step
+// K4 of stream_step.cu, the same tail behind a carry-aware ingest, and by
+// the two launches of K10 (int_split2.cu), which cut the tail at the power.
 //
 // Signed overflow is undefined in C++, while the reference's int32 stages
 // wrap mod 2^32 (the exactness argument of ops/int_ops.py needs the wrap).
@@ -158,23 +159,18 @@ __device__ __forceinline__ void fft_rows(int* re, int* im, int row, int nrows,
   }
 }
 
-// The stages after the 512-point FFT, for `nrows` frames whose spectra
-// (natural bin order) are in re/im: power on bins [0, 256), the integer mel
-// filterbank mod 2^64 over each filter's band, log2, and the DCT-II as a
-// 4*nfilters-point INT FFT of the scattered log-mel row
-// (buf[2k+1] = buf[4n-1-2k] = logmel[k], mfcc/core/dct_stream.py:29-34).
-// On return re[row r, pad(c)] holds cepstrum c of frame r.  `logmel` is
-// shared scratch of nrows * nfilters ints, `dtw` the DCT twiddles in shared
-// memory.  Starts after, and ends with, a barrier.
-__device__ __forceinline__ void post_fft_stages(int* re, int* im, int row,
-                                                int nrows, int* logmel,
-                                                const int2* dtw, const Tail& c) {
-  for (int b = threadIdx.x; b < nrows * kNbins; b += blockDim.x) {
-    const int p = (b >> (kLog2Nfft - 1)) * row + pad(b & (kNbins - 1));
-    re[p] = power(re[p], im[p]);
-  }
-  __syncthreads();
-
+// The stages after the power, for `nrows` frames whose power rows (natural
+// bin order, bins [0, 256)) are in re: the integer mel filterbank mod 2^64
+// over each filter's band, log2, and the DCT-II as a 4*nfilters-point INT
+// FFT of the scattered log-mel row (buf[2k+1] = buf[4n-1-2k] = logmel[k],
+// mfcc/core/dct_stream.py:29-34).  On return re[row r, pad(c)] holds
+// cepstrum c of frame r.  `logmel` is shared scratch of nrows * nfilters
+// ints, `dtw` the DCT twiddles in shared memory.  Starts after, and ends
+// with, a barrier.
+__device__ __forceinline__ void post_power_stages(int* re, int* im, int row,
+                                                  int nrows, int* logmel,
+                                                  const int2* dtw,
+                                                  const Tail& c) {
   const int nf = c.nfilters;
   for (int o = threadIdx.x; o < nrows * nf; o += blockDim.x) {
     const int f = o / nf;
@@ -206,6 +202,27 @@ __device__ __forceinline__ void post_fft_stages(int* re, int* im, int row,
   }
   __syncthreads();
   fft_rows(re, im, row, nrows, log2n4, dtw);
+}
+
+// Power on bins [0, 256) of `nrows` spectra (natural bin order) in re/im,
+// in place in re.  Ends with a barrier.
+__device__ __forceinline__ void power_rows(int* re, const int* im, int row,
+                                           int nrows) {
+  for (int b = threadIdx.x; b < nrows * kNbins; b += blockDim.x) {
+    const int p = (b >> (kLog2Nfft - 1)) * row + pad(b & (kNbins - 1));
+    re[p] = power(re[p], im[p]);
+  }
+  __syncthreads();
+}
+
+// The stages after the 512-point FFT: power_rows, then post_power_stages.
+// On return re[row r, pad(c)] holds cepstrum c of frame r.  Starts after,
+// and ends with, a barrier.
+__device__ __forceinline__ void post_fft_stages(int* re, int* im, int row,
+                                                int nrows, int* logmel,
+                                                const int2* dtw, const Tail& c) {
+  power_rows(re, im, row, nrows);
+  post_power_stages(re, im, row, nrows, logmel, dtw, c);
 }
 
 // -- The block of the fused INT kernels (K2, K3, K4) ------------------------

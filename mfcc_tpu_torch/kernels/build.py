@@ -86,6 +86,15 @@ _F64ISH_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
 # mfcc_f64ish_frames_f32(frames, out, M, nfft, nfilters, ncep, win, tw, mel,
 #                        dct, band, wire_grid, stream)
 _F64ISH_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
+# mfcc_int_front_i16(audio, power, S, T, F, hop, curve, tw, stream)
+_INT_FRONT_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P]
+# mfcc_int_epi(power, out, M, nfilters, ncep, fb_shift, log_precision,
+#              log_width, dtw, fbw, band, stream)
+_INT_EPI_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+# mfcc_dense_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
+#                      ingest, split, cs, mel, dct, band, mel_floor, stream)
+_DENSE_ARGS = ([_P, _P, _LL, _LL] + [_I] * 7 + [_P] * 4
+               + [ctypes.c_double, _P])
 SIGNATURES = {
     "mfcc_fladder_i16": _FLADDER_ARGS,
     "mfcc_fladder_f32": _FLADDER_ARGS,
@@ -103,6 +112,10 @@ SIGNATURES = {
     "mfcc_f64ish_i16": _F64ISH_ARGS,
     "mfcc_f64ish_f32": _F64ISH_ARGS,
     "mfcc_f64ish_frames_f32": _F64ISH_FRAMES_ARGS,
+    "mfcc_int_front_i16": _INT_FRONT_ARGS,
+    "mfcc_int_epi": _INT_EPI_ARGS,
+    "mfcc_dense_i16": _DENSE_ARGS,
+    "mfcc_dense_f32": _DENSE_ARGS,
 }
 
 

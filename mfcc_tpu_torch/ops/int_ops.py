@@ -259,10 +259,23 @@ def mfcc_int_frames(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
     The sample datapath honors cfg.width (validated consistent); the
     filterbank output / log2 input width is the reference's architectural
     constant (config.FILTERBANK_WIDTH, mfcc/core/mfcc.py:69,82)."""
+    return mfcc_int_from_power(power_frames_int(frames, cfg), cfg)
+
+
+def power_frames_int(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
+                     ) -> torch.Tensor:
+    """The stages up to the power, on pre-emphasized int frames:
+    (..., F, nfft) int32 -> (..., F, nfft/2) int32 (window, FFT, power)."""
     cfg.validate_int()
     win = window_int(frames, cfg.nfft, cfg.window_precision, cfg.width)
     re, im = fft_stream_int(win, cfg.width)
-    power = power_int(re, im, cfg.width, cfg.power_width)
+    return power_int(re, im, cfg.width, cfg.power_width)
+
+
+def mfcc_int_from_power(power: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
+                        ) -> torch.Tensor:
+    """The stages after the power: (..., F, nfft/2) int32 ->
+    (..., F, nceptrums) int32 (filterbank, log2, DCT)."""
     mel = filterbank_int(power, cfg.samplerate, cfg.nfft, cfg.nfilters,
                          cfg.filter_wsize, cfg.filter_gain, FILTERBANK_WIDTH,
                          cfg.power_width)

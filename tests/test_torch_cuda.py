@@ -2,8 +2,9 @@
 plain version within TOL, K2 and K3 (INT) against theirs element for
 element (``torch.equal``), the serving step K4 (float within TOL, INT and
 every carry ``torch.equal``), K5, K5-frames and the split-DFT step (within
-TOL_R2), K6, K7 and K7-frames (within TOL), streaming against batch, the
-split chain and the ``FeatureServer`` on the card.
+TOL_R2), K6, K7 and K7-frames (within TOL), K8's seven dense-DFT entries
+(within TOL), K9, K3-v1 and K10 (``torch.equal``), streaming against
+batch, the split chain and the ``FeatureServer`` on the card.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The file imports neither JAX nor ``mfcc_tpu``, so it runs on
@@ -19,8 +20,8 @@ import torch
 from mfcc_tpu_torch import (MFCC, MFCCConfig, MIC_CONFIG, FeatureServer,
                             StreamingMFCC)
 from mfcc_tpu_torch.kernels import build
-from mfcc_tpu_torch.ops import (f64ish, fladder, float_fused, float_ops,
-                                framing, int_fused, stream_fused)
+from mfcc_tpu_torch.ops import (dense_fused, f64ish, fladder, float_fused,
+                                float_ops, framing, int_fused, stream_fused)
 from mfcc_tpu_torch.ref import float_ref, int_ref
 from mfcc_tpu_torch.server import stream_samples
 
@@ -253,10 +254,10 @@ def test_int_kernel_matches_plain(dev, cfg):
     """K2 equals its plain version element for element."""
     for name, x in _int_inputs():
         xt = torch.from_numpy(x).to(dev)
-        before = int_fused.LAUNCHES
+        before = int_fused.LAUNCHES["K2"]
         got = int_fused.mfcc_int_fused(xt, cfg)
         torch.cuda.synchronize()
-        assert int_fused.LAUNCHES == before + 1
+        assert int_fused.LAUNCHES["K2"] == before + 1
         want = int_fused.mfcc_int_fused_plain(xt, cfg)
         assert got.dtype == torch.int32
         assert got.shape == (x.shape[0], cfg.n_frames(x.shape[1]),
@@ -273,10 +274,10 @@ def test_int_frames_kernel_matches_plain(dev):
     wide = torch.from_numpy(np.random.default_rng(6).integers(
         -2 ** 31, 2 ** 31, (3, 7, 512)).astype(np.int32)).to(dev)
     for f in (frames, wide):
-        before = int_fused.LAUNCHES
+        before = int_fused.LAUNCHES["K3"]
         got = int_fused.mfcc_int_fused_frames(f)
         torch.cuda.synchronize()
-        assert int_fused.LAUNCHES == before + 1
+        assert int_fused.LAUNCHES["K3"] == before + 1
         assert got.shape == f.shape[:-1] + (32,)
         assert torch.equal(got, int_fused.mfcc_int_fused_frames_plain(f))
     assert torch.equal(int_fused.mfcc_int_fused_frames(frames).reshape(
@@ -288,17 +289,17 @@ def test_int_module_on_card(dev):
     K2; int_frames runs K3."""
     sig = _tonal(2, 16000, 7).astype(np.int16)
     fe = MFCC()
-    before = int_fused.LAUNCHES
+    before = int_fused.LAUNCHES["K2"]
     got = fe.int(torch.from_numpy(sig).to(dev))
-    assert int_fused.LAUNCHES == before + 1
+    assert int_fused.LAUNCHES["K2"] == before + 1
     want = np.stack([int_ref.mfcc_int(s) for s in sig])
     assert np.array_equal(got.cpu().numpy(), want)
     assert np.array_equal(fe.int(sig).cpu().numpy(), want)   # numpy input
     frames = framing.extract_frames(framing.preemphasis_int(
         torch.from_numpy(sig.astype(np.int32)).to(dev)), 512, 170)
-    before = int_fused.LAUNCHES
+    before = int_fused.LAUNCHES["K3"]
     assert np.array_equal(fe.int_frames(frames).cpu().numpy(), want)
-    assert int_fused.LAUNCHES == before + 1
+    assert int_fused.LAUNCHES["K3"] == before + 1
 
 
 def test_int_wrapper_checks_on_card(dev):
@@ -402,11 +403,12 @@ def test_streaming_equals_batch_on_card(dev):
     for int_path in (True, False):
         k4 = dict(stream_fused.LAUNCHES)
         k4["K4-INT" if int_path else "K4-float"] += 12
-        k3, k1 = int_fused.LAUNCHES, fladder.LAUNCHES
+        k3, k1 = dict(int_fused.LAUNCHES), fladder.LAUNCHES
+        k3["K3"] += 1 if int_path else 0
         got, _ = StreamingMFCC(int_path=int_path).process(x, 1024)
         assert stream_fused.LAUNCHES == k4
         assert fladder.LAUNCHES == k1
-        assert int_fused.LAUNCHES == k3 + (1 if int_path else 0)
+        assert int_fused.LAUNCHES == k3
         want = (fe.int(x) if int_path else fe(x)).cpu().numpy()
         full = MFCCConfig().n_frames(1024 * 12)
         for s in range(len(sig)):
@@ -580,3 +582,143 @@ def test_split_and_segmented_on_card(dev):
                dict(method="segmented", precision="split")):
         got = MFCC(**kw)(x).cpu().numpy()
         assert np.abs(got - want).max() <= GATE, kw
+
+
+# -- K8: the dense-DFT entries --------------------------------------------------------
+
+DENSE = ("mfcc_emphasized", "mfcc_batch_dense", "mfcc_raw", "mfcc_aligned",
+         "mfcc_recomp", "mfcc_seg", "mfcc_fmaj")
+
+
+def _dense_input(name, x):
+    """The entry's input: emphasized f32 for ``mfcc_emphasized``."""
+    return framing.preemphasis(x.float()) if name == "mfcc_emphasized" else x
+
+
+@pytest.mark.parametrize("nfft,hop", [(256, 86), (512, 170), (1024, 340)])
+def test_dense_kernel_matches_plain(dev, nfft, hop):
+    """Every K8 entry's kernel against its plain version within TOL on
+    int16 and non-integer f32 input with a ragged last tile, one launch of
+    its own key per call."""
+    cfg = MFCCConfig(nfft=nfft, step=hop)
+    sig = _tonal(5, 9000, seed=nfft)
+    noisy = sig + np.random.default_rng(nfft).random(sig.shape,
+                                                     dtype=np.float32)
+    for x in (torch.from_numpy(sig.astype(np.int16)), torch.from_numpy(noisy)):
+        x = x.to(dev)
+        for name in DENSE:
+            if name == "mfcc_aligned" and nfft != 512:
+                continue
+            xin = _dense_input(name, x)
+            before = sum(dense_fused.LAUNCHES.values())
+            got = getattr(dense_fused, name)(xin, cfg)
+            torch.cuda.synchronize()
+            assert sum(dense_fused.LAUNCHES.values()) == before + 1
+            want = getattr(dense_fused, name + "_plain")(xin, cfg)
+            assert got.shape == want.shape == (5, cfg.n_frames(9000), 32)
+            assert bool(torch.isfinite(got).all()), name
+            assert (got - want).abs().max().item() <= TOL, name
+
+
+def test_dense_knobs_on_card(dev):
+    """The split knob both ways, int16 and integer-valued f32 input alike,
+    leading axes, and fmaj on silence: finite with ``mel_floor`` (within
+    TOL of the plain version), not finite without it."""
+    sig = _tonal(4, 6000, seed=3)
+    x16 = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    xf = torch.from_numpy(sig).to(dev)
+    for split in (False, True):
+        for fn, plain in ((dense_fused.mfcc_recomp,
+                           dense_fused.mfcc_recomp_plain),
+                          (dense_fused.mfcc_batch_dense,
+                           dense_fused.mfcc_batch_dense_plain)):
+            got = fn(x16, split=split)
+            assert torch.equal(got, fn(xf, split=split))
+            assert (got - plain(x16, split=split)).abs().max().item() <= TOL
+    got = dense_fused.mfcc_raw(x16.reshape(2, 2, -1))
+    assert torch.equal(got.reshape(4, *got.shape[2:]),
+                       dense_fused.mfcc_raw(x16))
+    silent = torch.zeros(2, 4000, dtype=torch.int16, device=dev)
+    floored = dense_fused.mfcc_fmaj(silent, mel_floor=1.0)
+    assert bool(torch.isfinite(floored).all())
+    assert (floored - dense_fused.mfcc_fmaj_plain(silent, mel_floor=1.0)
+            ).abs().max().item() <= TOL
+    assert not bool(torch.isfinite(dense_fused.mfcc_fmaj(silent)).any())
+
+
+def test_dense_gates_on_card(dev):
+    """Against the float64 oracle: the f32-operand entries and raw within
+    GATE on 2 x 1 s of tonal audio; every entry within GATE on the JAX
+    bench's gate input (2 streams x 5 frames), where the split ones hold
+    it."""
+    cfg = MFCCConfig()
+    for sig, names in ((_tonal(2, 16000, seed=9),
+                        ("mfcc_emphasized", "mfcc_batch_dense", "mfcc_raw",
+                         "mfcc_fmaj")),
+                       (_tonal(2, 512 + 4 * 170, seed=7), DENSE)):
+        want = np.stack([float_ref.mfcc_float(s, cfg) for s in sig])
+        x = torch.from_numpy(sig.astype(np.int16)).to(dev)
+        for name in names:
+            got = getattr(dense_fused, name)(_dense_input(name, x), cfg)
+            assert np.abs(got.cpu().numpy() - want).max() <= GATE, name
+
+
+def test_dense_wrapper_checks_on_card(dev):
+    x = torch.zeros(2, 4000, dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="hop 170"):
+        dense_fused.mfcc_aligned(x, MFCCConfig(step=160))
+    with pytest.raises(ValueError, match="shorter than one frame"):
+        dense_fused.mfcc_fmaj(x[:, :511])
+    before = dict(dense_fused.LAUNCHES)
+    got = dense_fused.mfcc_emphasized(x)        # int16 emphasized: cast to f32
+    assert got.dtype == torch.float32
+    assert dense_fused.LAUNCHES["emphasized"] == before["emphasized"] + 1
+
+
+# -- K9, K3-v1 and K10: the remaining INT entries ---------------------------------------
+
+def test_int_entries_match_plain_and_k2(dev):
+    """K9, K3-v1 and K10 equal their plain versions element for element,
+    and K2 under its wire rule (K3-v1 only on int16 input; on int32 outside
+    the int16 range it equals the oracle instead); one launch per kernel
+    under its own key."""
+    for name, x in _int_inputs():
+        xt = torch.from_numpy(x).to(dev)
+        k2 = int_fused.mfcc_int_fused(xt)
+        for fn, plain, keys in (
+                (int_fused.mfcc_int_v2, int_fused.mfcc_int_fused_plain,
+                 ("K9",)),
+                (int_fused.mfcc_int_v1, int_fused.mfcc_int_v1_plain,
+                 ("K3-v1",)),
+                (int_fused.mfcc_int_split2, int_fused.mfcc_int_split2_plain,
+                 ("K10-front", "K10-epi"))):
+            want_n = dict(int_fused.LAUNCHES)
+            for k in keys:
+                want_n[k] += 1
+            got = fn(xt)
+            torch.cuda.synchronize()
+            assert int_fused.LAUNCHES == want_n, name
+            assert torch.equal(got, plain(xt)), name
+            if fn is not int_fused.mfcc_int_v1 or x.dtype == np.int16:
+                assert torch.equal(got, k2), name
+        if x.dtype == np.int32:
+            want = np.stack([int_ref.mfcc_int(s.astype(np.int64)) for s in x])
+            assert np.array_equal(int_fused.mfcc_int_v1(xt).cpu().numpy(),
+                                  want)
+
+
+def test_int_split2_stages_on_card(dev):
+    """K10's launches one at a time: the power rows equal the plain front's
+    and the epilogue on them equals the plain epilogue and K2."""
+    x = torch.from_numpy(_tonal(3, 7000, 4).astype(np.int16)).to(dev)
+    power = int_fused.mfcc_int_front(x)
+    assert power.shape == (3, MFCCConfig().n_frames(7000), 256)
+    assert torch.equal(power, int_fused.mfcc_int_front_plain(x))
+    assert torch.equal(int_fused.mfcc_int_epi(power),
+                       int_fused.mfcc_int_epi_plain(power))
+    assert torch.equal(int_fused.mfcc_int_epi(power),
+                       int_fused.mfcc_int_fused(x))
+    with pytest.raises(ValueError, match="power rows"):
+        int_fused.mfcc_int_epi(power[..., :128].contiguous())
+    with pytest.raises(TypeError, match="int16 or torch.int32"):
+        int_fused.mfcc_int_v2(x.float())

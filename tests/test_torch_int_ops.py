@@ -239,7 +239,7 @@ def test_int_config_ok_matches_jax():
 def test_fused_cpu_takes_plain_and_never_launches(audio_int16):
     x = _t(audio_int16.astype(np.int32)[None])
     frames = framing.extract_frames(framing.preemphasis_int(x), 512, 170)
-    before = int_fused.LAUNCHES
+    before = dict(int_fused.LAUNCHES)
     got = int_fused.mfcc_int_fused(x)
     got_f = int_fused.mfcc_int_fused_frames(frames.contiguous())
     assert int_fused.LAUNCHES == before

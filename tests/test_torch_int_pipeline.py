@@ -186,7 +186,7 @@ def test_mic_config(audio_int16):
 
 
 def test_int_module_on_cpu_never_launches(fe, sig2):
-    before = int_fused.LAUNCHES
+    before = dict(int_fused.LAUNCHES)
     fe.int(sig2)
     fe.int_frames(np.zeros((2, 512), np.int32))
     assert int_fused.LAUNCHES == before
