@@ -37,8 +37,8 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      ``torch.equal``, float features within ``KERNEL_TOL``; runs
      ``StreamingMFCC().process`` on S=64 streams at C=1024 (64 full chunks)
      and C=149 (ending in a flush), float and INT, against batch K1 / K2
-     (INT element for element, float within ``KERNEL_TOL`` on the frames of
-     full-chunk steps, whether bit-identical printed, and within ``GATE``
+     (INT element for element, float bit for bit on the frames of
+     full-chunk steps, since both run the same tail, and within ``GATE``
      of the float64 oracle on 8 spread streams) with the launch counts (K4
      once per full-chunk step, K1/K2 never, K3 once per INT flush); times
      K4 beside its plain version and one ``StreamingMFCC.step`` (the mean
@@ -67,7 +67,7 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      1 s (int16, f32 on the grid, [-1, 1] f32 with and without the wire
      grid, 2^20-scaled f32 without it, samples whose emphasized values sit
      on the grid's ties; frames, and frames at x*32 = k+0.5) and at the
-     headline shape, prints whether K7 on int16 is K1 bit for bit; holds
+     headline shape, checks that K7 on int16 is K1 bit for bit; holds
      the f64ish gate (``gate_units`` <= 1.0, finite) on the JAX bench's
      gate input and the 8 spread streams; drives
      ``MFCC(precision="f64ish")(audio)`` and its ``frames`` on the headline
@@ -242,13 +242,14 @@ def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
 
 
 def k1_flops_per_frame(cfg, band: torch.Tensor) -> int:
-    """FP64 operations of csrc/fladder.cu per frame: ingest (emphasis and
+    """FP64 operations of K1's function per frame: ingest (emphasis and
     window on sample pairs, 6 per packed point), the packed nfft/2-point
-    complex FFT in radix-4 passes (40 per radix-4 butterfly: 8 complex
-    adds, 3 complex multiplies and the third twiddle's product) and a
-    radix-2 pass when the stage count is odd, the real-spectrum unpack
-    and power (19 per bin), the banded mel sums (2 per weight), a log2 per
-    filter and the DCT product (2 per weight)."""
+    complex FFT counted as radix-4 passes (40 per radix-4 butterfly: 8
+    complex adds, 3 complex multiplies and the third twiddle's product; the
+    kernel's radix-2 stages do more) and a radix-2 pass when the stage count
+    is odd, the real-spectrum unpack and power (19 per bin), the banded mel
+    sums (2 per weight), a log2 per filter and the DCT product (2 per
+    weight)."""
     m = cfg.nfft // 2
     log2m = m.bit_length() - 1
     fft = (log2m // 2) * (m // 4) * 40 + (log2m % 2) * (m // 2) * 4
@@ -425,7 +426,7 @@ def float_phases(dev, card: str) -> dict:
     return {
         "name": "fladder (K1)", "route": "cuda",
         "source": "mfcc_tpu_torch/csrc/fladder.cu",
-        "replaces": "mfcc_tpu/ops/pallas_fladder.py:215",
+        "replaces": "mfcc_tpu/ops/pallas_fladder.py:327",
         "launches": launches, "max_abs_err": max(errs),
         "ms": times["K1 kernel (mfcc_float_ladder)"],
         "plain_ms": times["K1 plain version (float64 torch ops)"],
@@ -567,7 +568,7 @@ def int_phases(dev, card: str) -> list[dict]:
     return [{
         "name": "int_mfcc audio (K2)", "route": "cuda",
         "source": "mfcc_tpu_torch/csrc/int_mfcc.cu",
-        "replaces": "mfcc_tpu/ops/pallas_int.py:956",
+        "replaces": "mfcc_tpu/ops/pallas_int.py:1131",
         "launches": k2_launches, "max_abs_err": errs["K2"],
         "ms": times["K2 kernel (mfcc_int_fused)"],
         "plain_ms": times["K2 plain version (int_ops chain)"],
@@ -576,7 +577,7 @@ def int_phases(dev, card: str) -> list[dict]:
     }, {
         "name": "int_mfcc frames (K3)", "route": "cuda",
         "source": "mfcc_tpu_torch/csrc/int_mfcc.cu",
-        "replaces": "mfcc_tpu/ops/pallas_int.py:801",
+        "replaces": "mfcc_tpu/ops/pallas_int.py:1222",
         "launches": k3_launches, "max_abs_err": errs["K3"],
         "ms": times["K3 kernel (mfcc_int_fused_frames)"],
         "plain_ms": times["K3 plain version (int_ops chain)"],
@@ -727,6 +728,8 @@ def serving_phases(dev, card: str) -> list[dict]:
                 e = float(np.abs(got[:, :full] - want[:, :full]).max())
                 same = bool(np.array_equal(got[:, :full], want[:, :full]))
                 check(e <= KERNEL_TOL, f"streamed float C={C} vs K1: {e}")
+                check(same, f"streamed float C={C}: frames of full steps "
+                      f"not bit-identical to batch K1 (max-abs {e})")
                 e_all = float(np.abs(got - want).max())
                 check(e_all <= GATE, f"streamed float C={C} vs K1: {e_all}")
                 oracle = np.stack([float_ref.mfcc_float(sig[i, :T], cfg)
@@ -1313,6 +1316,7 @@ def f64ish_phases(dev, card: str) -> list[dict]:
             if name == "int16":
                 same = torch.equal(got, fladder.mfcc_float_ladder(xt, cfg))
                 print(f"K7 on int16 bit-identical to K1, nfft {nfft}: {same}")
+                check(same, f"K7 on int16 differs from K1, nfft {nfft}")
             if name.startswith("x*32"):
                 # the grid step rounds ties half to even, as the plain version
                 shifted = f64ish.mfcc_f64ish(xt, cfg, wire_grid=False)
@@ -1387,6 +1391,7 @@ def f64ish_phases(dev, card: str) -> list[dict]:
     check(u <= 1.0, f"f64ish gate on the spread streams: {u}")
     k1_same = torch.equal(out, fladder.mfcc_float_ladder(audio, cfg))
     print(f"K7 on the headline int16 bit-identical to K1: {k1_same}")
+    check(k1_same, "K7 on the headline int16 differs from K1")
     del outs
 
     hframes = framing.extract_frames(framing.preemphasis(
@@ -1506,7 +1511,7 @@ def f64ish_phases(dev, card: str) -> list[dict]:
 
     return [kernel_entry(
         f"f64ish {what} ({key})", "mfcc_tpu_torch/csrc/f64ish.cu",
-        "mfcc_tpu/ops/pallas_df32.py:266", launches, errs[key],
+        "mfcc_tpu/ops/pallas_df32.py:351", launches, errs[key],
         times[("headline", f"{key} kernel")],
         times[("headline", f"{key} plain version")], b)
         for what, key, launches, b in (("audio", "K7", k7_launches, k7_b),

@@ -33,11 +33,12 @@
 //  * mel_floor is 0: the f64ish mode has none (digital silence gives -inf /
 //    NaN, as in the JAX package).
 //
-// Design: K1's (fladder.cu): one block of 256 threads per (stream, tile of
-// 1024/(nfft/2) frames) or per tile of frames; the batch ingest frames by
-// address into the int16 or f32 input (frame g, point p reads x[g*hop + p]
-// and the sample before it, 0 at t = 0), the frames ingest reads row g.
-// Offsets are 64-bit.
+// Design: K1's tail (fladder_stages.cuh): one block of 8 warps per
+// (stream, tile of 8 frames) or per tile of 8 frames, one warp per frame,
+// each warp loading its frame's packed points straight into registers; the
+// batch entry frames by address into the int16 or f32 input (frame g,
+// point p reads x[g*hop + p] and the sample before it, 0 at t = 0), the
+// frames entry reads row g.  Offsets are 64-bit.
 //
 // What bounds it, at the headline size (S=1024 x T=63,922 int16, nfft 512,
 // hop 170: 382,976 frames): K1's ~19.6 kFLOP of FP64 per frame plus the
@@ -70,82 +71,76 @@ __device__ __forceinline__ double grid(float y, int wire_grid) {
   return wire_grid ? rint(v * 32.0) * 0.03125 : v;
 }
 
-template <typename In>
+template <typename In, int LOG2P>
 __global__ void __launch_bounds__(kThreads)
 f64ish_kernel(const In* __restrict__ audio, float* __restrict__ out,
-              long long T, int F, int hop, int log2n, int nfilters, int ncep,
-              int frames_per_block, long long tiles_per_stream,
-              const double* __restrict__ win, const double2* __restrict__ tw,
-              const double* __restrict__ mel, const double* __restrict__ dct,
-              const int2* __restrict__ band, int wire_grid) {
+              long long T, int F, int hop, int nfilters, int ncep,
+              long long tiles_per_stream, const double2* __restrict__ win,
+              const double2* __restrict__ tw, const double* __restrict__ mel,
+              const double* __restrict__ dct, const int2* __restrict__ band,
+              int wire_grid) {
   extern __shared__ double2 smem[];
-  const int FT = frames_per_block;
-  const int log2m = log2n - 1;
-  const int M = 1 << log2m;
-  const Smem sm = carve(smem, FT, log2n, nfilters);
-
-  const long long s = blockIdx.x / tiles_per_stream;
-  const int f0 = static_cast<int>(blockIdx.x % tiles_per_stream) * FT;
-  const In* x = audio + s * T;
-
-  load_constants(sm, tw, band, M, nfilters);
-
-  // ingest on sample pairs, packed as z[m] = y[2m] + i*y[2m+1]
-  for (int i = threadIdx.x; i < FT * M; i += blockDim.x) {
-    const int f = i >> log2m;
-    const int m = i & (M - 1);
-    const int g = f0 + f;
-    double2 z = make_double2(0.0, 0.0);
-    if (g < F) {
-      const long long t = static_cast<long long>(g) * hop + 2 * m;
-      const float p = t > 0 ? to_f32(x[t - 1]) : 0.0f;
-      const float a = to_f32(x[t]);
-      const float b = to_f32(x[t + 1]);
-      z = make_double2(grid(emph(a, p), wire_grid) * win[2 * m],
-                       grid(emph(b, a), wire_grid) * win[2 * m + 1]);
-    }
-    sm.buf[f * sm.R + pad(m)] = z;
-  }
+  constexpr int log2m = 5 + LOG2P;
+  const Smem sm = carve(smem, log2m + 1);
+  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
   __syncthreads();
 
-  ladder_tail(sm, FT, log2n, nfilters, ncep, mel, dct, 0.0, out + s * F * ncep,
-              f0, F);
+  const long long s = blockIdx.x / tiles_per_stream;
+  const int g = static_cast<int>(blockIdx.x % tiles_per_stream) * kFrames +
+                static_cast<int>(threadIdx.x) / kLanes;
+  if (g >= F) return;
+  const In* x = audio + s * T + static_cast<long long>(g) * hop;
+  // sample pairs, packed as z[m] = y[2m] + i*y[2m+1], lane l's register r
+  // holding z[l + 32r]
+  double2 z[1 << LOG2P];
+#pragma unroll
+  for (int r = 0; r < (1 << LOG2P); ++r) {
+    const int m = lane() + 32 * r;
+    const float p = g > 0 || m > 0 ? to_f32(x[2 * m - 1]) : 0.0f;
+    const float a = to_f32(x[2 * m]);
+    const float b = to_f32(x[2 * m + 1]);
+    z[r] = window_pair(grid(emph(a, p), wire_grid), grid(emph(b, a), wire_grid),
+                       win[m]);
+  }
+  ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, 0.0,
+                     out + (s * F + g) * ncep);
 }
 
+template <int LOG2P>
 __global__ void __launch_bounds__(kThreads)
 f64ish_frames_kernel(const float* __restrict__ frames, float* __restrict__ out,
-                     long long M_frames, int log2n, int nfilters, int ncep,
-                     int frames_per_block, const double* __restrict__ win,
+                     long long M_frames, int nfilters, int ncep,
+                     const double2* __restrict__ win,
                      const double2* __restrict__ tw,
                      const double* __restrict__ mel,
                      const double* __restrict__ dct,
                      const int2* __restrict__ band, int wire_grid) {
   extern __shared__ double2 smem[];
-  const int FT = frames_per_block;
-  const int log2m = log2n - 1;
-  const int M = 1 << log2m;
-  const int nfft = 2 * M;
-  const Smem sm = carve(smem, FT, log2n, nfilters);
-  const long long g0 = static_cast<long long>(blockIdx.x) * FT;
-  const int F = static_cast<int>(M_frames - g0 < FT ? M_frames - g0 : FT);
-
-  load_constants(sm, tw, band, M, nfilters);
-
-  for (int i = threadIdx.x; i < FT * M; i += blockDim.x) {
-    const int f = i >> log2m;
-    const int m = i & (M - 1);
-    double2 z = make_double2(0.0, 0.0);
-    if (f < F) {
-      const float* row = frames + (g0 + f) * nfft;
-      z = make_double2(grid(row[2 * m], wire_grid) * win[2 * m],
-                       grid(row[2 * m + 1], wire_grid) * win[2 * m + 1]);
-    }
-    sm.buf[f * sm.R + pad(m)] = z;
-  }
+  constexpr int log2m = 5 + LOG2P;
+  constexpr int nfft = 2 << log2m;
+  const Smem sm = carve(smem, log2m + 1);
+  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
   __syncthreads();
 
-  ladder_tail(sm, FT, log2n, nfilters, ncep, mel, dct, 0.0, out + g0 * ncep, 0,
-              F);
+  const long long g = static_cast<long long>(blockIdx.x) * kFrames +
+                      threadIdx.x / kLanes;
+  if (g >= M_frames) return;
+  const float* row = frames + g * nfft;
+  double2 z[1 << LOG2P];
+#pragma unroll
+  for (int r = 0; r < (1 << LOG2P); ++r) {
+    const int m = lane() + 32 * r;
+    z[r] = window_pair(grid(row[2 * m], wire_grid),
+                       grid(row[2 * m + 1], wire_grid), win[m]);
+  }
+  ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, 0.0,
+                     out + g * ncep);
+}
+
+// The checks of both entries; true if the arguments are out of range.
+inline bool bad_tables(int nfft, int nfilters, int ncep) {
+  return log2_nfft(nfft) < 0 || nfilters < 1 || nfilters > nfft / 2 ||
+         ncep < 1;
 }
 
 template <typename In>
@@ -153,24 +148,26 @@ int launch_audio(const In* audio, float* out, long long S, long long T, int F,
                  int hop, int nfft, int nfilters, int ncep, const double* win,
                  const double* tw, const double* mel, const double* dct,
                  const int* band, int wire_grid, void* stream) {
-  const int log2n = log2_nfft(nfft);
-  if (log2n < 0 || F < 1 || hop < 1 || nfilters < 1 || ncep < 1 || S < 0 ||
+  if (bad_tables(nfft, nfilters, ncep) || F < 1 || hop < 1 || S < 0 ||
       T < static_cast<long long>(F - 1) * hop + nfft)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  const int FT = frames_per_block(nfft);
-  const long long tiles = (F + FT - 1) / FT;
+  const long long tiles = (F + kFrames - 1) / kFrames;
   const long long blocks = S * tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(FT, nfft, nfilters);
-  const int err = allow_smem(f64ish_kernel<In>, smem);
-  if (err != 0) return err;
-  f64ish_kernel<In><<<static_cast<unsigned>(blocks), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      audio, out, T, F, hop, log2n, nfilters, ncep, FT, tiles, win,
-      reinterpret_cast<const double2*>(tw), mel, dct,
-      reinterpret_cast<const int2*>(band), wire_grid);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = smem_bytes(nfft);
+  return with_points(nfft, [&](auto pts) {
+    constexpr int L = decltype(pts)::value;
+    const int err = allow_smem(f64ish_kernel<In, L>, smem);
+    if (err != 0) return err;
+    f64ish_kernel<In, L><<<static_cast<unsigned>(blocks), kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+        audio, out, T, F, hop, nfilters, ncep, tiles,
+        reinterpret_cast<const double2*>(win),
+        reinterpret_cast<const double2*>(tw), mel, dct,
+        reinterpret_cast<const int2*>(band), wire_grid);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -210,20 +207,21 @@ extern "C" int mfcc_f64ish_frames_f32(const float* frames, float* out,
                                       const double* tw, const double* mel,
                                       const double* dct, const int* band,
                                       int wire_grid, void* stream) {
-  const int log2n = log2_nfft(nfft);
-  if (log2n < 0 || nfilters < 1 || ncep < 1 || M < 0)
+  if (bad_tables(nfft, nfilters, ncep) || M < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const int FT = frames_per_block(nfft);
-  const long long blocks = (M + FT - 1) / FT;
+  const long long blocks = (M + kFrames - 1) / kFrames;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(FT, nfft, nfilters);
-  const int err = allow_smem(f64ish_frames_kernel, smem);
-  if (err != 0) return err;
-  f64ish_frames_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      frames, out, M, log2n, nfilters, ncep, FT, win,
-      reinterpret_cast<const double2*>(tw), mel, dct,
-      reinterpret_cast<const int2*>(band), wire_grid);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = smem_bytes(nfft);
+  return with_points(nfft, [&](auto pts) {
+    constexpr int L = decltype(pts)::value;
+    const int err = allow_smem(f64ish_frames_kernel<L>, smem);
+    if (err != 0) return err;
+    f64ish_frames_kernel<L><<<static_cast<unsigned>(blocks), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+        frames, out, M, nfilters, ncep, reinterpret_cast<const double2*>(win),
+        reinterpret_cast<const double2*>(tw), mel, dct,
+        reinterpret_cast<const int2*>(band), wire_grid);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -22,35 +22,42 @@
 // been read in f32.  In FP64 the emphasis is exact for int16 and f32
 // samples alike and the output sits within f32 rounding of the oracle.
 //
-// Design, one thread block per (stream, tile of frames):
-//  * a tile is 1024/(nfft/2) frames (4 at nfft 512); each frame loads its
-//    nfft samples and the one before its start (0 at t = 0) straight from
-//    the input, so overlapped framing is addressing; int16 stays int16;
-//  * real-input packing: z[m] = y[2m] + i*y[2m+1], an nfft/2-point complex
-//    FFT, then X[k] = (Z[k] + conj Z[-k])/2 + W^k (Z[k] - conj Z[-k])/2i --
+// Design (fladder_stages.cuh): a persistent grid (persistent.cuh) of blocks
+// of 8 warps, as many as the card holds; a block loads its twiddle and mel
+// tables into shared memory once, and each warp then takes frames G = s*F
+// + g in a grid-stride loop, one frame at a time, at every nfft:
+//  * the warp loads its frame's nfft samples and the one before its start
+//    (0 at t = 0) straight from the input, so overlapped framing is
+//    addressing; int16 stays int16;
+//  * real-input packing: z[m] = y[2m] + i*y[2m+1] goes straight into
+//    registers, lane l holding z[l + 32r]; an nfft/2-point complex FFT,
+//    then X[k] = (Z[k] + conj Z[-k])/2 + W^k (Z[k] - conj Z[-k])/2i --
 //    half the butterflies of a complex nfft-point FFT;
-//  * decimation in frequency on the natural-order load, radix-4 passes
-//    (two radix-2 stages each, one barrier) and one radix-2 pass when the
-//    stage count is odd; outputs come out bit-reversed and are read back
-//    through bit-reversed indices in the post-processing;
-//  * shared rows carry one pad word per 16, which spreads the bit-reversed
-//    reads over the banks (without it they serialize ~8x);
-//  * the mel product runs over each filter's nonzero bins only (band
-//    limits from the wrapper), ~16x less work than the dense product.
+//  * the FFT in registers, 8 complex points a lane at nfft 512, radix-2
+//    decimation in frequency in passes of 3 + 3 + 2 stages with two
+//    exchanges through the warp's swizzled shared row (no bank
+//    conflicts); the unpack and power; the mel sums a lane per filter over
+//    its nonzero bins (~16x less work than the dense product); log2; the
+//    DCT a lane per cepstrum, stored coalesced.  No block barrier after
+//    the tables'.
 // Offsets are 64-bit: S*T passes 2^31 at S=4096 x 60 s.
 //
 // What bounds it, per call at the headline size (S=1024 x T=63,922, nfft
 // 512, hop 170: 382,976 frames): ~131 MB of int16 in and ~49 MB of f32
 // out, ~54 us of HBM time at 3.35 TB/s; ~19.6 kFLOP of FP64 per frame as
-// chip_smoke.py counts this kernel's arithmetic, ~7.5 GFLOP per call
-// (0.22 ms at the card's 34 TFLOP/s outside the tensor cores, the bound).
-// Measured ~2 ms, so neither bound is near: the time goes to
-// shared-memory traffic, barriers (7 per block at nfft 512) and latency
-// chains in the per-output loops.
+// chip_smoke.py counts the function (the FFT as radix-4 passes), ~7.5
+// GFLOP per call (0.22 ms at the card's 34 TFLOP/s outside the tensor
+// cores, the bound).  This design is bound by instruction issue: ~2.5k
+// SASS instructions a warp issues per frame straight-line (tools/
+// sass_mix.py on the nfft-512 kernel), ~0.45k more in the mel, log2 and DCT
+// loops, ~1.06 ms at one warp instruction a clock per scheduler; of
+// them ~730 FP64 (the FP64 pipe ~half busy), ~460 IMAD and ~210 LOP3 of
+// address and index work, ~190 shared loads and stores.  A design with a
+// block per 4 frames and radix-4 passes through shared memory, 7 barriers
+// a block, makes ~5.5k 16-byte shared accesses a frame and takes ~2 ms.
 //
-// Left for later work: register-resident radix-8/16 passes with fewer
-// barriers, conflict-free addressing in the small-span passes, more frames
-// per block to amortize the prologue, and f32 or double-f32 arithmetic
+// Left for later work: the mel loop (balanced bands, conflict-free power
+// reads), radix-4 passes in registers, and f32 or double-f32 arithmetic
 // where the gate allows it.  The TPU-only structure of the Pallas kernel is
 // not carried: its sigma/evenodd8 row order, (8, lanes) sublane blocks with
 // the regroup permutation, 128-lane frame tiles, rolls, and the super-block
@@ -60,6 +67,7 @@
 #include <stdint.h>
 
 #include "fladder_stages.cuh"
+#include "persistent.cuh"
 
 namespace {
 
@@ -70,46 +78,49 @@ constexpr double kEmph = 0.96875;   // 1 - 1/32
 __device__ __forceinline__ double to_f64(int16_t v) { return static_cast<double>(v); }
 __device__ __forceinline__ double to_f64(float v) { return static_cast<double>(v); }
 
-template <typename In>
-__global__ void __launch_bounds__(kThreads)
+// Blocks an SM must hold at once, which caps the registers: 64 a thread at
+// nfft 256 (4 blocks), 85 at 512 (3; at 4 the compiler spills 152 bytes
+// and the kernel runs ~8% slower), 128 at 1024 (2, all its shared memory
+// allows).
+template <int LOG2P>
+constexpr int kResident = LOG2P == 4 ? 2 : LOG2P == 3 ? 3 : 4;
+
+template <typename In, int LOG2P>
+__global__ void __launch_bounds__(kThreads, kResident<LOG2P>)
 fladder_kernel(const In* __restrict__ audio, float* __restrict__ out,
-               long long T, int F, int hop, int log2n, int nfilters, int ncep,
-               int frames_per_block, long long tiles_per_stream,
-               const double* __restrict__ win, const double2* __restrict__ tw,
-               const double* __restrict__ mel, const double* __restrict__ dct,
-               const int2* __restrict__ band, double mel_floor) {
+               long long T, int F, int hop, long long frames, int nfilters,
+               int ncep, const double2* __restrict__ win,
+               const double2* __restrict__ tw, const double* __restrict__ mel,
+               const double* __restrict__ dct, const int2* __restrict__ band,
+               double mel_floor) {
   extern __shared__ double2 smem[];
-  const int FT = frames_per_block;
-  const int log2m = log2n - 1;
-  const int M = 1 << log2m;
-  const Smem sm = carve(smem, FT, log2n, nfilters);
-
-  const long long s = blockIdx.x / tiles_per_stream;
-  const int f0 = static_cast<int>(blockIdx.x % tiles_per_stream) * FT;
-  const In* x = audio + s * T;
-
-  load_constants(sm, tw, band, M, nfilters);
-
-  // ingest: pre-emphasis and window * 1/nfft on sample pairs, packed as
-  // z[m] = y[2m] + i*y[2m+1].
-  for (int i = threadIdx.x; i < FT * M; i += blockDim.x) {
-    const int f = i >> log2m;
-    const int m = i & (M - 1);
-    const int g = f0 + f;
-    double2 z = make_double2(0.0, 0.0);
-    if (g < F) {
-      const long long t = static_cast<long long>(g) * hop + 2 * m;
-      const double p = t > 0 ? to_f64(x[t - 1]) : 0.0;
-      const double a = to_f64(x[t]);
-      const double b = to_f64(x[t + 1]);
-      z = make_double2((a - kEmph * p) * win[2 * m], (b - kEmph * a) * win[2 * m + 1]);
-    }
-    sm.buf[f * sm.R + pad(m)] = z;
-  }
+  constexpr int log2m = 5 + LOG2P;
+  constexpr int kP = 1 << LOG2P;
+  const Smem sm = carve(smem, log2m + 1);
+  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
   __syncthreads();
 
-  ladder_tail(sm, FT, log2n, nfilters, ncep, mel, dct, mel_floor,
-              out + s * F * ncep, f0, F);
+  // each warp takes frames G = s * F + g in a grid-stride loop
+  const int l = lane();
+  for (long long G = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       G < frames; G += static_cast<long long>(gridDim.x) * kFrames) {
+    const long long s = G / F;
+    const int g = static_cast<int>(G - s * F);
+    const In* x = audio + s * T + static_cast<long long>(g) * hop;
+    // ingest: pre-emphasis and window * 1/nfft on sample pairs, packed as
+    // z[m] = y[2m] + i*y[2m+1], lane l's register r holding z[l + 32r]
+    double2 z[kP];
+#pragma unroll
+    for (int r = 0; r < kP; ++r) {
+      const int m = l + 32 * r;
+      const double p = g > 0 || m > 0 ? to_f64(x[2 * m - 1]) : 0.0;
+      const double a = to_f64(x[2 * m]);
+      const double b = to_f64(x[2 * m + 1]);
+      z[r] = window_pair(a - kEmph * p, b - kEmph * a, win[m]);
+    }
+    ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, mel_floor,
+                       out + G * ncep);
+  }
 }
 
 template <typename In>
@@ -118,23 +129,28 @@ int launch(const In* audio, float* out, long long S, long long T, int F,
            const double* tw, const double* mel, const double* dct,
            const int* band, double mel_floor, void* stream) {
   const int log2n = log2_nfft(nfft);
-  if (log2n < 0 || F < 1 || hop < 1 || nfilters < 1 ||
+  if (log2n < 0 || F < 1 || hop < 1 || nfilters < 1 || nfilters > nfft / 2 ||
       ncep < 1 || S < 0 || T < static_cast<long long>(F - 1) * hop + nfft)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  const int FT = frames_per_block(nfft);
-  const long long tiles = (F + FT - 1) / FT;
-  const long long blocks = S * tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(FT, nfft, nfilters);
-  const int err = allow_smem(fladder_kernel<In>, smem);
-  if (err != 0) return err;
-  fladder_kernel<In><<<static_cast<unsigned>(blocks), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      audio, out, T, F, hop, log2n, nfilters, ncep, FT, tiles, win,
-      reinterpret_cast<const double2*>(tw), mel, dct,
-      reinterpret_cast<const int2*>(band), mel_floor);
-  return static_cast<int>(cudaGetLastError());
+  const long long frames = S * F;
+  const size_t smem = smem_bytes(nfft);
+  return with_points(nfft, [&](auto pts) {
+    constexpr int L = decltype(pts)::value;
+    int err = allow_smem(fladder_kernel<In, L>, smem);
+    unsigned grid = 0;
+    if (err == 0)
+      err = persistent_grid(fladder_kernel<In, L>, kThreads, smem,
+                            (frames + kFrames - 1) / kFrames, &grid);
+    if (err != 0) return err;
+    fladder_kernel<In, L><<<grid, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+        audio, out, T, F, hop, frames, nfilters, ncep,
+        reinterpret_cast<const double2*>(win),
+        reinterpret_cast<const double2*>(tw), mel, dct,
+        reinterpret_cast<const int2*>(band), mel_floor);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace

@@ -14,15 +14,24 @@
 //  log2 (Q4.11), DCT-II via a 4*nfilters-point INT FFT.  Every output is
 //  element-exact with the RTL oracle ref/int_ref.mfcc_int.
 //
-// Design, one thread block of 256 threads per tile of 8 frames (K2: per
-// (stream, tile)):
-//  * each frame reads its 512 samples and the one before its start (0 at
-//    t = 0) straight from the input: overlapped framing is addressing, and
-//    no pre-emphasis carry crosses blocks; the load stores each windowed
-//    sample at its bit-reversed position;
-//  * the FFTs run in shared memory, int32 re/im rows, one barrier a stage;
-//  * the filterbank sums each filter's nonzero band only (limits from the
-//    wrapper; each bin feeds at most two filters), in uint64.
+// Design (int_stages.cuh): a persistent grid (persistent.cuh) of blocks of
+// 8 warps, 4 an SM; a block loads its twiddle, band and filterbank tables
+// into shared memory once, then each warp takes frames in a grid-stride
+// loop, one frame at a time.  K2's warp reads its frame's 512 samples and
+// the one before its start (0 at t = 0) straight from the input --
+// overlapped framing is addressing, and no pre-emphasis carry crosses
+// frames -- and K3's its frame row, each lane loading the windowed samples
+// of the ladder's first layout into registers (lane l's register r holds
+// sample bitrev(16l + r): 32 consecutive samples across the lanes).  From
+// there the warp runs its frame alone: the 512-point ladder in registers,
+// 16 points a lane, two exchanges through its shared row under
+// __syncwarp; the power in registers; the filterbank and log2 a lane per
+// filter over its band; the DCT ladder's nonzero half in registers and
+// shuffles; lane c stores cepstrum c.  No barrier after the tables', and
+// what is provably zero is skipped (the first stage's imaginary inputs,
+// the DCT's lower half, stage 8's bins >= 256); one butterfly per thread
+// per stage through shared memory, with a barrier each (18 a tile of 8
+// frames), takes ~3.9 ms.
 // The TPU kernels' structure is not carried: their sigma/evenodd8 row
 // order and _regroup_perm, (8, lanes) sublane blocks, pltpu.roll
 // reversals, 128-lane frame tiles, NBMAX_INT super-blocks with an SMEM
@@ -39,12 +48,12 @@
 // 128-point DCT ladder 4k, 3/4 of its inputs zero and 32 real outputs
 // kept; window, power, filterbank and log2 5k), ~2.1e10 per call,
 // ~0.64 ms at the issue limit of 128 lanes per clock per SM (132 SMs,
-// 1.98 GHz).  Integer issue bounds it, not memory.  This first kernel
-// spends issue slots on what a later one would cut: one butterfly per
-// thread per stage with shared-memory round trips and a barrier per stage
-// (18 barriers per tile), 2-way bank conflicts in the first two stages,
-// and every butterfly computed in full, the zero ones of the first stage
-// and of the DCT included.
+// 1.98 GHz).  Instruction issue bounds it, not memory: a warp issues ~4.3k
+// SASS instructions per frame straight-line (tools/sass_mix.py; 42% of
+// them IMAD, the moves, adds and shifts the compiler maps onto the FMA
+// pipe), ~1.6 ms at one warp instruction a clock per scheduler, where the
+// function needs ~1.7k a lane; then the filterbank loop, whose widest
+// band (37 bins) sets its length for an average of 13.
 //
 // Offsets are 64-bit: S*T passes 2^31 at S=4096 x 60 s.
 
@@ -52,61 +61,58 @@
 #include <stdint.h>
 
 #include "int_stages.cuh"
+#include "persistent.cuh"
 
 namespace {
 
 using namespace int_stages;
 
-__global__ void __launch_bounds__(kThreads)
+// Both kernels are persistent (persistent.cuh): a block loads its tables
+// once, then each warp takes frames G in a grid-stride loop, loading the
+// frame's windowed samples straight into the ladder's first layout.  The
+// launch bounds hold them to 64 registers, 4 blocks an SM (without them
+// the compiler pipelines the loop at 173 registers, one block fits, and
+// K2 runs ~40% slower).
+constexpr int kResident = 4;
+
+__global__ void __launch_bounds__(kThreads, kResident)
 int_audio_kernel(const int16_t* __restrict__ audio, int* __restrict__ out,
-                 long long T, int F, int hop, long long tiles_per_stream,
+                 long long T, int F, int hop, long long frames,
                  const int* __restrict__ curve, const int2* __restrict__ tw,
                  Tail c) {
   __shared__ Smem sm;
-  const long long s = blockIdx.x / tiles_per_stream;
-  const int f0 = static_cast<int>(blockIdx.x % tiles_per_stream) * kFrames;
-  const int16_t* x = audio + s * T;
-  load_twiddles(sm, tw, c);
-  for (int b = threadIdx.x; b < kFrames * kNfft; b += blockDim.x) {
-    const int f = b >> kLog2Nfft;
-    const int p = b & (kNfft - 1);
-    const int g = f0 + f;
-    int v = 0;
-    if (g < F) {
-      const long long t = static_cast<long long>(g) * hop + p;
-      const int prev = t > 0 ? x[t - 1] : 0;
-      v = window(preemph(x[t], prev), curve[p]);
-    }
-    store_point(sm, f, p, v);
-  }
-  run_tail(sm, c);
-  for (int o = threadIdx.x; o < kFrames * c.ncep; o += blockDim.x) {
-    const int f = o / c.ncep;
-    const int k = o - f * c.ncep;
-    const int g = f0 + f;
-    if (g < F) out[(s * F + g) * c.ncep + k] = sm.re[f * kRow + pad(k)];
+  load_ladder_tables(sm, tw);
+  load_tail_tables(sm, c);
+  __syncthreads();
+  for (long long G = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       G < frames; G += static_cast<long long>(gridDim.x) * kFrames) {
+    const long long s = G / F;
+    const int g = static_cast<int>(G - s * F);
+    int re[kPts];
+    load_audio_frame(audio + s * T + static_cast<long long>(g) * hop, g == 0,
+                     curve, re);
+    tail(re, sm, c, out + G * c.ncep);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kResident)
 int_frames_kernel(const int* __restrict__ frames, int* __restrict__ out,
                   long long M, const int* __restrict__ curve,
                   const int2* __restrict__ tw, Tail c) {
   __shared__ Smem sm;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kFrames;
-  load_twiddles(sm, tw, c);
-  for (int b = threadIdx.x; b < kFrames * kNfft; b += blockDim.x) {
-    const int f = b >> kLog2Nfft;
-    const int p = b & (kNfft - 1);
-    const long long m = m0 + f;
-    store_point(sm, f, p, m < M ? window(frames[m * kNfft + p], curve[p]) : 0);
-  }
-  run_tail(sm, c);
-  for (int o = threadIdx.x; o < kFrames * c.ncep; o += blockDim.x) {
-    const int f = o / c.ncep;
-    const int k = o - f * c.ncep;
-    const long long m = m0 + f;
-    if (m < M) out[m * c.ncep + k] = sm.re[f * kRow + pad(k)];
+  load_ladder_tables(sm, tw);
+  load_tail_tables(sm, c);
+  __syncthreads();
+  for (long long m = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       m < M; m += static_cast<long long>(gridDim.x) * kFrames) {
+    const int* x = frames + m * kNfft;
+    int re[kPts];
+#pragma unroll
+    for (int r = 0; r < kPts; ++r) {
+      const int p = first_sample(r);
+      re[r] = window(x[p], curve[p]);
+    }
+    tail(re, sm, c, out + m * c.ncep);
   }
 }
 
@@ -134,12 +140,13 @@ extern "C" int mfcc_int_i16(const int16_t* audio, int* out, long long S,
       T < static_cast<long long>(F - 1) * hop + kNfft)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  const long long tiles = (F + kFrames - 1) / kFrames;
-  const long long blocks = S * tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  int_audio_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      audio, out, T, F, hop, tiles, curve,
+  const long long frames = S * F;
+  unsigned grid = 0;
+  const int err = persistent_grid(int_audio_kernel, kThreads, 0,
+                                  (frames + kFrames - 1) / kFrames, &grid);
+  if (err != 0) return err;
+  int_audio_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      audio, out, T, F, hop, frames, curve,
       reinterpret_cast<const int2*>(tw), c);
   return static_cast<int>(cudaGetLastError());
 }
@@ -154,10 +161,11 @@ extern "C" int mfcc_int_frames_i32(const int* frames, int* out, long long M,
                            log_precision, log_width);
   if (!tail_ok(c) || M < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const long long blocks = (M + kFrames - 1) / kFrames;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  int_frames_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  unsigned grid = 0;
+  const int err = persistent_grid(int_frames_kernel, kThreads, 0,
+                                  (M + kFrames - 1) / kFrames, &grid);
+  if (err != 0) return err;
+  int_frames_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       frames, out, M, curve, reinterpret_cast<const int2*>(tw), c);
   return static_cast<int>(cudaGetLastError());
 }

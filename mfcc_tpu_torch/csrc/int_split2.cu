@@ -11,18 +11,22 @@
 //      Replaces tools/ab_int_r5.py:epi_kernel (the second pallas_call).
 //
 // Both run the device functions of int_stages.cuh that K2 runs (ingest,
-// fft_rows, power_rows, then post_power_stages), in the same order on the
-// same values, so the pair is element-exact with K2 and with the RTL oracle
+// ladder_power, then post_power), in the same order on the same values, so
+// the pair is element-exact with K2 and with the RTL oracle
 // ref/int_ref.mfcc_int.  The TPU arm wrote (N, nbins, L) lane-major power
 // blocks; here a power row is one frame's 256 bins, as the next launch
 // reads them.
 //
 // Design: one thread block of 256 threads per tile of 8 frames in each
-// launch, as K2.  What bounds it: K2's int32 operations (the front the
-// ladder and power, the epilogue the filterbank, log2 and DCT) plus the
-// power buffer's write and read, 2 x 1 KB per frame (0.78 GB at the
-// headline's 382,976 frames, ~0.23 ms at 3.35 TB/s).  The split exists to
-// measure what the fused kernel saves by keeping the power on chip.
+// launch, one warp per frame, as K2: the front loads its frame as K2 does
+// and stores lane l's power of bins l + 32k straight from its registers
+// (coalesced), the epilogue loads a frame's row the same way into the
+// warp's shared row.  What bounds it:
+// K2's int32 operations (the front the ladder and power, the epilogue the
+// filterbank, log2 and DCT) plus the power buffer's write and read, 2 x 1
+// KB per frame (0.78 GB at the headline's 382,976 frames, ~0.23 ms at 3.35
+// TB/s).  The split exists to measure what the fused kernel saves by
+// keeping the power on chip.
 //
 // Offsets are 64-bit.
 
@@ -41,53 +45,35 @@ int_front_kernel(const int16_t* __restrict__ audio, int* __restrict__ power,
                  const int* __restrict__ curve, const int2* __restrict__ tw) {
   __shared__ Smem sm;
   const long long s = blockIdx.x / tiles_per_stream;
-  const int f0 = static_cast<int>(blockIdx.x % tiles_per_stream) * kFrames;
-  const int16_t* x = audio + s * T;
-  for (int i = threadIdx.x; i < kNbins; i += blockDim.x) sm.tw[i] = tw[i];
-  for (int b = threadIdx.x; b < kFrames * kNfft; b += blockDim.x) {
-    const int f = b >> kLog2Nfft;
-    const int p = b & (kNfft - 1);
-    const int g = f0 + f;
-    int v = 0;
-    if (g < F) {
-      const long long t = static_cast<long long>(g) * hop + p;
-      const int prev = t > 0 ? x[t - 1] : 0;
-      v = window(preemph(x[t], prev), curve[p]);
-    }
-    store_point(sm, f, p, v);
-  }
+  const int f = static_cast<int>(threadIdx.x) / kLanes;
+  const int g = static_cast<int>(blockIdx.x % tiles_per_stream) * kFrames + f;
+  load_ladder_tables(sm, tw);
   __syncthreads();
-  fft_rows(sm.re, sm.im, kRow, kFrames, kLog2Nfft, sm.tw);
-  power_rows(sm.re, sm.im, kRow, kFrames);
-  for (int o = threadIdx.x; o < kFrames * kNbins; o += blockDim.x) {
-    const int f = o >> (kLog2Nfft - 1);
-    const int k = o & (kNbins - 1);
-    const int g = f0 + f;
-    if (g < F) power[(s * F + g) * kNbins + k] = sm.re[f * kRow + pad(k)];
-  }
+  if (g >= F) return;
+  int re[kPts], pw[kBinsPerLane];
+  load_audio_frame(audio + s * T + static_cast<long long>(g) * hop, g == 0,
+                   curve, re);
+  ladder_power(re, sm.row + f * kRow, sm.stw, pw);
+  int* p = power + (s * F + g) * kNbins + lane();
+#pragma unroll
+  for (int k = 0; k < kBinsPerLane; ++k) p[32 * k] = pw[k];
 }
 
 __global__ void __launch_bounds__(kThreads)
 int_epi_kernel(const int* __restrict__ power, int* __restrict__ out,
                long long M, Tail c) {
   __shared__ Smem sm;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kFrames;
-  for (int i = threadIdx.x; i < 2 * c.nfilters; i += blockDim.x)
-    sm.dtw[i] = c.dtw[i];
-  for (int o = threadIdx.x; o < kFrames * kNbins; o += blockDim.x) {
-    const int f = o >> (kLog2Nfft - 1);
-    const int k = o & (kNbins - 1);
-    const long long m = m0 + f;
-    sm.re[f * kRow + pad(k)] = m < M ? power[m * kNbins + k] : 0;
-  }
+  const int f = static_cast<int>(threadIdx.x) / kLanes;
+  const long long m = static_cast<long long>(blockIdx.x) * kFrames + f;
+  load_tail_tables(sm, c);
   __syncthreads();
-  post_power_stages(sm.re, sm.im, kRow, kFrames, sm.logmel, sm.dtw, c);
-  for (int o = threadIdx.x; o < kFrames * c.ncep; o += blockDim.x) {
-    const int f = o / c.ncep;
-    const int k = o - f * c.ncep;
-    const long long m = m0 + f;
-    if (m < M) out[m * c.ncep + k] = sm.re[f * kRow + pad(k)];
-  }
+  if (m >= M) return;
+  int* row = sm.row + f * kRow;
+  const int* p = power + m * kNbins + lane();
+#pragma unroll
+  for (int k = 0; k < kBinsPerLane; ++k) row[lane() + 32 * k] = p[32 * k];
+  __syncwarp();
+  post_power(row, sm, c, out + m * c.ncep);
 }
 
 }  // namespace

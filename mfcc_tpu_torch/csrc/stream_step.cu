@@ -48,9 +48,9 @@
 // (the (C, S) chunk is read with a stride of S per point, uncoalesced).  The
 // new carry is a separate output (the other tiles of the stream still read
 // the old one), written by each stream's first tile.  Offsets are 64-bit:
-// S*C passes 2^31 at S=4096 x C=2^19.  Float tiles are K1's (4 frames at
-// nfft 512: F = 7 at C = 1024 takes 2 tiles), INT tiles K2's (8 frames: one
-// tile at C = 1024, one slot idle).
+// S*C passes 2^31 at S=4096 x C=2^19.  Float and INT tiles are K1's and
+// K2's, 8 frames, one warp each: F = 7 at C = 1024 takes one tile, one warp
+// idle.
 //
 // What bounds it at the serving shape (S=4096 x C=1024 int16, hop 170: 7
 // frame slots, ~6 valid per stream): ~8.4 MB of chunk, ~16.7 MB of carry in
@@ -114,56 +114,51 @@ __device__ __forceinline__ int emph_int(const int* cs, const In* xs, int pv,
   return int_stages::preemph32(x, p);
 }
 
-template <typename In>
+template <typename In, int LOG2P>
 __global__ void __launch_bounds__(fladder_stages::kThreads)
 stream_f32_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
                   const int* __restrict__ start, const float* __restrict__ prev,
                   float* __restrict__ out, float* __restrict__ ncarry, int P,
-                  int C, int F, int hop, int log2n, int nfilters, int ncep,
-                  int frames_per_block, int tiles_per_stream, Strides st,
-                  const double* __restrict__ win, const double2* __restrict__ tw,
+                  int C, int F, int hop, int nfilters, int ncep,
+                  int tiles_per_stream, Strides st,
+                  const double2* __restrict__ win, const double2* __restrict__ tw,
                   const double* __restrict__ mel, const double* __restrict__ dct,
                   const int2* __restrict__ band, double mel_floor) {
   using namespace fladder_stages;
   extern __shared__ double2 smem[];
-  const int FT = frames_per_block;
-  const int log2m = log2n - 1;
-  const int M = 1 << log2m;
-  const Smem sm = carve(smem, FT, log2n, nfilters);
+  constexpr int log2m = 5 + LOG2P;
+  const Smem sm = carve(smem, log2m + 1);
 
   const long long s = blockIdx.x / tiles_per_stream;
   const int tile = static_cast<int>(blockIdx.x % tiles_per_stream);
-  const int f0 = tile * FT;
+  const int f0 = tile * kFrames;
   const float* cs = carry + s * st.carry_s;
   const In* xs = chunk + s * st.chunk_s;
   const int s0 = start[s];
   const float pv = prev[s];
 
-  load_constants(sm, tw, band, M, nfilters);
-
-  // ingest: E at sample pairs, window * 1/nfft, packed z[m] = y[2m] + i*y[2m+1]
-  for (int i = threadIdx.x; i < FT * M; i += blockDim.x) {
-    const int f = i >> log2m;
-    const int m = i & (M - 1);
-    const int g = f0 + f;
-    double2 z = make_double2(0.0, 0.0);
-    if (g < F) {
-      const long long q = s0 + static_cast<long long>(g) * hop + 2 * m;
-      const double a = static_cast<double>(emph_f32(cs, xs, pv, q, P, C, st));
-      const double b = static_cast<double>(emph_f32(cs, xs, pv, q + 1, P, C, st));
-      z = make_double2(a * win[2 * m], b * win[2 * m + 1]);
-    }
-    sm.buf[f * sm.R + pad(m)] = z;
-  }
+  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
   if (tile == 0) {
     float* nc = ncarry + s * st.ncarry_s;
     for (int i = threadIdx.x; i < P; i += blockDim.x)
       nc[i * st.ncarry_p] = emph_f32(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
   }
   __syncthreads();
-
-  ladder_tail(sm, FT, log2n, nfilters, ncep, mel, dct, mel_floor,
-              out + s * F * ncep, f0, F);
+  const int g = f0 + static_cast<int>(threadIdx.x) / kLanes;
+  if (g >= F) return;
+  // E at sample pairs, window * 1/nfft, packed z[m] = y[2m] + i*y[2m+1],
+  // lane l's register r holding z[l + 32r]
+  double2 z[1 << LOG2P];
+#pragma unroll
+  for (int r = 0; r < (1 << LOG2P); ++r) {
+    const int m = lane() + 32 * r;
+    const long long q = s0 + static_cast<long long>(g) * hop + 2 * m;
+    const double a = static_cast<double>(emph_f32(cs, xs, pv, q, P, C, st));
+    const double b = static_cast<double>(emph_f32(cs, xs, pv, q + 1, P, C, st));
+    z[r] = window_pair(a, b, win[m]);
+  }
+  ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, mel_floor,
+                     out + (s * F + g) * ncep);
 }
 
 // The split-DFT float step: K4-float's ingest (the same f32 emphasized
@@ -236,31 +231,24 @@ stream_int_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
   const int s0 = start[s];
   const int pv = prev[s];
 
-  load_twiddles(sm, tw, c);
-  for (int b = threadIdx.x; b < kFrames * kNfft; b += blockDim.x) {
-    const int f = b >> kLog2Nfft;
-    const int p = b & (kNfft - 1);
-    const int g = f0 + f;
-    int v = 0;
-    if (g < F) {
-      const long long q = s0 + static_cast<long long>(g) * hop + p;
-      v = window(emph_int(cs, xs, pv, q, P, C, st), curve[p]);
-    }
-    store_point(sm, f, p, v);
-  }
+  load_ladder_tables(sm, tw);
+  load_tail_tables(sm, c);
   if (tile == 0) {
     int* nc = ncarry + s * st.ncarry_s;
     for (int i = threadIdx.x; i < P; i += blockDim.x)
       nc[i * st.ncarry_p] = emph_int(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
   }
-  run_tail(sm, c);
-  int* o = out + s * F * c.ncep;
-  for (int i = threadIdx.x; i < kFrames * c.ncep; i += blockDim.x) {
-    const int f = i / c.ncep;
-    const int k = i - f * c.ncep;
-    const int g = f0 + f;
-    if (g < F) o[static_cast<long long>(g) * c.ncep + k] = sm.re[f * kRow + pad(k)];
+  __syncthreads();
+  const int g = f0 + static_cast<int>(threadIdx.x) / kLanes;
+  if (g >= F) return;
+  int re[kPts];
+#pragma unroll
+  for (int r = 0; r < kPts; ++r) {
+    const int p = first_sample(r);
+    const long long q = s0 + static_cast<long long>(g) * hop + p;
+    re[r] = window(emph_int(cs, xs, pv, q, P, C, st), curve[p]);
   }
+  tail(re, sm, c, out + (s * F + g) * c.ncep);
 }
 
 // Checks shared by both steps; returns the tiles per stream, or 0.
@@ -281,22 +269,24 @@ int launch_f32(const float* carry, const In* chunk, const int* start,
                const double* mel, const double* dct, const int* band,
                double mel_floor, void* stream) {
   using namespace fladder_stages;
-  const int log2n = log2_nfft(nfft);
-  const int FT = log2n < 0 ? 1 : frames_per_block(nfft);
-  const long long tiles = tiles_for(S, P, C, F, hop, nfft, FT);
-  if (log2n < 0 || tiles == 0 || nfilters < 1 || ncep < 1)
+  const long long tiles = tiles_for(S, P, C, F, hop, nfft, kFrames);
+  if (log2_nfft(nfft) < 0 || tiles == 0 || nfilters < 1 ||
+      nfilters > nfft / 2 || ncep < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  const size_t smem = smem_bytes(FT, nfft, nfilters);
-  const int err = allow_smem(stream_f32_kernel<In>, smem);
-  if (err != 0) return err;
-  stream_f32_kernel<In><<<static_cast<unsigned>(S * tiles), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      carry, chunk, start, prev, out, ncarry, P, C, F, hop, log2n, nfilters,
-      ncep, FT, static_cast<int>(tiles), st, win,
-      reinterpret_cast<const double2*>(tw), mel, dct,
-      reinterpret_cast<const int2*>(band), mel_floor);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = smem_bytes(nfft);
+  return with_points(nfft, [&](auto pts) {
+    constexpr int L = decltype(pts)::value;
+    const int err = allow_smem(stream_f32_kernel<In, L>, smem);
+    if (err != 0) return err;
+    stream_f32_kernel<In, L><<<static_cast<unsigned>(S * tiles), kThreads,
+                               smem, static_cast<cudaStream_t>(stream)>>>(
+        carry, chunk, start, prev, out, ncarry, P, C, F, hop, nfilters, ncep,
+        static_cast<int>(tiles), st, reinterpret_cast<const double2*>(win),
+        reinterpret_cast<const double2*>(tw), mel, dct,
+        reinterpret_cast<const int2*>(band), mel_floor);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 using R2Tables = radix2_stages::Tables;

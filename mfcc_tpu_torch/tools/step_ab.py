@@ -1,5 +1,6 @@
-"""Time the serving step of several checkouts of the port on one CUDA card,
-one process per checkout, in the order given.
+"""Time the batch kernels K1 and K2 and the serving step of several
+checkouts of the port on one CUDA card, one process per checkout, in the
+order given.
 
     python3 mfcc_tpu_torch/tools/step_ab.py TREE [TREE ...]
 
@@ -7,9 +8,13 @@ Each TREE is a directory that holds a ``mfcc_tpu_torch`` package (a
 checkout, or ``git archive`` of one); give two trees in the order A B B A
 so that drift between processes shows.  Each process builds that tree's
 kernels and prints one JSON line with the tree, the card
-(``nvidia-smi``), and at S=4096 streams x C=1024-sample int16 chunks, as
-``chip_smoke.py`` times them: the K4-float and K4-INT kernels
-(``stream_fused.stream_step_{float,int}``), and ``StreamingMFCC().step``,
+(``nvidia-smi``), and, as ``chip_smoke.py`` times them: K1
+(``fladder.mfcc_float_ladder``) and K2 (``int_fused.mfcc_int_fused``) at
+S=1024 streams x T=63,922 int16 samples (4 s, 382,976 frames), with K1's
+max-abs difference from its plain version and a digest of K2's output
+(element-exact in every tree, so the digests agree); and at S=4096
+streams x C=1024-sample int16 chunks the K4-float and K4-INT kernels
+(``stream_fused.stream_step_{float,int}``) and ``StreamingMFCC().step``,
 float and INT (the mean of a chain of 16 steps with the state threaded
 through); each the median of 10 after warm-up, device time by CUDA
 events.  ``*_host_ms`` is the host's time to issue one step of the chain
@@ -19,6 +24,7 @@ time is held back by the host.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -27,6 +33,7 @@ import sys
 import time
 
 S, C, STEPS, ITERS, WARMUP = 4096, 1024, 16, 10, 3
+S_BATCH, T_BATCH = 1024, 63_922
 
 
 def make_audio(S: int, T: int, seed: int):
@@ -68,17 +75,27 @@ def child(tree: str) -> dict:
     import torch
     from mfcc_tpu_torch import MFCCConfig, StreamingMFCC
     from mfcc_tpu_torch.kernels import build
-    from mfcc_tpu_torch.ops import stream_fused
+    from mfcc_tpu_torch.ops import fladder, int_fused, stream_fused
 
     build.build()
     build.library()
     dev = torch.device("cuda", 0)
     cfg = MFCCConfig()
+    out = {"tree": tree}
+    audio = torch.from_numpy(make_audio(S_BATCH, T_BATCH, seed=0)
+                             .astype(np.int16)).to(dev)
+    k1 = fladder.mfcc_float_ladder(audio, cfg)
+    out["k1_vs_plain"] = float((k1 - fladder.mfcc_float_ladder_plain(
+        audio, cfg)).abs().max())
+    out["k2_sha1"] = hashlib.sha1(int_fused.mfcc_int_fused(audio, cfg)
+                                  .cpu().numpy().tobytes()).hexdigest()
+    out["k1_ms"] = time_ms(lambda: fladder.mfcc_float_ladder(audio, cfg))[0]
+    out["k2_ms"] = time_ms(lambda: int_fused.mfcc_int_fused(audio, cfg))[0]
+    del audio, k1
     serve = torch.from_numpy(make_audio(S, (STEPS + 2) * C, seed=6)
                              .astype(np.int16)).to(dev)
     chunks = [serve[:, i * C:(i + 1) * C].contiguous()
               for i in range(STEPS + 2)]
-    out = {"tree": tree}
     for int_path in (False, True):
         kind = "int" if int_path else "float"
         sm = StreamingMFCC(int_path=int_path)

@@ -4,7 +4,10 @@ element (``torch.equal``), the serving step K4 (float within TOL, INT and
 every carry ``torch.equal``), K5, K5-frames and the split-DFT step (within
 TOL_R2), K6, K7 and K7-frames (within TOL), K8's seven dense-DFT entries
 (within TOL), K9, K3-v1 and K10 (``torch.equal``), streaming against
-batch, the split chain and the ``FeatureServer`` on the card.
+batch, the split chain and the ``FeatureServer`` on the card; and the
+warp tails' geometry (one warp a frame, 8 frames a block): ragged frame
+counts for K1, K2, K3 and K10, and K4 where a stream's frame slots fill a
+tile partly, wholly or into a second one.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The file imports neither JAX nor ``mfcc_tpu``, so it runs on
@@ -390,6 +393,39 @@ def _k4_run(dev, int_path, S, C, cfg, steps=4, seed=0, dft_passes=None):
 @pytest.mark.parametrize("hop", [170, 160])
 def test_stream_kernel_matches_plain(dev, int_path, C, hop):
     _k4_run(dev, int_path, 130, C, MFCCConfig(step=hop), seed=C + hop)
+
+
+@pytest.mark.parametrize("int_path", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("C", [170, 1024, 1360, 1530])
+def test_stream_kernel_tile_geometry(dev, int_path, C):
+    """K4 float and INT against their plain versions where a stream's frame
+    slots fill 1, 7, 8 and 9 of the tile's 8 warps (hop 170), at S=37."""
+    _k4_run(dev, int_path, 37, C, MFCCConfig(), seed=C)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_warp_tails_ragged_tiles(dev, S):
+    """F = 1 .. 17 frames a stream (partial, whole and two tiles of 8,
+    one warp a frame): K1 within TOL of its plain version, K2, K3 and K10
+    equal to theirs and to each other."""
+    cfg = MFCCConfig()
+    for F in range(1, 18):
+        T = cfg.nfft + (F - 1) * cfg.hop + F % 3
+        x = torch.from_numpy(_tonal(S, T, seed=F).astype(np.int16)).to(dev)
+        got = fladder.mfcc_float_ladder(x, cfg)
+        assert got.shape == (S, F, 32)
+        assert (got - fladder.mfcc_float_ladder_plain(x, cfg)
+                ).abs().max().item() <= TOL, F
+        k2 = int_fused.mfcc_int_fused(x, cfg)
+        assert torch.equal(k2, int_fused.mfcc_int_fused_plain(x, cfg)), F
+        frames = framing.extract_frames(framing.preemphasis_int(
+            x.to(torch.int32)), cfg.nfft, cfg.hop).contiguous()
+        k3 = int_fused.mfcc_int_fused_frames(frames, cfg)
+        assert torch.equal(k3, int_fused.mfcc_int_fused_frames_plain(
+            frames, cfg)), F
+        k10 = int_fused.mfcc_int_split2(x, cfg)
+        assert torch.equal(k10, int_fused.mfcc_int_split2_plain(x, cfg)), F
+        assert torch.equal(k3, k2) and torch.equal(k10, k2), F
 
 
 def test_streaming_equals_batch_on_card(dev):

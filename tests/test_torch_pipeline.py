@@ -238,7 +238,8 @@ def test_import_leaves_jax_out():
                 "mfcc_tpu_torch.io.transport, mfcc_tpu_torch.io.native, "
                 "mfcc_tpu_torch.ops.stream_fused, "
                 "mfcc_tpu_torch.ops.float_fused, "
-                "mfcc_tpu_torch.ops.f64ish, mfcc_tpu_torch.ops.dense_fused; "
+                "mfcc_tpu_torch.ops.f64ish, mfcc_tpu_torch.ops.dense_fused, "
+                "mfcc_tpu_torch.ops.warp_tails; "
                 "bad = sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'mfcc_tpu.')) "
                 "or m == 'mfcc_tpu'); print(bad); sys.exit(1 if bad else 0)"],
