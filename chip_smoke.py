@@ -9,7 +9,9 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
 
   1. prints the card (``nvidia-smi``), torch's and CUDA's versions;
   2. builds the CUDA kernels from ``mfcc_tpu_torch/csrc`` and prints the
-     seconds taken;
+     seconds taken, and on a line of its own the registers and spills of
+     every instantiation of the FP64 product engine's kernels (``nvcc
+     -Xptxas=-v``) and the shared memory and ring stages of their launches;
   3. float path: compares K1 (``ops/fladder.py``) with its plain torch
      version on the card at nfft 256/86, 512/170 and 1024/340 on int16,
      f32, normalized [-1, 1] f32 and silent (``mel_floor=1.0``) input, and
@@ -49,7 +51,10 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      and the frames sent read back over the status plane;
   6. the fast dial and odd hops: compares K5 and K5-frames (``ops/
      float_fused.py``, 3/4/6 passes, nfft 256/512/1024, S=130 at three
-     lengths, and the headline input and frames) and K6 (K1's kernel at
+     lengths, ragged tiles of the flattened frames: 5 streams x 4 frames
+     and 3 x 1 s, and at 3 passes 16 x 1 s of full-scale int16, where the
+     lo*lo correction is largest, its distance printed; the headline input
+     and frames) and K6 (K1's kernel at
      hops 171, 165, 341, and hop 171 on the headline input) with their plain
      versions, and the split-DFT serving step over the K4 runs (every carry
      equal to the plain version's and to K4-float's); holds the fast gate
@@ -61,7 +66,9 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      (fast within ``FAST_LONG_GATE``, K6 within ``GATE``), checks streamed
      fast against batch K5; times K1, K5 at 3 and 6 passes, both modules,
      K5-frames on the headline frames, K6 at hop 171 and the split-DFT step
-     at S=4096 x C=1024 beside their plain versions;
+     at S=4096 x C=1024 beside their plain versions and the float64
+     ``torch.matmul`` of K5's DFT product at both shapes (K5's, K5-frames'
+     and K4-split's library_ms);
   7. f64ish and split: compares K7 and K7-frames (``ops/f64ish.py``) with
      their plain versions at nfft 256/86, 512/170 and 1024/340 on S=130 x
      1 s (int16, f32 on the grid, [-1, 1] f32 with and without the wire
@@ -80,7 +87,8 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      shape (S=512 x T=16,322);
   8. the last TPU kernels' entries: compares K8's seven dense-DFT entries
      (``ops/dense_fused.py``) with their plain versions at nfft 256/86,
-     512/170 and 1024/340 on int16 and non-integer f32 input, on silence
+     512/170 and 1024/340 on int16 and non-integer f32 input, on ragged
+     tiles (3 streams x 1 s: 9 tiles; a stream of 4 frames), on silence
      with ``mel_floor`` (fmaj) and on the headline input (``KERNEL_TOL``);
      holds the f32-operand entries and raw to ``GATE`` on the 8 spread
      streams, every entry to ``GATE`` on the JAX bench's gate input, and
@@ -108,7 +116,10 @@ for their type); the last line is the JSON result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -945,6 +956,33 @@ def fast_phases(dev, card: str) -> list[dict]:
           f"mel_floor=1: max-abs {errs['K5']:.3e}; K5-frames on the same "
           f"frames {errs['K5-frames']:.3e} (tolerance {R2_TOL})")
 
+    # -- the product engine's ragged tiles; the lo*lo term at full scale ----------
+    # K5 tiles the flattened (S x F) frames by 16384/nfft: 5 streams x 4
+    # frames fill less than one tile, 3 x 1 s end in a ragged tile
+    cfg = MFCCConfig()
+    for what, x in (
+            ("5 streams x 4 frames", make_audio(5, 512 + 3 * 170, seed=13)),
+            ("3 streams x 1 s", make_audio(3, 16000, seed=14))):
+        for passes in (3, 6):
+            xt = torch.from_numpy(x.astype(np.int16)).to(dev)
+            e = compare(float_fused.mfcc_radix2(xt, cfg, dft_passes=passes),
+                        float_fused.mfcc_radix2_plain(xt, cfg,
+                                                      dft_passes=passes),
+                        f"K5 {what} passes {passes}")
+            check(e <= R2_TOL, f"K5 {what} passes {passes}: {e}")
+            errs["K5"] = max(errs["K5"], e)
+    full = torch.from_numpy(np.random.default_rng(12).integers(
+        -32768, 32768, (16, 16000)).astype(np.int16)).to(dev)
+    e_full = compare(float_fused.mfcc_radix2(full, cfg, dft_passes=3),
+                     float_fused.mfcc_radix2_plain(full, cfg, dft_passes=3),
+                     "K5 3 passes full-scale int16")
+    check(e_full <= R2_TOL, f"K5 3 passes on full-scale int16: {e_full}")
+    errs["K5"] = max(errs["K5"], e_full)
+    print(f"K5 ragged tiles (5 streams x 4 frames, 3 x 1 s; passes 3 and 6) "
+          f"within {R2_TOL} of plain; K5 at 3 passes on full-scale int16 "
+          f"(16 x 1 s uniform in [-32768, 32767], where the lo*lo term is "
+          f"largest): max-abs {e_full:.3e} from plain")
+
     # -- K6 vs its plain version ------------------------------------------------
     for step in (171, 165, 341):
         cfg = MFCCConfig(step=step)
@@ -1158,6 +1196,16 @@ def fast_phases(dev, card: str) -> list[dict]:
               f"T={T_MAIN} int16, {frames171} frames, median of {ITERS}; "
               f"{card})")
 
+    sigs = torch.randn(2 * frames_n, cfg.nfft // 2, dtype=torch.float64,
+                       device=dev)
+    op = torch.randn(cfg.nfft // 2, cfg.nfft // 2, dtype=torch.float64,
+                     device=dev)
+    k5_lib_ms = time_ms(lambda: torch.matmul(sigs, op))
+    del sigs, op
+    print(f"time torch.matmul float64 ({2 * frames_n} x {cfg.nfft // 2}) @ "
+          f"({cfg.nfft // 2} x {cfg.nfft // 2}), K5's DFT product only: "
+          f"{k5_lib_ms:.4f} ms ({card})")
+
     ops = float_fused.default_operators(cfg, dev)
     tables = sum(t.nbytes for t in ops if t is not ops.dft)
     out_bytes = frames_n * cfg.nceptrums * 4
@@ -1191,6 +1239,13 @@ def fast_phases(dev, card: str) -> list[dict]:
     args = (state.buffer, chunks[2], start, state.prev, cfg)
     s_ms = time_ms(lambda: stream_fused.stream_step_float(*args,
                                                           dft_passes=3))
+    F_step = stream_fused.frames_per_step(C_SERVE, cfg)
+    sigs = torch.randn(2 * S_SERVE * F_step, cfg.nfft // 2,
+                       dtype=torch.float64, device=dev)
+    op = torch.randn(cfg.nfft // 2, cfg.nfft // 2, dtype=torch.float64,
+                     device=dev)
+    s_lib_ms = time_ms(lambda: torch.matmul(sigs, op))
+    del sigs, op
     sp_ms = time_ms(lambda: stream_fused.stream_step_float_plain(
         *args, dft_passes=3))
     k4f_ms = time_ms(lambda: stream_fused.stream_step_float(*args))
@@ -1204,7 +1259,10 @@ def fast_phases(dev, card: str) -> list[dict]:
                      ("K4-split plain version, 3 passes", sp_ms),
                      ("K4-float kernel (same inputs)", k4f_ms),
                      (f"StreamingMFCC(precision='fast').step, mean of a "
-                      f"chain of {steps}", step_ms)):
+                      f"chain of {steps}", step_ms),
+                     ("torch.matmul float64 of the step's DFT product "
+                      f"({2 * S_SERVE * F_step} x {cfg.nfft // 2}) @ "
+                      f"({cfg.nfft // 2} x {cfg.nfft // 2})", s_lib_ms)):
         print(f"time {name}: {ms:.4f} ms per step, "
               f"{S_SERVE * C_SERVE / 16000 / (ms / 1e3):.4e} real-time "
               f"streams (S={S_SERVE} x C={C_SERVE} int16, median of "
@@ -1224,12 +1282,13 @@ def fast_phases(dev, card: str) -> list[dict]:
                      "mfcc_tpu_torch/csrc/float_fused.cu",
                      "mfcc_tpu/ops/pallas_mfcc.py:1333", k5_launches,
                      errs["K5"], times["K5 kernel, 3 passes"],
-                     times["K5 plain version, 3 passes"], k5),
+                     times["K5 plain version, 3 passes"], k5, k5_lib_ms),
         kernel_entry("radix2 split-DFT frames, 3 passes (K5-frames)",
                      "mfcc_tpu_torch/csrc/float_fused.cu",
                      "mfcc_tpu/ops/pallas_mfcc.py:1256", kf_launches,
                      errs["K5-frames"], times["K5-frames kernel, 3 passes"],
-                     times["K5-frames plain version, 3 passes"], kf),
+                     times["K5-frames plain version, 3 passes"], kf,
+                     k5_lib_ms),
         kernel_entry("recomp_t odd hop on K1's kernel (K6)",
                      "mfcc_tpu_torch/csrc/fladder.cu",
                      "mfcc_tpu/ops/pallas_mfcc.py:840", k6_launches,
@@ -1238,7 +1297,7 @@ def fast_phases(dev, card: str) -> list[dict]:
         kernel_entry("stream_step split-DFT, 3 passes (K4-split)",
                      "mfcc_tpu_torch/csrc/stream_step.cu",
                      "mfcc_tpu/ops/pallas_stream.py:421", split_launches,
-                     errs["K4-split"], s_ms, sp_ms, ks),
+                     errs["K4-split"], s_ms, sp_ms, ks, s_lib_ms),
     ]
 
 
@@ -1617,6 +1676,21 @@ def legacy_phases(dev, card: str) -> list[dict]:
         print(f"K8 vs plain, nfft {nfft}/{hop}, S=64 x 1 s int16 and "
               f"non-integer f32, every entry: max-abs "
               f"{max(errs.values()):.3e}")
+    # the engine's ragged tiles: 3 streams x 3 tiles (9 tiles, a stream's
+    # last one ragged) and a stream of 4 frames, shorter than one tile
+    for what, S, T in (("3 streams x 1 s", 3, 16000),
+                       ("1 stream x 4 frames", 1, 512 + 3 * 170)):
+        x = torch.from_numpy(make_audio(S, T, seed=T).astype(np.int16)).to(dev)
+        for key, name, ingest, _, _ in K8_ENTRIES:
+            kern, plain = entry(name)
+            xin = k8_input(x, ingest)
+            e = compare(kern(xin, MFCCConfig()), plain(xin, MFCCConfig()),
+                        f"K8 {key} {what}")
+            check(e <= KERNEL_TOL, f"K8 {key} {what}: {e}")
+            errs[key] = max(errs[key], e)
+    print(f"K8 ragged tiles (3 streams x 1 s: 9 tiles; 1 stream x 4 "
+          f"frames), every entry within {KERNEL_TOL} of plain: max-abs "
+          f"{max(errs.values()):.3e}")
     cfg = MFCCConfig()
     silent = torch.zeros(2, 16000, dtype=torch.int16, device=dev)
     got = dense_fused.mfcc_fmaj(silent, cfg, mel_floor=1.0)
@@ -1698,7 +1772,8 @@ def legacy_phases(dev, card: str) -> list[dict]:
     for key, name, ingest, split, replaces in K8_ENTRIES:
         ops = dense_fused.dense_operators(cfg, dev, ingest == "fold", split)
         in_bytes = audio.nbytes * (2 if ingest == "emphasized" else 1)
-        nbytes = in_bytes + out_bytes + sum(t.nbytes for t in ops)
+        nbytes = in_bytes + out_bytes + sum(
+            t.nbytes for t in (ops.cs, ops.mel, ops.dct, ops.band))
         b = dense_bound(nbytes, frames_n, cfg, band, ingest == "fold")
         print(f"K8 {key} bound: {nbytes} bytes, {b[2]:.4e} FP64 DFT "
               f"operations -> {b[0]:.4f} ms ({b[1]})")
@@ -1835,6 +1910,64 @@ def legacy_phases(dev, card: str) -> list[dict]:
     ]
 
 
+ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
+                  "stream_r2_kernel")
+
+
+def engine_resources(build_log: str, dev) -> str:
+    """One line: registers and spills of every instantiation of the FP64
+    product engine's kernels (K8 ``dense_kernel<input, CT, NT>``; K5
+    ``radix2_kernel<input, passes, CT, NT>``, ``frames_kernel``, K4-split
+    ``stream_r2_kernel``) from ``nvcc -Xptxas=-v``, and the dynamic shared
+    memory and ring stages of their launches at nfft 256/512/1024."""
+    from mfcc_tpu_torch import MFCCConfig
+    from mfcc_tpu_torch.kernels import build
+    from mfcc_tpu_torch.ops import dense_fused, float_fused
+    import ctypes
+    regs, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            for k in ENGINE_KERNELS:
+                hit = re.search(rf"\d+{k}I(.*?)EEv", m.group(1))
+                if hit:
+                    args = re.findall(r"Li(\d+)E|^([sf])", hit.group(1))
+                    targs = [a or b for a, b in args]
+                    name = f"{k}<{','.join(targs)}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if name and m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            regs.append(f"{name} {m.group(1)} regs {spill} B spilled")
+            name = None
+    lib = build.library()
+    smem, stages = ctypes.c_longlong(), ctypes.c_int()
+    launches = []
+    for nfft, hop in ((256, 86), (512, 170), (1024, 340)):
+        cfg = MFCCConfig(nfft=nfft, step=hop)
+        for fold in (False, True):
+            ops = dense_fused.dense_operators(cfg, dev, fold, True)
+            lib.mfcc_dense_smem(nfft, hop, cfg.nfilters, cfg.nceptrums,
+                                ops.melt.weights.numel(), 2 if fold else 1,
+                                *ops.engine.args(), ctypes.byref(smem),
+                                ctypes.byref(stages))
+            launches.append(f"K8 nfft {nfft}{' folded' if fold else ''} "
+                            f"{smem.value} B {stages.value} stages")
+        mel_len = float_fused.default_mel_table(cfg, dev).weights.numel()
+        for passes in (3, 4, 6):
+            eng = float_fused.default_engine_operator(cfg, dev, passes)
+            lib.mfcc_radix2_smem(nfft, cfg.nfilters, cfg.nceptrums, mel_len,
+                                 passes, *eng.args(), ctypes.byref(smem),
+                                 ctypes.byref(stages))
+            launches.append(f"K5 nfft {nfft} {passes} passes {smem.value} B "
+                            f"{stages.value} stages")
+    return ("engine kernels (nvcc -Xptxas=-v): " + "; ".join(regs)
+            + " | shared memory and ring stages per launch: "
+            + "; ".join(launches))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA card "
@@ -1850,9 +1983,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    build.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        build.build(verbose=True)
+    print(log.getvalue(), end="")
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    print(engine_resources(log.getvalue(), dev))
 
     kernels = [float_phases(dev, card)]
     torch.cuda.empty_cache()

@@ -161,47 +161,6 @@ __device__ __forceinline__ void load_constants(const Smem& sm, int log2n,
   }
 }
 
-// The mel product of FT power rows (row f at power + f * nbins) over each
-// filter's band [lo, hi) of `band` ((nbins, nfilters) row-major mel), the
-// optional floor and log2, into logmel[f * nfilters + m].  K8's
-// (dense_dft.cu).
-__device__ __forceinline__ void mel_log2(const double* power, int FT,
-                                         int nbins, int nfilters,
-                                         const int2* band,
-                                         const double* __restrict__ mel,
-                                         double mel_floor, double* logmel) {
-  for (int o = threadIdx.x; o < FT * nfilters; o += blockDim.x) {
-    const int f = o / nfilters;
-    const int m = o - f * nfilters;
-    const double* p = power + f * nbins;
-    const int2 bd = band[m];
-    double acc = 0.0;
-    for (int k = bd.x; k < bd.y; ++k) acc = fma(p[k], mel[k * nfilters + m], acc);
-    if (mel_floor != 0.0) acc = fmax(acc, mel_floor);
-    logmel[o] = log2(acc);
-  }
-}
-
-// The DCT product ((nfilters, ncep) row-major) of FT log-mel rows (row f at
-// logmel + f * nfilters) and the store of frames f0 + f < F at
-// out[(f0 + f) * ncep + c], rounded to f32 once.  K8's (dense_dft.cu).
-__device__ __forceinline__ void dct_store(const double* logmel, int FT,
-                                          int nfilters, int ncep,
-                                          const double* __restrict__ dct,
-                                          float* __restrict__ out, int f0,
-                                          int F) {
-  for (int o = threadIdx.x; o < FT * ncep; o += blockDim.x) {
-    const int f = o / ncep;
-    const int c = o - f * ncep;
-    const int g = f0 + f;
-    if (g >= F) continue;
-    const double* lm = logmel + f * nfilters;
-    double acc = 0.0;
-    for (int m = 0; m < nfilters; ++m) acc = fma(lm[m], dct[m * ncep + c], acc);
-    out[static_cast<long long>(g) * ncep + c] = static_cast<float>(acc);
-  }
-}
-
 // The packed point z = (ye * w.x, yo * w.y) of emphasized samples ye, yo and
 // the window pair w, each product rounded once as a stored value would be:
 // left to the compiler, a product may fuse into the first FFT stage's add

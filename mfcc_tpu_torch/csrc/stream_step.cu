@@ -82,6 +82,7 @@ struct Strides {
 };
 
 constexpr float kEmphF = 0.96875f;   // 1 - 1/32
+constexpr int kU = 8;                // split-DFT ingest pairs in flight a thread
 
 __device__ __forceinline__ float to_f32(int16_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -162,55 +163,66 @@ stream_f32_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
 }
 
 // The split-DFT float step: K4-float's ingest (the same f32 emphasized
-// values and the same new carry) in front of K5's tail.
-template <typename In, int PASSES, int ST>
-__global__ void __launch_bounds__(radix2_stages::kThreads)
-stream_r2_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
+// values and the same new carry) in front of K5's tail, on K5's persistent
+// grid over the flattened (S x F) frame slots.  The new carry of
+// stream s is written by the tile that holds its frame slot 0.
+template <typename In, int PASSES, int CT, int NT>
+__global__ void __launch_bounds__(dmma_product::kThreads, 1)
+stream_r2_kernel(radix2_stages::Geometry geo, long long M,
+                 const dmma_product::OpT* __restrict__ op,
+                 const float* __restrict__ carry, const In* __restrict__ chunk,
                  const int* __restrict__ start, const float* __restrict__ prev,
                  float* __restrict__ out, float* __restrict__ ncarry, int P,
-                 int C, int F, int hop, int nfft, int nfilters, int ncep,
-                 int frames_per_block, int tiles_per_stream, Strides st,
-                 const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                 const float* __restrict__ we, const float* __restrict__ wo,
-                 const float2* __restrict__ tw, const float* __restrict__ mel,
-                 const float* __restrict__ dct, const int2* __restrict__ band,
-                 float mel_floor) {
+                 int C, int F, int hop, int nfilters, int ncep, Strides st,
+                 radix2_stages::Tables tb, float mel_floor) {
   using namespace radix2_stages;
-  extern __shared__ double2 smem[];
-  const int FT = frames_per_block;
-  const Smem sm = carve(smem, FT, nfft, nfilters);
-  const int nh = sm.nh;
-
-  const long long s = blockIdx.x / tiles_per_stream;
-  const int tile = static_cast<int>(blockIdx.x % tiles_per_stream);
-  const int f0 = tile * FT;
-  const float* cs = carry + s * st.carry_s;
-  const In* xs = chunk + s * st.chunk_s;
-  const int s0 = start[s];
-  const float pv = prev[s];
-
-  load_constants<PASSES>(sm, cos_t, sin_t, tw, band, nfilters);
-  for (int i = threadIdx.x; i < FT * nh; i += blockDim.x) {
-    const int f = i >> sm.log2nh;
-    const int m = i & (nh - 1);
-    const int g = f0 + f;
-    if (g < F) {
-      const long long q = s0 + static_cast<long long>(g) * hop + 2 * m;
-      put_pair<PASSES>(sm, f, m, emph_f32(cs, xs, pv, q, P, C, st),
-                       emph_f32(cs, xs, pv, q + 1, P, C, st), we, wo);
-    } else {
-      put_zero(sm, f, m);
+  extern __shared__ __align__(16) unsigned char r2_smem[];
+  run<PASSES, CT, NT>(r2_smem, geo, M, op, tb, nfilters, ncep, mel_floor, out,
+                      [&](const Smem& sm, long long G0) {
+    const int nh = sm.nh, n = sm.FT * nh;
+    frame_table(sm, G0, M, F);
+    // kU sample pairs a thread in flight: their loads first, then the stores
+    for (int i0 = threadIdx.x; i0 < n; i0 += kU * kConsumers) {
+      float ye[kU], yo[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int i = i0 + u * kConsumers;
+        ye[u] = yo[u] = 0.0f;
+        const int2 sg = i < n ? sm.fr[i >> sm.log2nh] : make_int2(-1, 0);
+        if (sg.x >= 0) {
+          const long long s = sg.x;
+          const float* cs = carry + s * st.carry_s;
+          const In* xs = chunk + s * st.chunk_s;
+          const float pv = prev[s];
+          const long long q = start[s] + static_cast<long long>(sg.y) * hop +
+                              2 * (i & (nh - 1));
+          ye[u] = emph_f32(cs, xs, pv, q, P, C, st);
+          yo[u] = emph_f32(cs, xs, pv, q + 1, P, C, st);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int i = i0 + u * kConsumers;
+        if (i >= n) break;
+        const int f = i >> sm.log2nh, m = i & (nh - 1);
+        if (sm.fr[f].x >= 0)
+          put_pair<PASSES>(sm, f, m, ye[u], yo[u], tb.we, tb.wo);
+        else
+          put_zero<PASSES>(sm, f, m);
+      }
     }
-  }
-  if (tile == 0) {
-    float* nc = ncarry + s * st.ncarry_s;
-    for (int i = threadIdx.x; i < P; i += blockDim.x)
-      nc[i * st.ncarry_p] = emph_f32(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
-  }
-  __syncthreads();
-
-  radix2_tail<PASSES, ST>(sm, FT, nfilters, ncep, mel, dct, mel_floor,
-                          out + s * F * ncep, f0, F);
+    // the new carry of the streams whose slot 0 is in this tile
+    const long long G1 = G0 + sm.FT < M ? G0 + sm.FT : M;
+    const long long s0 = (G0 + F - 1) / F, s1 = (G1 + F - 1) / F;
+    for (long long i = threadIdx.x; i < (s1 - s0) * P; i += kConsumers) {
+      const long long s = s0 + i / P;
+      const int p = static_cast<int>(i - (s - s0) * P);
+      ncarry[s * st.ncarry_s + p * st.ncarry_p] = emph_f32(
+          carry + s * st.carry_s, chunk + s * st.chunk_s, prev[s],
+          static_cast<long long>(C) + p, P, C, st);
+    }
+    consumer_sync();
+  }, [](const Smem&, long long) {});   // the step's input is small and strided
 }
 
 template <typename In>
@@ -289,44 +301,25 @@ int launch_f32(const float* carry, const In* chunk, const int* start,
   });
 }
 
-using R2Tables = radix2_stages::Tables;
-
-template <typename In, int PASSES, int ST>
-int launch_r2_p(const float* carry, const In* chunk, const int* start,
-                const float* prev, float* out, float* ncarry, long long S,
-                int P, int C, int F, int hop, int nfft, int nfilters, int ncep,
-                const Strides& st, const R2Tables& tb, float mel_floor,
-                void* stream) {
-  using namespace radix2_stages;
-  const int FT = frames_per_block(nfft);
-  const long long tiles = tiles_for(S, P, C, F, hop, nfft, FT);
-  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (S == 0) return 0;
-  const size_t smem = smem_bytes(FT, nfft, nfilters);
-  const int err = fladder_stages::allow_smem(stream_r2_kernel<In, PASSES, ST>, smem);
-  if (err != 0) return err;
-  stream_r2_kernel<In, PASSES, ST><<<static_cast<unsigned>(S * tiles), kThreads,
-                                     smem, static_cast<cudaStream_t>(stream)>>>(
-      carry, chunk, start, prev, out, ncarry, P, C, F, hop, nfft, nfilters,
-      ncep, FT, static_cast<int>(tiles), st, tb.cos_t, tb.sin_t, tb.we, tb.wo,
-      reinterpret_cast<const float2*>(tb.tw), tb.mel, tb.dct,
-      reinterpret_cast<const int2*>(tb.band), mel_floor);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename In>
-int launch_r2(const float* carry, const In* chunk, const int* start,
-              const float* prev, float* out, float* ncarry, long long S, int P,
-              int C, int F, int hop, int nfft, int nfilters, int ncep,
-              const Strides& st, int passes, const R2Tables& tb,
-              double mel_floor, void* stream) {
-  if (!radix2_stages::geometry_ok(nfft, passes, nfilters, ncep))
+int launch_step_r2(const float* carry, const In* chunk, const int* start,
+                   const float* prev, float* out, float* ncarry, long long S,
+                   int P, int C, int F, int hop, int nfft, int nfilters,
+                   int ncep, const Strides& st, int passes,
+                   const dmma_product::Operator& o,
+                   const radix2_stages::Tables& tb, double mel_floor,
+                   void* stream) {
+  using namespace radix2_stages;
+  if (!geometry_ok(nfft, passes, nfilters, ncep) ||
+      tiles_for(S, P, C, F, hop, nfft, 1) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const float fl = static_cast<float>(mel_floor);
-  return radix2_stages::dispatch(passes, nfft, [&](auto p, auto nt) {
-    return launch_r2_p<In, decltype(p)::value, decltype(nt)::value>(
-        carry, chunk, start, prev, out, ncarry, S, P, C, F, hop, nfft,
-        nfilters, ncep, st, tb, fl, stream);
+  return dispatch(passes, nfft, [&](auto p, auto ct, auto nt) {
+    return launch_r2(stream_r2_kernel<In, decltype(p)::value,
+                                      decltype(ct)::value, decltype(nt)::value>,
+                     S * F, nfft, nfilters, ncep, passes, o, tb, stream, carry,
+                     chunk, start, prev, out, ncarry, P, C, F, hop, nfilters,
+                     ncep, st, tb, fl);
   });
 }
 
@@ -391,21 +384,27 @@ extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk, const
 }
 
 // The split-DFT float step: the arguments of mfcc_stream_f32_* up to the
-// strides, then passes (3, 4 or 6) and K5's tables (cos_t, sin_t, we, wo,
-// tw, mel, dct, band: see float_fused.cu).
+// strides, then passes (3, 4 or 6), the engine's operator (op, op_rows,
+// chunk_rows) and K5's tables (we, wo, tw, melw,
+// moff, dct, band, mel_len: see float_fused.cu).
 extern "C" int mfcc_stream_r2_i16(const float* carry, const int16_t* chunk, const int* start,
                       const float* prev, float* out, float* ncarry, long long S,
                       int P, int C, int F, int hop, int nfft, int nfilters,
                       int ncep, long long carry_s, long long carry_p,
                       long long chunk_s, long long chunk_t, long long ncarry_s,
-                      long long ncarry_p, int passes, const float* cos_t,
-                      const float* sin_t, const float* we, const float* wo,
-                      const float* tw, const float* mel, const float* dct,
-                      const int* band, double mel_floor, void* stream) {
+                      long long ncarry_p, int passes, const void* op,
+                      int op_rows, int chunk_rows, const float* we,
+                      const float* wo,
+                      const float* tw, const float* melw, const int* moff,
+                      const float* dct, const int* band, int mel_len,
+                      double mel_floor, void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
-  const R2Tables tb{cos_t, sin_t, we, wo, tw, mel, dct, band};
-  return launch_r2(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
-                   nfft, nfilters, ncep, st, passes, tb, mel_floor, stream);
+  const dmma_product::Operator o{op, op_rows, chunk_rows};
+  const radix2_stages::Tables tb{we, wo, tw, melw, moff, dct, band,
+                                 mel_len};
+  return launch_step_r2(carry, chunk, start, prev, out, ncarry, S, P, C, F,
+                        hop, nfft, nfilters, ncep, st, passes, o, tb,
+                        mel_floor, stream);
 }
 
 extern "C" int mfcc_stream_r2_f32(const float* carry, const float* chunk, const int* start,
@@ -413,14 +412,19 @@ extern "C" int mfcc_stream_r2_f32(const float* carry, const float* chunk, const 
                       int P, int C, int F, int hop, int nfft, int nfilters,
                       int ncep, long long carry_s, long long carry_p,
                       long long chunk_s, long long chunk_t, long long ncarry_s,
-                      long long ncarry_p, int passes, const float* cos_t,
-                      const float* sin_t, const float* we, const float* wo,
-                      const float* tw, const float* mel, const float* dct,
-                      const int* band, double mel_floor, void* stream) {
+                      long long ncarry_p, int passes, const void* op,
+                      int op_rows, int chunk_rows, const float* we,
+                      const float* wo,
+                      const float* tw, const float* melw, const int* moff,
+                      const float* dct, const int* band, int mel_len,
+                      double mel_floor, void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
-  const R2Tables tb{cos_t, sin_t, we, wo, tw, mel, dct, band};
-  return launch_r2(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
-                   nfft, nfilters, ncep, st, passes, tb, mel_floor, stream);
+  const dmma_product::Operator o{op, op_rows, chunk_rows};
+  const radix2_stages::Tables tb{we, wo, tw, melw, moff, dct, band,
+                                 mel_len};
+  return launch_step_r2(carry, chunk, start, prev, out, ncarry, S, P, C, F,
+                        hop, nfft, nfilters, ncep, st, passes, o, tb,
+                        mel_floor, stream);
 }
 
 extern "C" int mfcc_stream_int_i16(const int* carry, const int16_t* chunk, const int* start,

@@ -65,20 +65,24 @@ _STREAM_F32_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_P] * 5
 #                           band, stream)
 _STREAM_INT_ARGS = ([_P] * 6 + [_LL] + [_I] * 4 + [_LL] * 6 + [_I] * 5
                     + [_P] * 6)
-# the split-DFT tables of K5: cos_t, sin_t, we, wo, tw, mel, dct, band
-_R2_TABLES = [_P] * 8
+# the product engine's operator (ops/dmma_product.Operator.args): op,
+# op_rows, chunk_rows
+_ENGINE = [_P] + [_I] * 2
+# the split-DFT tables of K5: we, wo, tw, mel weights, mel offsets, dct,
+# band (pointers), mel length
+_R2_TABLES = [_P] * 7 + [_I]
 # mfcc_radix2_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
-#                       passes, <tables>, mel_floor, stream)
-_RADIX2_ARGS = ([_P, _P, _LL, _LL] + [_I] * 6 + _R2_TABLES
+#                       passes, <engine>, <tables>, mel_floor, stream)
+_RADIX2_ARGS = ([_P, _P, _LL, _LL] + [_I] * 6 + _ENGINE + _R2_TABLES
                 + [ctypes.c_double, _P])
 # mfcc_frames_float_f32(frames, out, M, nfft, nfilters, ncep, passes,
-#                       <tables>, mel_floor, stream)
-_FRAMES_FLOAT_ARGS = ([_P, _P, _LL] + [_I] * 4 + _R2_TABLES
+#                       <engine>, <tables>, mel_floor, stream)
+_FRAMES_FLOAT_ARGS = ([_P, _P, _LL] + [_I] * 4 + _ENGINE + _R2_TABLES
                       + [ctypes.c_double, _P])
 # mfcc_stream_r2_{i16,f32}(<mfcc_stream_f32_* up to ncarry_p>, passes,
-#                          <tables>, mel_floor, stream)
+#                          <engine>, <tables>, mel_floor, stream)
 _STREAM_R2_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_I]
-                   + _R2_TABLES + [ctypes.c_double, _P])
+                   + _ENGINE + _R2_TABLES + [ctypes.c_double, _P])
 # mfcc_f64ish_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
 #                       win, tw, mel, dct, band, wire_grid, stream)
 _F64ISH_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
@@ -92,9 +96,16 @@ _INT_FRONT_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P]
 #              log_width, dtw, fbw, band, stream)
 _INT_EPI_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 # mfcc_dense_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
-#                      ingest, split, cs, mel, dct, band, mel_floor, stream)
-_DENSE_ARGS = ([_P, _P, _LL, _LL] + [_I] * 7 + [_P] * 4
+#                      ingest, split, <engine>, mel weights, mel offsets,
+#                      dct, band, mel length, mel_floor, stream)
+_DENSE_ARGS = ([_P, _P, _LL, _LL] + [_I] * 7 + _ENGINE + [_P] * 4 + [_I]
                + [ctypes.c_double, _P])
+# mfcc_dense_smem(nfft, hop, nfilters, ncep, mel length, ingest, <engine>,
+#                 smem*, stages*)
+_DENSE_SMEM_ARGS = [_I] * 6 + _ENGINE + [_P, _P]
+# mfcc_radix2_smem(nfft, nfilters, ncep, mel length, passes, <engine>,
+#                  smem*, stages*)
+_RADIX2_SMEM_ARGS = [_I] * 5 + _ENGINE + [_P, _P]
 SIGNATURES = {
     "mfcc_fladder_i16": _FLADDER_ARGS,
     "mfcc_fladder_f32": _FLADDER_ARGS,
@@ -116,6 +127,8 @@ SIGNATURES = {
     "mfcc_int_epi": _INT_EPI_ARGS,
     "mfcc_dense_i16": _DENSE_ARGS,
     "mfcc_dense_f32": _DENSE_ARGS,
+    "mfcc_dense_smem": _DENSE_SMEM_ARGS,
+    "mfcc_radix2_smem": _RADIX2_SMEM_ARGS,
 }
 
 

@@ -59,7 +59,7 @@ import torch
 from ..config import MFCCConfig
 from .. import tables
 from ..kernels import build
-from . import framing
+from . import dmma_product, framing
 from .fladder import mel_bands
 from .float_fused import _limbs, float_config_ok
 
@@ -112,6 +112,17 @@ class DenseOperators(NamedTuple):
     mel: torch.Tensor    # (nfft/2, nfilters) float64 (f32 values)
     dct: torch.Tensor    # (nfilters, nceptrums) float64 (f32 values)
     band: torch.Tensor   # (nfilters, 2) int32 mel_bands(mel)
+    engine: dmma_product.Operator   # cs for the kernel (engine_columns)
+    melt: dmma_product.MelTable     # mel's band weights for the kernel
+
+
+def engine_columns(nfft: int) -> torch.Tensor:
+    """The kernel's column order of CS: 16-column tile 2i holds the cos
+    columns of bins [16i, 16i + 16), tile 2i + 1 their -sin columns, so a
+    warp's accumulators hold the re and im of the same bins."""
+    ct = torch.arange(nfft // 16)
+    base = (ct % 2) * (nfft // 2) + 16 * (ct // 2)
+    return (base[:, None] + torch.arange(16)).reshape(-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,9 +135,11 @@ def dense_operators(cfg: MFCCConfig, device: torch.device, fold: bool,
     if split:
         cs = limb_sum(cs)
     mel = torch.as_tensor(mel, device=device).double()
+    engine = dmma_product.operator(cs[:, engine_columns(cfg.nfft).to(device)],
+                                   stage_bytes=dmma_product.dense_stage_bytes(cfg.nfft))
     return DenseOperators(cs.contiguous(), mel,
                           torch.as_tensor(dct, device=device).double(),
-                          mel_bands(mel))
+                          mel_bands(mel), engine, dmma_product.mel_table(mel))
 
 
 def _require_family(cfg: MFCCConfig) -> None:
@@ -246,8 +259,9 @@ def _run(key: str, audio: torch.Tensor, cfg: MFCCConfig, ingest: int,
     fn = lib.mfcc_dense_i16 if x.dtype == torch.int16 else lib.mfcc_dense_f32
     build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), S, T, n_frames,
                  cfg.hop, cfg.nfft, cfg.nfilters, ncep, ingest, int(split),
-                 ops.cs.data_ptr(), ops.mel.data_ptr(), ops.dct.data_ptr(),
-                 ops.band.data_ptr(), float(mel_floor))
+                 *ops.engine.args(), *ops.melt.args()[:2],
+                 ops.dct.data_ptr(), ops.band.data_ptr(), ops.melt.args()[2],
+                 float(mel_floor))
     LAUNCHES[key] += 1
     return out.reshape(lead + (n_frames, ncep))
 

@@ -53,7 +53,7 @@ import torch
 from ..config import MFCCConfig
 from .. import tables
 from ..kernels import build
-from . import fladder, framing
+from . import dmma_product, fladder, framing
 
 # kernel launches per kernel (never the plain versions)
 LAUNCHES = {"K5": 0, "K5-frames": 0, "K6": 0}
@@ -258,12 +258,73 @@ def check_operators(ops: Radix2Operators, cfg: MFCCConfig,
                              f"{dtype} {shape} tensor on {device}")
 
 
-def tail_ptrs(ops: Radix2Operators) -> tuple[int, ...]:
-    """(cos, sin, we, wo, tw, mel, dct, band) device pointers, in the order
-    of the C entry points' trailing table arguments."""
-    return tuple(getattr(ops, n).data_ptr()
-                 for n in ("cos", "sin", "we", "wo", "tw", "mel", "dct",
-                           "band"))
+def tail_ptrs(ops: Radix2Operators, mel: dmma_product.MelTable
+              ) -> tuple[int, ...]:
+    """(we, wo, tw, mel weights, mel offsets, dct, band, mel length): the
+    C entry points' trailing table arguments."""
+    w = tuple(getattr(ops, n).data_ptr() for n in ("we", "wo", "tw"))
+    return (*w, *mel.args()[:2], ops.dct.data_ptr(), ops.band.data_ptr(),
+            mel.args()[2])
+
+
+def engine_operator_of(dft: torch.Tensor, dft_passes: int
+                       ) -> dmma_product.Operator:
+    """The engine operator of the split-DFT product (the kernels' A is
+    dft.T): the f32 values at 6 passes, hi + lo at 4, and at 3 also the
+    bf16 lo limbs of the lo*lo correction (``split_dft_plain``'s
+    operands)."""
+    op = dft.T.contiguous()
+    if dft_passes == 6:
+        return dmma_product.operator(op)
+    hi, lo = _limbs(op)
+    return dmma_product.operator(hi + lo, lo if dft_passes == 3 else None)
+
+
+@functools.lru_cache(maxsize=None)
+def default_engine_operator(cfg: MFCCConfig, device: torch.device,
+                            dft_passes: int) -> dmma_product.Operator:
+    """``engine_operator_of`` the default operators, cached per (cfg,
+    device, dft_passes)."""
+    return engine_operator_of(default_operators(cfg, device).dft, dft_passes)
+
+
+@functools.lru_cache(maxsize=None)
+def default_mel_table(cfg: MFCCConfig, device: torch.device
+                      ) -> dmma_product.MelTable:
+    """``dmma_product.mel_table`` of the default operators' mel."""
+    return dmma_product.mel_table(default_operators(cfg, device).mel)
+
+
+# engine operators and mel tables of caller-given operators, per (id of
+# the operators, passes), with the (data_ptr, _version) of the dft and mel
+# they were derived from; each entry keeps its operators alive, so an id
+# is not reused while its entry stands
+_ENGINE_CACHE: dict = {}
+
+
+def engine_args(ops: Radix2Operators | None, cfg: MFCCConfig,
+                device: torch.device, dft_passes: int) -> tuple:
+    """The C entry points' engine arguments (``Operator.args``) and tables
+    (``tail_ptrs``) for ``ops`` (None: the cached defaults), with the
+    buffers that must outlive the launch.  Caller-given operators are
+    derived again whenever their dft or mel has changed in place."""
+    if ops is None:
+        ops = default_operators(cfg, device)
+        eng = default_engine_operator(cfg, device, dft_passes)
+        mel = default_mel_table(cfg, device)
+    else:
+        key = (id(ops), dft_passes)
+        stamp = tuple((t.data_ptr(), t._version) for t in (ops.dft, ops.mel))
+        hit = _ENGINE_CACHE.get(key)
+        if hit is None or hit[0] is not ops or hit[1] != stamp:
+            _ENGINE_CACHE.pop(key, None)
+            if len(_ENGINE_CACHE) >= 16:
+                _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
+            hit = _ENGINE_CACHE[key] = (
+                ops, stamp, engine_operator_of(ops.dft, dft_passes),
+                dmma_product.mel_table(ops.mel))
+        eng, mel = hit[2], hit[3]
+    return (*eng.args(), *tail_ptrs(ops, mel)), (eng, mel)
 
 
 def _device_ok(x: torch.Tensor, what: str) -> bool:
@@ -290,8 +351,9 @@ def mfcc_radix2(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(), *,
     if not _device_ok(audio, "K5"):
         return mfcc_radix2_plain(audio, cfg, dft_passes=dft_passes,
                                  mel_floor=mel_floor, operators=operators)
-    ops = operators or default_operators(cfg, audio.device)
-    check_operators(ops, cfg, audio.device, "K5")
+    if operators is not None:
+        check_operators(operators, cfg, audio.device, "K5")
+    args, _buf = engine_args(operators, cfg, audio.device, dft_passes)
     x = _as_audio(audio).contiguous()
     lead, T = x.shape[:-1], x.shape[-1]
     n_frames = framing.num_frames(T, cfg.hop, cfg.nfft)
@@ -304,7 +366,7 @@ def mfcc_radix2(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(), *,
           else lib.mfcc_radix2_f32)
     build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), S, T, n_frames,
                  cfg.hop, cfg.nfft, cfg.nfilters, cfg.nceptrums, dft_passes,
-                 *tail_ptrs(ops), float(mel_floor))
+                 *args, float(mel_floor))
     LAUNCHES["K5"] += 1
     return out.reshape(lead + (n_frames, cfg.nceptrums))
 
@@ -327,8 +389,9 @@ def mfcc_frames_float(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
         return mfcc_frames_float_plain(frames, cfg, dft_passes=dft_passes,
                                        mel_floor=mel_floor,
                                        operators=operators)
-    ops = operators or default_operators(cfg, frames.device)
-    check_operators(ops, cfg, frames.device, "K5-frames")
+    if operators is not None:
+        check_operators(operators, cfg, frames.device, "K5-frames")
+    args, _buf = engine_args(operators, cfg, frames.device, dft_passes)
     x = frames.to(torch.float32).contiguous()
     lead = x.shape[:-1]
     M = x.numel() // cfg.nfft
@@ -336,7 +399,7 @@ def mfcc_frames_float(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
                       device=x.device)
     fn = build.library().mfcc_frames_float_f32
     build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), M, cfg.nfft,
-                 cfg.nfilters, cfg.nceptrums, dft_passes, *tail_ptrs(ops),
+                 cfg.nfilters, cfg.nceptrums, dft_passes, *args,
                  float(mel_floor))
     LAUNCHES["K5-frames"] += 1
     return out

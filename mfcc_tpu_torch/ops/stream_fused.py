@@ -239,11 +239,14 @@ def stream_step_float(buffer, chunk, start, prev,
                 tw.data_ptr(), ops.mel.data_ptr(), ops.dct.data_ptr(),
                 ops.band.data_ptr(), float(mel_floor))
     else:
-        ops = operators or float_fused.default_operators(cfg, chunk.device)
-        float_fused.check_operators(ops, cfg, chunk.device, "K4-split")
+        if operators is not None:
+            float_fused.check_operators(operators, cfg, chunk.device,
+                                        "K4-split")
+        args, _buf = float_fused.engine_args(operators, cfg, chunk.device,
+                                             passes)
         fn = lib.mfcc_stream_r2_i16 if int16 else lib.mfcc_stream_r2_f32
-        _launch("K4-split", fn, chunk.device, *head, passes,
-                *float_fused.tail_ptrs(ops), float(mel_floor))
+        _launch("K4-split", fn, chunk.device, *head, passes, *args,
+                float(mel_floor))
     return out, ncarry
 
 

@@ -186,14 +186,23 @@ class MFCC(nn.Module):
 
     def _radix2_ops(self) -> float_fused.Radix2Operators:
         """K5's operators: the window, mel and dct from the module's state
-        (f32), the DFT tables and twiddles from the config."""
+        (f32), the DFT tables and twiddles from the config; the same
+        object until one of those buffers changes (so the kernels' derived
+        tables stay cached)."""
+        state = (self.window, self.mel, self.dct, self.mel_band)
+        key = tuple((t.data_ptr(), t._version, t.device) for t in state)
+        cached = getattr(self, "_radix2_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
         nh = self.cfg.nfft // 2
         ops = float_fused.default_operators(self.cfg, self.window.device)
-        return ops._replace(
+        ops = ops._replace(
             we=self.window[0::2].float().contiguous(),
             wo=self.window[1::2].float().contiguous(),
             mel=self.mel[:nh].float().contiguous(),
             dct=self.dct.float().contiguous(), band=self.mel_band)
+        self._radix2_cache = (key, ops)
+        return ops
 
     def _chain_ops(self, dtype=None) -> float_ops.Operators:
         dtype = dtype or self.dtype

@@ -1,4 +1,4 @@
-"""Time the batch kernels K1 and K2 and the serving step of several
+"""Time the batch kernels K1, K2, K5 and K8 and the serving steps of several
 checkouts of the port on one CUDA card, one process per checkout, in the
 order given.
 
@@ -12,14 +12,22 @@ kernels and prints one JSON line with the tree, the card
 (``fladder.mfcc_float_ladder``) and K2 (``int_fused.mfcc_int_fused``) at
 S=1024 streams x T=63,922 int16 samples (4 s, 382,976 frames), with K1's
 max-abs difference from its plain version and a digest of K2's output
-(element-exact in every tree, so the digests agree); and at S=4096
-streams x C=1024-sample int16 chunks the K4-float and K4-INT kernels
+(element-exact in every tree, so the digests agree); K8
+(``dense_fused.mfcc_raw`` and ``mfcc_batch_dense``) and K5
+(``float_fused.mfcc_radix2`` at 3 and 6 passes) on the same input, with a
+digest of each output and its max-abs difference from the first tree's
+(``*_vs_first``; K8 within 5e-5 and K5 within 2e-4 pass, ``*_ok``: a
+product summed in another order may move the last bits, so the digests
+may differ while the function holds); and at S=4096 streams x C=1024-sample
+int16 chunks the K4-float, K4-split (3 passes) and K4-INT kernels
 (``stream_fused.stream_step_{float,int}``) and ``StreamingMFCC().step``,
 float and INT (the mean of a chain of 16 steps with the state threaded
 through); each the median of 10 after warm-up, device time by CUDA
 events.  ``*_host_ms`` is the host's time to issue one step of the chain
 (no synchronization inside it): a step whose host time reaches its device
-time is held back by the host.
+time is held back by the host.  The first tree's K5 and K8 outputs are
+kept in ``mfcc_tpu_torch/_build/step_ab/`` of the tree that runs the
+script, for the later trees to compare with.
 """
 
 from __future__ import annotations
@@ -34,6 +42,9 @@ import time
 
 S, C, STEPS, ITERS, WARMUP = 4096, 1024, 16, 10, 3
 S_BATCH, T_BATCH = 1024, 63_922
+KERNEL_TOL, R2_TOL = 5e-5, 2e-4     # chip_smoke.py's
+REF_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build", "step_ab")
 
 
 def make_audio(S: int, T: int, seed: int):
@@ -69,13 +80,33 @@ def time_ms(fn) -> tuple[float, float]:
     return statistics.median(dev), statistics.median(host)
 
 
-def child(tree: str) -> dict:
+def against_first(out: dict, name: str, got, first: bool, tol: float
+                  ) -> None:
+    """A digest of ``got`` and its max-abs difference from the first
+    tree's output of the same name (saved by the first tree)."""
+    import numpy as np
+    a = got.cpu().numpy()
+    out[f"{name}_sha1"] = hashlib.sha1(a.tobytes()).hexdigest()
+    path = os.path.join(REF_DIR, name + ".npy")
+    if first:
+        os.makedirs(REF_DIR, exist_ok=True)
+        np.save(path, a)
+    ref = np.load(path)
+    fin = np.isfinite(ref)
+    ok = bool((np.isfinite(a) == fin).all())
+    e = float(np.abs(a[fin] - ref[fin]).max()) if fin.any() else 0.0
+    out[f"{name}_vs_first"] = e
+    out[f"{name}_ok"] = ok and e <= tol
+
+
+def child(tree: str, first: bool) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
     from mfcc_tpu_torch import MFCCConfig, StreamingMFCC
     from mfcc_tpu_torch.kernels import build
-    from mfcc_tpu_torch.ops import fladder, int_fused, stream_fused
+    from mfcc_tpu_torch.ops import (dense_fused, fladder, float_fused,
+                                    int_fused, stream_fused)
 
     build.build()
     build.library()
@@ -91,6 +122,16 @@ def child(tree: str) -> dict:
                                   .cpu().numpy().tobytes()).hexdigest()
     out["k1_ms"] = time_ms(lambda: fladder.mfcc_float_ladder(audio, cfg))[0]
     out["k2_ms"] = time_ms(lambda: int_fused.mfcc_int_fused(audio, cfg))[0]
+    for name, fn, tol in (
+            ("k8_raw", lambda: dense_fused.mfcc_raw(audio, cfg), KERNEL_TOL),
+            ("k8_batch", lambda: dense_fused.mfcc_batch_dense(audio, cfg),
+             KERNEL_TOL),
+            ("k5_3", lambda: float_fused.mfcc_radix2(audio, cfg,
+                                                     dft_passes=3), R2_TOL),
+            ("k5_6", lambda: float_fused.mfcc_radix2(audio, cfg,
+                                                     dft_passes=6), R2_TOL)):
+        against_first(out, name, fn(), first, tol)
+        out[f"{name}_ms"] = time_ms(fn)[0]
     del audio, k1
     serve = torch.from_numpy(make_audio(S, (STEPS + 2) * C, seed=6)
                              .astype(np.int16)).to(dev)
@@ -107,6 +148,9 @@ def child(tree: str) -> dict:
         kern = (stream_fused.stream_step_int if int_path
                 else stream_fused.stream_step_float)
         out[f"k4_{kind}_ms"] = time_ms(lambda: kern(*args))[0]
+        if not int_path:
+            out["k4_split_ms"] = time_ms(lambda: kern(*args,
+                                                      dft_passes=3))[0]
 
         def chain():
             st = state
@@ -119,8 +163,8 @@ def child(tree: str) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) >= 2 and argv[0] == "--child":
-        print(json.dumps(child(argv[1])), flush=True)
+    if len(argv) >= 3 and argv[0] == "--child":
+        print(json.dumps(child(argv[1], argv[2] == "first")), flush=True)
         return 0
     if not argv:
         raise SystemExit(__doc__)
@@ -129,8 +173,9 @@ def main(argv: list[str]) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     rc = 0
-    for tree in map(os.path.abspath, argv):
-        res = subprocess.run([sys.executable, __file__, "--child", tree],
+    for i, tree in enumerate(map(os.path.abspath, argv)):
+        res = subprocess.run([sys.executable, __file__, "--child", tree,
+                              "first" if i == 0 else "later"],
                              capture_output=True, text=True, timeout=600)
         line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() \
             else ""
@@ -142,6 +187,8 @@ def main(argv: list[str]) -> int:
         row = json.loads(line)
         row["card"] = card
         print(json.dumps(row), flush=True)
+        if not all(v for k, v in row.items() if k.endswith("_ok")):
+            rc = 1
     return rc
 
 

@@ -7,7 +7,9 @@ TOL_R2), K6, K7 and K7-frames (within TOL), K8's seven dense-DFT entries
 batch, the split chain and the ``FeatureServer`` on the card; and the
 warp tails' geometry (one warp a frame, 8 frames a block): ragged frame
 counts for K1, K2, K3 and K10, and K4 where a stream's frame slots fill a
-tile partly, wholly or into a second one.
+tile partly, wholly or into a second one; and the FP64 product engine of
+K5 and K8: its ragged tiles, caller-given operators edited in place, and
+a launch whose C entry point refuses it raising.
 
 These tests need a CUDA card (the kernels have no CPU mode) and skip
 without one.  The file imports neither JAX nor ``mfcc_tpu``, so it runs on
@@ -23,8 +25,9 @@ import torch
 from mfcc_tpu_torch import (MFCC, MFCCConfig, MIC_CONFIG, FeatureServer,
                             StreamingMFCC)
 from mfcc_tpu_torch.kernels import build
-from mfcc_tpu_torch.ops import (dense_fused, f64ish, fladder, float_fused,
-                                float_ops, framing, int_fused, stream_fused)
+from mfcc_tpu_torch.ops import (dense_fused, dmma_product, f64ish, fladder,
+                                float_fused, float_ops, framing, int_fused,
+                                stream_fused)
 from mfcc_tpu_torch.ref import float_ref, int_ref
 from mfcc_tpu_torch.server import stream_samples
 
@@ -758,3 +761,81 @@ def test_int_split2_stages_on_card(dev):
         int_fused.mfcc_int_epi(power[..., :128].contiguous())
     with pytest.raises(TypeError, match="int16 or torch.int32"):
         int_fused.mfcc_int_v2(x.float())
+
+
+# -- the FP64 product engine (K5, K5-frames, K4-split, K8) --------------------------
+
+def test_engine_ragged_tiles_match_plain(dev):
+    """K8 on 3 streams x 1 s (9 tiles) and on a stream of 4 frames, shorter
+    than a tile; K5 and K5-frames on 5 streams x 4 frames (one ragged tile
+    of the flattened frames) and 3 x 1 s; the split-DFT step on 3 streams;
+    each within its tolerance of the plain version."""
+    cfg = MFCCConfig()
+    for S, T in ((3, 16000), (1, 512 + 3 * 170)):
+        x = torch.from_numpy(_tonal(S, T, seed=T).astype(np.int16)).to(dev)
+        for name in ("mfcc_raw", "mfcc_batch_dense", "mfcc_emphasized"):
+            xin = _dense_input(name, x)
+            got = getattr(dense_fused, name)(xin, cfg)
+            want = getattr(dense_fused, name + "_plain")(xin, cfg)
+            assert (got - want).abs().max().item() <= TOL, (name, S, T)
+    for S, T in ((5, 512 + 3 * 170), (3, 16000)):
+        x = torch.from_numpy(_tonal(S, T, seed=S).astype(np.int16)).to(dev)
+        for passes in (3, 6):
+            got = float_fused.mfcc_radix2(x, cfg, dft_passes=passes)
+            want = float_fused.mfcc_radix2_plain(x, cfg, dft_passes=passes)
+            assert (got - want).abs().max().item() <= TOL_R2, (S, T, passes)
+        fr = framing.extract_frames(framing.preemphasis(x.float()), 512,
+                                    cfg.hop)
+        got = float_fused.mfcc_frames_float(fr, cfg, dft_passes=3)
+        want = float_fused.mfcc_frames_float_plain(fr, cfg, dft_passes=3)
+        assert (got - want).abs().max().item() <= TOL_R2
+    before = stream_fused.LAUNCHES["K4-split"]
+    _k4_run(dev, False, 3, 1024, cfg, seed=1, dft_passes=3)
+    assert stream_fused.LAUNCHES["K4-split"] == before + 4
+
+
+@pytest.mark.parametrize("passes", [3, 6])
+def test_engine_follows_in_place_edits(dev, passes):
+    """K5 and K5-frames with caller-given operators whose mel and dft are
+    edited in place between two calls: the second call's output follows
+    the edit (the plain version on the edited operators), not the first
+    call's cached tables."""
+    cfg = MFCCConfig()
+    d = float_fused.default_operators(cfg, dev)
+    ops = d._replace(dft=d.dft.clone(), mel=d.mel.clone())
+    x = torch.from_numpy(_tonal(2, 8000, seed=7).astype(np.int16)).to(dev)
+    fr = framing.extract_frames(framing.preemphasis(x.float()), 512, cfg.hop)
+    for _ in range(2):
+        for kern, plain, xin in (
+                (float_fused.mfcc_radix2, float_fused.mfcc_radix2_plain, x),
+                (float_fused.mfcc_frames_float,
+                 float_fused.mfcc_frames_float_plain, fr)):
+            got = kern(xin, cfg, dft_passes=passes, operators=ops)
+            want = plain(xin, cfg, dft_passes=passes, operators=ops)
+            assert (got - want).abs().max().item() <= TOL_R2
+        ops.mel.mul_(0.25)
+        ops.dft[:, 3].mul_(-1.0)
+
+
+def test_engine_refusal_raises(dev, monkeypatch):
+    """A launch the C entry point refuses (here an operator whose chunks
+    are not a whole number of MMA steps) raises; nothing falls back to the
+    plain version and no launch is counted."""
+    monkeypatch.setattr(
+        dmma_product.Operator, "args",
+        lambda self: (self.data.data_ptr(), self.rows, self.chunk_rows + 1))
+    cfg = MFCCConfig()
+    x = torch.from_numpy(_tonal(2, 4000, seed=5).astype(np.int16)).to(dev)
+    fr = framing.extract_frames(framing.preemphasis(x.float()), 512, cfg.hop)
+    calls = [lambda: dense_fused.mfcc_raw(x, cfg),
+             lambda: float_fused.mfcc_radix2(x, cfg, dft_passes=3),
+             lambda: float_fused.mfcc_frames_float(fr, cfg, dft_passes=6)]
+    before = (dict(dense_fused.LAUNCHES), dict(float_fused.LAUNCHES))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+    sm = StreamingMFCC(precision="fast")
+    state = sm.init(2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sm.step(x[:, :1024].contiguous(), state)
+    assert (dict(dense_fused.LAUNCHES), dict(float_fused.LAUNCHES)) == before
