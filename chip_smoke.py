@@ -11,7 +11,9 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
   2. builds the CUDA kernels from ``mfcc_tpu_torch/csrc`` and prints the
      seconds taken, and on a line of its own the registers and spills of
      every instantiation of the FP64 product engine's kernels (``nvcc
-     -Xptxas=-v``) and the shared memory and ring stages of their launches;
+     -Xptxas=-v``) and the shared memory and ring stages of their launches,
+     on another those of the tails' persistent batch kernels (K1, K7 and
+     K7-frames, K2 and K3-v1, K3);
   3. float path: compares K1 (``ops/fladder.py``) with its plain torch
      version on the card at nfft 256/86, 512/170 and 1024/340 on int16,
      f32, normalized [-1, 1] f32 and silent (``mel_floor=1.0``) input, and
@@ -24,12 +26,20 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      versions element for element (``torch.equal``): K2 on tonal, full-range,
      silent and out-of-int16-range input, T = 512 and 512+169, MIC_CONFIG,
      16 filters, hop 160 and the headline shape; K3 on frames with two
-     leading axes and on out-of-range int32 frames; drives ``MFCC().int``
-     on the headline input, checks that K2 launched once per call and
-     ``int_frames`` launched K3, the shape and dtype, and element-exact
-     equality with the oracle ``ref.int_ref.mfcc_int`` on 8 spread streams;
-     times K2, ``MFCC.int``, K2's plain version, and K3 and its plain
-     version on the headline's 382,976 frames;
+     leading axes and on out-of-range int32 frames; K3-v1
+     (``int_fused.mfcc_int_v1``, K2's kernel behind its int32 ingest) on
+     int16, full-range int32, the int32 edges (+-(2^31 - 1), -2^31; also
+     against ``int_ref``), int64 with two leading axes and a ragged tail,
+     equal to K2 in the int16 range and not outside it; drives
+     ``MFCC().int`` on the headline input, checks that K2 launched once per
+     call and ``int_frames`` launched K3, the shape and dtype, and
+     element-exact equality with the oracle ``ref.int_ref.mfcc_int`` on 8
+     spread streams; drives ``mfcc_int_v1`` on the headline as int32 (one
+     K3-v1 launch, device memory grown by its output alone, equal to K2);
+     times K2, ``MFCC.int``, K2's plain version, K3 and its plain version
+     and K3-v1 on int32 and int16 and its plain version on the headline's
+     382,976 frames, and K2, K3 and K3-v1 at the JAX bench's f64ish shape
+     (S=512 x T=16,322);
   5. serving path: compares the stream-step kernels K4 (``ops/
      stream_fused.py``, float and INT) with their plain versions over
      multi-step runs with a mid-run reset of every other stream (S=130, C
@@ -73,8 +83,10 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      their plain versions at nfft 256/86, 512/170 and 1024/340 on S=130 x
      1 s (int16, f32 on the grid, [-1, 1] f32 with and without the wire
      grid, 2^20-scaled f32 without it, samples whose emphasized values sit
-     on the grid's ties; frames, and frames at x*32 = k+0.5) and at the
-     headline shape, checks that K7 on int16 is K1 bit for bit; holds
+     on the grid's ties; frames, and frames at x*32 = k+0.5), on the
+     persistent walk's ragged shapes (S x F = 3 x 5, 13 x 1, 1 x 21, 1 x 1;
+     frames rows M = 1, 5, 7, 9) and at the headline shape, checks that K7
+     on int16 is K1 bit for bit; holds
      the f64ish gate (``gate_units`` <= 1.0, finite) on the JAX bench's
      gate input and the 8 spread streams; drives
      ``MFCC(precision="f64ish")(audio)`` and its ``frames`` on the headline
@@ -84,7 +96,7 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      ``MFCC(precision="split")`` and ``method="segmented"`` to the float
      gate on the gate input; times K7, K7-frames, the module and K1 beside
      the plain versions at the headline shape and at the JAX bench's f64ish
-     shape (S=512 x T=16,322);
+     shape (S=512 x T=16,322), with K7 / K1 in the same call;
   8. the last TPU kernels' entries: compares K8's seven dense-DFT entries
      (``ops/dense_fused.py``) with their plain versions at nfft 256/86,
      512/170 and 1024/340 on int16 and non-integer f32 input, on ragged
@@ -102,7 +114,8 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
 
 Times are CUDA events, median of 10 after warm-up.  Each main path
 (``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``,
-``StreamingMFCC().process``, ``MFCC(precision="fast")(audio)`` and its
+``int_fused.mfcc_int_v1(audio)``, ``StreamingMFCC().process``,
+``MFCC(precision="fast")(audio)`` and its
 ``frames``, ``MFCC(MFCCConfig(step=171))(audio)``,
 ``StreamingMFCC(precision="fast").process``, ``MFCC(precision="f64ish")``
 and its ``frames``, ``StreamingMFCC(precision="f64ish").process``, and
@@ -148,6 +161,8 @@ FAST_LONG_GATE = 2e-2
 F64ISH_GATE = 1e-5
 S_MAIN, T_MAIN = 1024, 63_922   # 4 s per stream at 16 kHz: 374 frames
 S_SERVE, C_SERVE = 4096, 1024   # the serving shape: streams x chunk samples
+S_BENCH, T_BENCH = 512, 512 + 93 * 170   # the JAX bench's f64ish shape
+INT32_EDGES = (2 ** 31 - 1, -(2 ** 31 - 1), -2 ** 31)
 ITERS, WARMUP = 10, 3
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
@@ -498,6 +513,45 @@ def int_phases(dev, card: str) -> list[dict]:
         print(f"K3 vs plain, {name} {tuple(f.shape)} -> {tuple(got.shape)}: "
               f"equal (max-abs {err})")
 
+    # -- K3-v1 vs plain version: K2's kernel behind its int32 ingest ----------
+    edges = np.array(INT32_EDGES, np.int64)[rng.integers(0, 3, (6, 16000))]
+    wild = rng.random(edges.shape) < 0.25
+    edges[wild] = rng.integers(-2 ** 31, 2 ** 31, int(wild.sum()))
+    edges[:, :3] = INT32_EDGES
+    edges = edges.astype(np.int32)
+    v1_inputs = [
+        ("tonal int16", tonal[:16]),
+        ("full-range int32", rng.integers(-2 ** 31, 2 ** 31, (16, 16000))
+         .astype(np.int32)),
+        ("int32 edges +-(2^31 - 1), -2^31", edges),
+        ("int64 in int32 range, (2, 3, T)", rng.integers(
+            -2 ** 31, 2 ** 31, (2, 3, 9000)).astype(np.int64)),
+        ("T=512+169", tonal[:, :512 + 169].astype(np.int32)),
+    ]
+    errs["K3-v1"] = 0
+    for name, x in v1_inputs:
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        got = int_fused.mfcc_int_v1(xt)
+        torch.cuda.synchronize()
+        compare_exact(got, int_fused.mfcc_int_v1_plain(xt), f"K3-v1 {name}")
+        k2 = int_fused.mfcc_int_fused(xt.to(torch.int32).reshape(
+            -1, xt.shape[-1])).reshape(got.shape)
+        if np.abs(x).max() < 2 ** 15:
+            compare_exact(got, k2, f"K3-v1 {name} vs K2")
+        else:
+            check(not torch.equal(got, k2),
+                  f"K3-v1 {name}: equals K2 outside the int16 range")
+        if name.startswith("int32 edges"):
+            ref = np.stack([int_ref.mfcc_int(s_.astype(np.int64))
+                            for s_ in x[:2]])
+            check(np.array_equal(got[:2].cpu().numpy(), ref),
+                  "K3-v1 on the int32 edges differs from int_ref")
+        print(f"K3-v1 vs plain, {name} {tuple(xt.shape)} {xt.dtype}: equal"
+              + (", equal to K2" if np.abs(x).max() < 2 ** 15 else
+                 ", differs from K2 (its wire rule)")
+              + (", equal to int_ref on 2 streams"
+                 if name.startswith("int32 edges") else ""))
+
     # -- the INT main path -----------------------------------------------------
     cfg = MFCCConfig()
     audio = torch.from_numpy(headline).to(dev)
@@ -525,7 +579,30 @@ def int_phases(dev, card: str) -> list[dict]:
           and sum(int_fused.LAUNCHES.values()) == 1,
           f"K3 launches {k3_launches} (K1 {fladder.LAUNCHES}) for one "
           "int_frames() call")
+    # K3-v1 on int32 samples: one launch of K2's kernel, its output the
+    # only allocation
+    audio32 = audio.to(torch.int32)
+    zero_counts(fladder, int_fused, stream_fused)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out_v1 = int_fused.mfcc_int_v1(audio32, cfg)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(dev) - base
+    v1_launches = int_fused.LAUNCHES["K3-v1"]
+    check(v1_launches == 1 and fladder.LAUNCHES == 0
+          and sum(int_fused.LAUNCHES.values()) == 1,
+          f"K3-v1 launches {int_fused.LAUNCHES} for one mfcc_int_v1 call")
+    check(grown <= out_v1.nbytes + 2 ** 20,
+          f"K3-v1 allocated {grown} bytes for a {out_v1.nbytes}-byte output")
     out = outs[0]
+    check(torch.equal(out_v1, out), "K3-v1 on int16-range int32 differs "
+          "from K2")
+    print(f"int_fused.mfcc_int_v1 {tuple(audio32.shape)} int32 -> "
+          f"{tuple(out_v1.shape)}: K3-v1 launches {v1_launches}, K3 "
+          f"{int_fused.LAUNCHES['K3']}; device memory grown {grown} bytes "
+          f"(output {out_v1.nbytes}); equal to K2")
+    del out_v1
     check(tuple(out.shape) == (S_MAIN, n_frames, cfg.nceptrums),
           f"INT output shape {tuple(out.shape)}")
     check(out.dtype == torch.int32, f"INT output dtype {out.dtype}")
@@ -544,7 +621,7 @@ def int_phases(dev, card: str) -> list[dict]:
     check(ndiff == 0, f"INT path differs from the oracle in {ndiff} elements")
     del outs, out, out_frames
 
-    # -- K2 and K3 times -------------------------------------------------------
+    # -- K2, K3 and K3-v1 times -----------------------------------------------
     frames_n = S_MAIN * n_frames
     times = {
         "K2 kernel (mfcc_int_fused)":
@@ -557,11 +634,38 @@ def int_phases(dev, card: str) -> list[dict]:
         "K3 plain version (int_ops chain)":
             time_ms(lambda: int_fused.mfcc_int_fused_frames_plain(hframes,
                                                                   cfg)),
+        "K3-v1 kernel on int32 (mfcc_int_v1)":
+            time_ms(lambda: int_fused.mfcc_int_v1(audio32, cfg)),
+        "K3-v1 kernel on int16 (mfcc_int_v1)":
+            time_ms(lambda: int_fused.mfcc_int_v1(audio, cfg)),
+        "K3-v1 plain version on int32 (int_ops chain)":
+            time_ms(lambda: int_fused.mfcc_int_v1_plain(audio32, cfg)),
     }
     for name, ms in times.items():
         print(f"time {name}: {ms:.4f} ms, {frames_n / ms * 1e3:.4e} frames/s "
               f"(S={S_MAIN} x T={T_MAIN}, {frames_n} frames, median of "
               f"{ITERS}; {card})")
+    del hframes
+    bench = torch.from_numpy(make_audio(S_BENCH, T_BENCH, seed=3).astype(
+        np.int16)).to(dev)
+    bench32 = bench.to(torch.int32)
+    bframes = framing.extract_frames(framing.preemphasis_int(bench32), 512,
+                                     cfg.hop).contiguous()
+    nb = bframes.shape[0] * bframes.shape[1]
+    for name, fn in (
+            ("K2 kernel", lambda: int_fused.mfcc_int_fused(bench, cfg)),
+            ("K3 kernel", lambda: int_fused.mfcc_int_fused_frames(bframes,
+                                                                  cfg)),
+            ("K3-v1 kernel on int32",
+             lambda: int_fused.mfcc_int_v1(bench32, cfg))):
+        ms = time_ms(fn)
+        print(f"time {name}: {ms:.4f} ms, {nb / ms * 1e3:.4e} frames/s "
+              f"(S={S_BENCH} x T={T_BENCH}, {nb} frames, median of {ITERS}; "
+              f"{card})")
+    del bench, bench32, bframes
+    v1_ms = times["K3-v1 kernel on int32 (mfcc_int_v1)"]
+    k2_ms = times["K2 kernel (mfcc_int_fused)"]
+    print(f"K3-v1 on int32 / K2 on int16 in this call: {v1_ms / k2_ms:.4f}")
 
     ops = int_fused.int_operators(cfg, dev)
     tables = sum(t.nbytes for t in ops[:5])
@@ -570,12 +674,18 @@ def int_phases(dev, card: str) -> list[dict]:
     k2_ops = (4 * S_MAIN * T_MAIN          # pre-emphasis: >> 5, +, -, sext
               + frames_n * int_ops_per_frame(cfg, band))
     k3_ops = frames_n * int_ops_per_frame(cfg, band)
+    frames_bytes = frames_n * cfg.nfft * 4
     k2_bound = bound(audio.nbytes + out_bytes + tables, k2_ops, INT32_OPS)
-    k3_bound = bound(hframes.nbytes + out_bytes + tables, k3_ops, INT32_OPS)
+    k3_bound = bound(frames_bytes + out_bytes + tables, k3_ops, INT32_OPS)
+    # K3-v1 does K2's work, emphasis and window included, on int32 input
+    v1_bound = bound(audio32.nbytes + out_bytes + tables, k2_ops, INT32_OPS)
     print(f"K2 bound: {audio.nbytes + out_bytes + tables} bytes, "
           f"{k2_ops:.4e} int32 operations -> {k2_bound[0]:.4f} ms "
-          f"({k2_bound[1]}); K3 bound: {hframes.nbytes + out_bytes + tables} "
-          f"bytes, {k3_ops:.4e} -> {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+          f"({k2_bound[1]}); K3 bound: {frames_bytes + out_bytes + tables} "
+          f"bytes, {k3_ops:.4e} -> {k3_bound[0]:.4f} ms ({k3_bound[1]}); "
+          f"K3-v1 bound: {audio32.nbytes + out_bytes + tables} bytes, "
+          f"{k2_ops:.4e} -> {v1_bound[0]:.4f} ms ({v1_bound[1]})")
+    del audio32
     return [{
         "name": "int_mfcc audio (K2)", "route": "cuda",
         "source": "mfcc_tpu_torch/csrc/int_mfcc.cu",
@@ -594,7 +704,11 @@ def int_phases(dev, card: str) -> list[dict]:
         "plain_ms": times["K3 plain version (int_ops chain)"],
         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
         "library_ms": None,
-    }]
+    }, kernel_entry(
+        "int v1 on K2's audio kernel, int32 ingest (K3-v1)",
+        "mfcc_tpu_torch/csrc/int_mfcc.cu", "mfcc_tpu/ops/pallas_int.py:1291",
+        v1_launches, errs["K3-v1"], v1_ms,
+        times["K3-v1 plain version on int32 (int_ops chain)"], v1_bound)]
 
 
 def k4_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
@@ -1404,6 +1518,39 @@ def f64ish_phases(dev, card: str) -> list[dict]:
                                                     wire_grid=False)),
               f"K7-frames nfft {nfft}: ties not rounded half to even")
 
+    # -- the persistent walk on ragged shapes ---------------------------------
+    # S*F not a multiple of 8, F = 1, S = 1; frames rows M < 8 (more frames
+    # than resident warps by > 100x: the headline checks below)
+    for nfft, hop in ((256, 86), (512, 170), (1024, 340)):
+        cfg = MFCCConfig(nfft=nfft, step=hop)
+        for S, F in ((3, 5), (13, 1), (1, 21), (1, 1)):
+            T = nfft + (F - 1) * hop + F % 3
+            sig = make_audio(S, T, seed=S * 31 + F)
+            x16 = torch.from_numpy(sig.astype(np.int16)).to(dev)
+            got = f64ish.mfcc_f64ish(x16, cfg)
+            check(tuple(got.shape) == (S, F, cfg.nceptrums)
+                  and torch.equal(got, fladder.mfcc_float_ladder(x16, cfg)),
+                  f"K7 nfft {nfft} S={S} F={F}: not K1 on int16")
+            xf = torch.from_numpy(sig / np.float32(32768)).to(dev)
+            for x, wg in ((x16, True), (xf, True), (xf, False)):
+                e = compare(f64ish.mfcc_f64ish(x, cfg, wire_grid=wg),
+                            f64ish.mfcc_batch_f64ish_plain(x, cfg,
+                                                           wire_grid=wg),
+                            f"K7 nfft {nfft} S={S} F={F}")
+                check(e <= KERNEL_TOL, f"K7 nfft {nfft} S={S} F={F}: {e}")
+                errs["K7"] = max(errs["K7"], e)
+        for M in (1, 5, 7, 9):
+            fr = torch.from_numpy(np.random.default_rng(M).uniform(
+                -1, 1, (M, nfft)).astype(np.float32)).to(dev)
+            e = compare(f64ish.mfcc_f64ish_frames(fr, cfg),
+                        f64ish.mfcc_frames_f64ish_plain(fr, cfg),
+                        f"K7-frames nfft {nfft} M={M}")
+            check(e <= KERNEL_TOL, f"K7-frames nfft {nfft} M={M}: {e}")
+            errs["K7-frames"] = max(errs["K7-frames"], e)
+    print(f"K7 ragged (S x F = 3 x 5, 13 x 1, 1 x 21, 1 x 1) at nfft 256, "
+          f"512, 1024: on int16 K1 bit for bit, within {KERNEL_TOL} of "
+          f"plain; K7-frames at M = 1, 5, 7, 9 within {KERNEL_TOL} of plain")
+
     # -- the f64ish gate -----------------------------------------------------------
     cfg = MFCCConfig()
     gate_in = make_audio(2, 512 + 4 * 170, seed=7)
@@ -1449,7 +1596,10 @@ def f64ish_phases(dev, card: str) -> list[dict]:
           f"{u:.4f} gate units, max-abs {e_or:.3e}")
     check(u <= 1.0, f"f64ish gate on the spread streams: {u}")
     k1_same = torch.equal(out, fladder.mfcc_float_ladder(audio, cfg))
-    print(f"K7 on the headline int16 bit-identical to K1: {k1_same}")
+    warps = torch.cuda.get_device_properties(dev).multi_processor_count * 3 * 8
+    print(f"K7 on the headline int16 bit-identical to K1: {k1_same} "
+          f"({S_MAIN * n_frames / warps:.1f} frames a warp of the {warps} "
+          f"resident at 3 blocks an SM)")
     check(k1_same, "K7 on the headline int16 differs from K1")
     del outs
 
@@ -1528,8 +1678,7 @@ def f64ish_phases(dev, card: str) -> list[dict]:
     del split_out
 
     # -- times ---------------------------------------------------------------------------
-    T_B = 512 + 93 * 170                        # the JAX bench's f64ish shape
-    bench = torch.from_numpy(make_audio(512, T_B, seed=3).astype(
+    bench = torch.from_numpy(make_audio(S_BENCH, T_BENCH, seed=3).astype(
         np.int16)).to(dev)
     bframes = framing.extract_frames(framing.preemphasis(
         bench.to(torch.float32)), 512, cfg.hop).contiguous()
@@ -1554,6 +1703,10 @@ def f64ish_phases(dev, card: str) -> list[dict]:
             times[(tag, name)] = ms = time_ms(fn)
             print(f"time {name}: {ms:.4f} ms, {nf / ms * 1e3:.4e} frames/s "
                   f"({shapes[tag][0]}, median of {ITERS}; {card})")
+        k1_ms = times[(tag, "K1 kernel (mfcc_float_ladder)")]
+        print(f"{tag}: K7 / K1 in this call "
+              f"{times[(tag, 'K7 kernel')] / k1_ms:.4f}, K7-frames / K1 "
+              f"{times[(tag, 'K7-frames kernel')] / k1_ms:.4f}")
     del hframes, bframes, bench
 
     ops = fladder.default_operators(cfg, dev)
@@ -1635,8 +1788,8 @@ def int_ops_split(cfg, band: torch.Tensor) -> tuple[int, int]:
 
 def legacy_phases(dev, card: str) -> list[dict]:
     """K8's seven entries, K9, K3-v1 and K10 against their plain versions,
-    their gates, launch counts and times; returns their entries of the
-    kernels line."""
+    their gates, launch counts and times (K3-v1's in ``int_phases``);
+    returns the entries of the kernels line of K8, K9 and K10."""
     from mfcc_tpu_torch import MFCCConfig
     from mfcc_tpu_torch.ops import (dense_fused, fladder, float_fused, framing,
                                     int_fused, stream_fused, f64ish)
@@ -1820,13 +1973,13 @@ def legacy_phases(dev, card: str) -> list[dict]:
               "equal" + (", K3-v1 equal to int_ref (K2's wire rule differs)"
                          if x.dtype == np.int32 else ", and equal to K2"))
 
-    # -- K9, K3-v1 and K10 at the headline: launches, K2, the oracle -----------------
+    # -- K9 and K10 at the headline: launches, K2, the oracle (K3-v1's in
+    # int_phases) --------------------------------------------------------------
     zero_counts(*mods)
     k2 = int_fused.mfcc_int_fused(audio, cfg)
     int_launches = {}
     outs = {}
     for kname, keys, kern in (("K9", ("K9",), int_fused.mfcc_int_v2),
-                              ("K3-v1", ("K3-v1",), int_fused.mfcc_int_v1),
                               ("K10", ("K10-front", "K10-epi"),
                                int_fused.mfcc_int_split2)):
         zero_counts(*mods)
@@ -1848,19 +2001,17 @@ def legacy_phases(dev, card: str) -> list[dict]:
     compare_exact(int_fused.mfcc_int_epi(hpower, cfg),
                   int_fused.mfcc_int_epi_plain(hpower, cfg),
                   "K10-epi at the headline")
-    print(f"MFCC int entries on {tuple(audio.shape)} int16: K9, K3-v1 and "
+    print(f"MFCC int entries on {tuple(audio.shape)} int16: K9 and "
           f"K10 equal to K2 and to int_ref on 8 spread streams; launches "
           f"{int_launches}; K10's power rows {tuple(hpower.shape)}")
     del outs
 
-    # -- K9, K3-v1 and K10 times and bounds ----------------------------------------
+    # -- K9 and K10 times and bounds ------------------------------------------
     it = {}
     for name, fn in (
             ("K2", lambda: int_fused.mfcc_int_fused(audio, cfg)),
             ("K9", lambda: int_fused.mfcc_int_v2(audio, cfg)),
             ("K9 plain", lambda: int_fused.mfcc_int_fused_plain(audio, cfg)),
-            ("K3-v1", lambda: int_fused.mfcc_int_v1(audio, cfg)),
-            ("K3-v1 plain", lambda: int_fused.mfcc_int_v1_plain(audio, cfg)),
             ("K10", lambda: int_fused.mfcc_int_split2(audio, cfg)),
             ("K10-front", lambda: int_fused.mfcc_int_front(audio, cfg)),
             ("K10-front plain",
@@ -1877,18 +2028,14 @@ def legacy_phases(dev, card: str) -> list[dict]:
     iband = ops.band.cpu()
     per_frame = int_ops_per_frame(cfg, iband)
     front_ops, epi_ops = int_ops_split(cfg, iband)
-    frames_bytes = frames_n * 512 * 4
     k9_b = bound(audio.nbytes + out_bytes + tables,
                  4 * S_MAIN * T_MAIN + frames_n * per_frame, INT32_OPS)
-    v1_b = bound(frames_bytes + out_bytes + tables, frames_n * per_frame,
-                 INT32_OPS)
     front_b = bound(audio.nbytes + hpower.nbytes + tables,
                     4 * S_MAIN * T_MAIN + frames_n * front_ops, INT32_OPS)
     epi_b = bound(hpower.nbytes + out_bytes + tables, frames_n * epi_ops,
                   INT32_OPS)
-    print(f"bounds: K9 {k9_b[0]:.4f} ms ({k9_b[1]}); K3-v1 (its kernel, on "
-          f"the {frames_bytes} bytes of frames) {v1_b[0]:.4f} ms ({v1_b[1]}); "
-          f"K10-front {front_b[0]:.4f} ms ({front_b[1]}, {front_ops} int32 "
+    print(f"bounds: K9 {k9_b[0]:.4f} ms ({k9_b[1]}); K10-front "
+          f"{front_b[0]:.4f} ms ({front_b[1]}, {front_ops} int32 "
           f"operations a frame), K10-epi {epi_b[0]:.4f} ms ({epi_b[1]}, "
           f"{epi_ops}); K2's per frame {per_frame}")
     del hpower
@@ -1897,10 +2044,6 @@ def legacy_phases(dev, card: str) -> list[dict]:
         kernel_entry("int v2 on K2's kernel (K9)", src + "int_mfcc.cu",
                      "mfcc_tpu/ops/pallas_int.py:917", int_launches["K9"], 0,
                      it["K9"], it["K9 plain"], k9_b),
-        kernel_entry("int v1 on K3's kernel (K3-v1)", src + "int_mfcc.cu",
-                     "mfcc_tpu/ops/pallas_int.py:1291",
-                     int_launches["K3-v1"], 0, it["K3-v1"],
-                     it["K3-v1 plain"], v1_b),
         kernel_entry("int split2 front (K10-front)", src + "int_split2.cu",
                      "tools/ab_int_r5.py:135", int_launches["K10-front"], 0,
                      it["K10-front"], it["K10-front plain"], front_b),
@@ -1912,6 +2055,37 @@ def legacy_phases(dev, card: str) -> list[dict]:
 
 ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
                   "stream_r2_kernel")
+# the tails' persistent batch kernels: K1 (and K6), K7 and K7-frames, K2 and
+# K3-v1 (int16 and int32 instantiations), K3
+TAIL_KERNELS = ("fladder_kernel", "f64ish_kernel", "f64ish_frames_kernel",
+                "int_audio_kernel", "int_frames_kernel")
+_TYPES = {"s": "i16", "i": "i32", "f": "f32"}
+
+
+def ptxas_registers(build_log: str, kernels) -> list[str]:
+    """"name<template args> R regs B B spilled" for every instantiation of
+    the named kernels that ``nvcc -Xptxas=-v`` reports in ``build_log``
+    (type arguments as i16, i32, f32)."""
+    regs, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            for k in kernels:
+                hit = re.search(rf"\d+{k}(?:I(.*?)EEv|E)", m.group(1))
+                if hit:
+                    args = re.findall(r"L[a-z](-?\d+)E|([a-z])",
+                                      hit.group(1) or "")
+                    targs = [n or _TYPES.get(t, t) for n, t in args]
+                    name = k + (f"<{','.join(targs)}>" if targs else "")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if name and m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            regs.append(f"{name} {m.group(1)} regs {spill} B spilled")
+            name = None
+    return regs
 
 
 def engine_resources(build_log: str, dev) -> str:
@@ -1924,24 +2098,7 @@ def engine_resources(build_log: str, dev) -> str:
     from mfcc_tpu_torch.kernels import build
     from mfcc_tpu_torch.ops import dense_fused, float_fused
     import ctypes
-    regs, name = [], None
-    for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = None
-            for k in ENGINE_KERNELS:
-                hit = re.search(rf"\d+{k}I(.*?)EEv", m.group(1))
-                if hit:
-                    args = re.findall(r"Li(\d+)E|^([sf])", hit.group(1))
-                    targs = [a or b for a, b in args]
-                    name = f"{k}<{','.join(targs)}>"
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if name and m:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if name and m:
-            regs.append(f"{name} {m.group(1)} regs {spill} B spilled")
-            name = None
+    regs = ptxas_registers(build_log, ENGINE_KERNELS)
     lib = build.library()
     smem, stages = ctypes.c_longlong(), ctypes.c_int()
     launches = []
@@ -1990,6 +2147,9 @@ def main() -> int:
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(engine_resources(log.getvalue(), dev))
+    print("tail kernels (nvcc -Xptxas=-v; K1 fladder, K7 f64ish, K2/K3-v1 "
+          "int_audio, K3 int_frames): "
+          + "; ".join(ptxas_registers(log.getvalue(), TAIL_KERNELS)))
 
     kernels = [float_phases(dev, card)]
     torch.cuda.empty_cache()

@@ -32,7 +32,7 @@ Ported so far:
     JAX package's bench candidates: K8, one FP64 dense-DFT kernel
     (``csrc/dense_dft.cu``) behind the seven entries of
     ``ops/dense_fused.py``; K9 (``int_fused.mfcc_int_v2``) on K2's
-    kernel, K3-v1 (``mfcc_int_v1``) on K3's, and K10
+    kernel, K3-v1 (``mfcc_int_v1``) on K2's behind an int32 ingest, and K10
     (``mfcc_int_split2``), K2's function in two launches
     (``csrc/int_split2.cu``).
 

@@ -349,9 +349,10 @@ int launch(const In* audio, float* out, long long S, long long T, int F,
   const int tps = (F + geo.FT - 1) / geo.FT;
   const long long ntiles = S * tps;
   if (S == 0) return 0;
-  return launch_persistent(dense_kernel<In, CT, NT>, ntiles, geo.smem, stream,
-                           audio, out, T, F, hop, geo, ntiles, tps, nfilters,
-                           ncep, ingest, split, op, melw, moff, dct,
+  return launch_persistent(dense_kernel<In, CT, NT>, kThreads, ntiles,
+                           geo.smem, stream, audio, out, T, F, hop, geo,
+                           ntiles, tps, nfilters, ncep, ingest, split, op,
+                           melw, moff, dct,
                            reinterpret_cast<const int2*>(band), mel_len,
                            mel_floor);
 }

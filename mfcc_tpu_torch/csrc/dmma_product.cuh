@@ -430,23 +430,6 @@ inline int ring_stages(size_t rest, size_t stage_bytes) {
   return n >= 2 ? static_cast<int>(n) : 0;
 }
 
-// Launch `kernel` persistent over `ntiles` tiles, blocks of kThreads
-// threads with `smem` dynamic shared bytes (persistent_grid).  A refused
-// launch returns its cudaError_t.
-template <typename... KArgs, typename... Args>
-inline int launch_persistent(void (*kernel)(KArgs...), long long ntiles,
-                             size_t smem, void* stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  unsigned grid = 0;
-  const int rc = persistent_grid(kernel, kThreads, smem, ntiles, &grid);
-  if (rc != 0) return rc;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The tiles this block takes in a launch of `launch_persistent`: tile
 // blockIdx.x + i gridDim.x for i < turns(ntiles).
 __device__ __forceinline__ int turns(long long ntiles) {

@@ -33,23 +33,30 @@
 //  * mel_floor is 0: the f64ish mode has none (digital silence gives -inf /
 //    NaN, as in the JAX package).
 //
-// Design: K1's tail (fladder_stages.cuh): one block of 8 warps per
-// (stream, tile of 8 frames) or per tile of 8 frames, one warp per frame,
-// each warp loading its frame's packed points straight into registers; the
-// batch entry frames by address into the int16 or f32 input (frame g,
-// point p reads x[g*hop + p] and the sample before it, 0 at t = 0), the
-// frames entry reads row g.  Offsets are 64-bit.
+// Design: K1's tail (fladder_stages.cuh) in K1's persistent grid
+// (persistent.cuh, fladder.cu): as many blocks of 8 warps as the card
+// holds at once, each loading its twiddle and mel tables into shared memory
+// once; each warp then takes frames in a grid-stride loop, one frame at a
+// time, loading its frame's packed points straight into registers.  The
+// batch entry walks the flat frames G = s*F + g and frames by address into
+// the int16 or f32 input (frame g, point p reads x[g*hop + p] and the
+// sample before it, 0 at t = 0); the frames entry walks the rows.  Offsets
+// are 64-bit.  A block per 8 frames of a stream would load the tables
+// 48,128 times at the headline and idle 2 warps of every stream's last
+// tile (374 = 46 x 8 + 6).
 //
 // What bounds it, at the headline size (S=1024 x T=63,922 int16, nfft 512,
 // hop 170: 382,976 frames): K1's ~19.6 kFLOP of FP64 per frame plus the
 // grid step, ~7.9 GFLOP, 0.23 ms at 34 TFLOP/s (HBM 0.054 ms); the frames
 // entry reads 784 MB of f32 frames, 0.25 ms at 3.35 TB/s.  chip_smoke.py
-// counts both from this source.
+// counts both from this source.  K1's tail, which both entries run, is
+// bound by instruction issue (fladder.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fladder_stages.cuh"
+#include "persistent.cuh"
 
 namespace {
 
@@ -71,43 +78,55 @@ __device__ __forceinline__ double grid(float y, int wire_grid) {
   return wire_grid ? rint(v * 32.0) * 0.03125 : v;
 }
 
+// Blocks an SM must hold at once, which caps the registers, as K1's
+// (fladder.cu): 4 at nfft 256, 3 at 512, 2 at 1024 (all its shared memory
+// allows).  nvcc -Xptxas=-v gives both kernels 64 / 80 / 128 registers
+// there, for either input, and no spills (chip_smoke.py prints the
+// report).  At 2 blocks at nfft 512 (118 registers) K7 runs ~5% slower.
+template <int LOG2P>
+constexpr int kResident = LOG2P == 4 ? 2 : LOG2P == 3 ? 3 : 4;
+
 template <typename In, int LOG2P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kResident<LOG2P>)
 f64ish_kernel(const In* __restrict__ audio, float* __restrict__ out,
-              long long T, int F, int hop, int nfilters, int ncep,
-              long long tiles_per_stream, const double2* __restrict__ win,
+              long long T, int F, int hop, long long frames, int nfilters,
+              int ncep, const double2* __restrict__ win,
               const double2* __restrict__ tw, const double* __restrict__ mel,
               const double* __restrict__ dct, const int2* __restrict__ band,
               int wire_grid) {
   extern __shared__ double2 smem[];
   constexpr int log2m = 5 + LOG2P;
+  constexpr int kP = 1 << LOG2P;
   const Smem sm = carve(smem, log2m + 1);
   load_constants(sm, log2m + 1, tw, mel, band, nfilters);
   __syncthreads();
 
-  const long long s = blockIdx.x / tiles_per_stream;
-  const int g = static_cast<int>(blockIdx.x % tiles_per_stream) * kFrames +
-                static_cast<int>(threadIdx.x) / kLanes;
-  if (g >= F) return;
-  const In* x = audio + s * T + static_cast<long long>(g) * hop;
-  // sample pairs, packed as z[m] = y[2m] + i*y[2m+1], lane l's register r
-  // holding z[l + 32r]
-  double2 z[1 << LOG2P];
+  // each warp takes frames G = s * F + g in a grid-stride loop
+  const int l = lane();
+  for (long long G = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       G < frames; G += static_cast<long long>(gridDim.x) * kFrames) {
+    const long long s = G / F;
+    const int g = static_cast<int>(G - s * F);
+    const In* x = audio + s * T + static_cast<long long>(g) * hop;
+    // sample pairs, packed as z[m] = y[2m] + i*y[2m+1], lane l's register
+    // r holding z[l + 32r]
+    double2 z[kP];
 #pragma unroll
-  for (int r = 0; r < (1 << LOG2P); ++r) {
-    const int m = lane() + 32 * r;
-    const float p = g > 0 || m > 0 ? to_f32(x[2 * m - 1]) : 0.0f;
-    const float a = to_f32(x[2 * m]);
-    const float b = to_f32(x[2 * m + 1]);
-    z[r] = window_pair(grid(emph(a, p), wire_grid), grid(emph(b, a), wire_grid),
-                       win[m]);
+    for (int r = 0; r < kP; ++r) {
+      const int m = l + 32 * r;
+      const float p = g > 0 || m > 0 ? to_f32(x[2 * m - 1]) : 0.0f;
+      const float a = to_f32(x[2 * m]);
+      const float b = to_f32(x[2 * m + 1]);
+      z[r] = window_pair(grid(emph(a, p), wire_grid),
+                         grid(emph(b, a), wire_grid), win[m]);
+    }
+    ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, 0.0,
+                       out + G * ncep);
   }
-  ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, 0.0,
-                     out + (s * F + g) * ncep);
 }
 
 template <int LOG2P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kResident<LOG2P>)
 f64ish_frames_kernel(const float* __restrict__ frames, float* __restrict__ out,
                      long long M_frames, int nfilters, int ncep,
                      const double2* __restrict__ win,
@@ -118,23 +137,26 @@ f64ish_frames_kernel(const float* __restrict__ frames, float* __restrict__ out,
   extern __shared__ double2 smem[];
   constexpr int log2m = 5 + LOG2P;
   constexpr int nfft = 2 << log2m;
+  constexpr int kP = 1 << LOG2P;
   const Smem sm = carve(smem, log2m + 1);
   load_constants(sm, log2m + 1, tw, mel, band, nfilters);
   __syncthreads();
 
-  const long long g = static_cast<long long>(blockIdx.x) * kFrames +
-                      threadIdx.x / kLanes;
-  if (g >= M_frames) return;
-  const float* row = frames + g * nfft;
-  double2 z[1 << LOG2P];
+  // each warp takes rows G in a grid-stride loop
+  const int l = lane();
+  for (long long G = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       G < M_frames; G += static_cast<long long>(gridDim.x) * kFrames) {
+    const float* row = frames + G * nfft;
+    double2 z[kP];
 #pragma unroll
-  for (int r = 0; r < (1 << LOG2P); ++r) {
-    const int m = lane() + 32 * r;
-    z[r] = window_pair(grid(row[2 * m], wire_grid),
-                       grid(row[2 * m + 1], wire_grid), win[m]);
+    for (int r = 0; r < kP; ++r) {
+      const int m = l + 32 * r;
+      z[r] = window_pair(grid(row[2 * m], wire_grid),
+                         grid(row[2 * m + 1], wire_grid), win[m]);
+    }
+    ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, 0.0,
+                       out + G * ncep);
   }
-  ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, 0.0,
-                     out + g * ncep);
 }
 
 // The checks of both entries; true if the arguments are out of range.
@@ -152,21 +174,15 @@ int launch_audio(const In* audio, float* out, long long S, long long T, int F,
       T < static_cast<long long>(F - 1) * hop + nfft)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  const long long tiles = (F + kFrames - 1) / kFrames;
-  const long long blocks = S * tiles;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(nfft);
+  const long long frames = S * F;
   return with_points(nfft, [&](auto pts) {
     constexpr int L = decltype(pts)::value;
-    const int err = allow_smem(f64ish_kernel<In, L>, smem);
-    if (err != 0) return err;
-    f64ish_kernel<In, L><<<static_cast<unsigned>(blocks), kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        audio, out, T, F, hop, nfilters, ncep, tiles,
-        reinterpret_cast<const double2*>(win),
+    return launch_persistent(
+        f64ish_kernel<In, L>, kThreads, (frames + kFrames - 1) / kFrames,
+        smem_bytes(nfft), stream, audio, out, T, F, hop, frames, nfilters,
+        ncep, reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
         reinterpret_cast<const int2*>(band), wire_grid);
-    return static_cast<int>(cudaGetLastError());
   });
 }
 
@@ -210,18 +226,13 @@ extern "C" int mfcc_f64ish_frames_f32(const float* frames, float* out,
   if (bad_tables(nfft, nfilters, ncep) || M < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const long long blocks = (M + kFrames - 1) / kFrames;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(nfft);
   return with_points(nfft, [&](auto pts) {
     constexpr int L = decltype(pts)::value;
-    const int err = allow_smem(f64ish_frames_kernel<L>, smem);
-    if (err != 0) return err;
-    f64ish_frames_kernel<L><<<static_cast<unsigned>(blocks), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-        frames, out, M, nfilters, ncep, reinterpret_cast<const double2*>(win),
+    return launch_persistent(
+        f64ish_frames_kernel<L>, kThreads, (M + kFrames - 1) / kFrames,
+        smem_bytes(nfft), stream, frames, out, M, nfilters, ncep,
+        reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
         reinterpret_cast<const int2*>(band), wire_grid);
-    return static_cast<int>(cudaGetLastError());
   });
 }

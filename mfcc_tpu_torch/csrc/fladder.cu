@@ -134,22 +134,14 @@ int launch(const In* audio, float* out, long long S, long long T, int F,
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
   const long long frames = S * F;
-  const size_t smem = smem_bytes(nfft);
   return with_points(nfft, [&](auto pts) {
     constexpr int L = decltype(pts)::value;
-    int err = allow_smem(fladder_kernel<In, L>, smem);
-    unsigned grid = 0;
-    if (err == 0)
-      err = persistent_grid(fladder_kernel<In, L>, kThreads, smem,
-                            (frames + kFrames - 1) / kFrames, &grid);
-    if (err != 0) return err;
-    fladder_kernel<In, L><<<grid, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-        audio, out, T, F, hop, frames, nfilters, ncep,
-        reinterpret_cast<const double2*>(win),
+    return launch_persistent(
+        fladder_kernel<In, L>, kThreads, (frames + kFrames - 1) / kFrames,
+        smem_bytes(nfft), stream, audio, out, T, F, hop, frames, nfilters,
+        ncep, reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
         reinterpret_cast<const int2*>(band), mel_floor);
-    return static_cast<int>(cudaGetLastError());
   });
 }
 

@@ -2,9 +2,10 @@
 // arithmetic (mfcc_tpu_torch/ref/int_ref.py holds the derivations), for
 // the reference's 16-bit datapath (width 16, window precision 8, power
 // width 30, nfft 512).  Shared by the fused INT kernels of int_mfcc.cu (K2
-// from raw audio, K3 from pre-emphasized frames), by the INT serving step
-// K4 of stream_step.cu, the same tail behind a carry-aware ingest, and by
-// the two launches of K10 (int_split2.cu), which cut the tail at the power.
+// from int16 audio, K3-v1 from int32 audio, K3 from pre-emphasized
+// frames), by the INT serving step K4 of stream_step.cu, the same tail
+// behind a carry-aware ingest, and by the two launches of K10
+// (int_split2.cu), which cut the tail at the power.
 //
 // Signed overflow is undefined in C++, while the reference's int32 stages
 // wrap mod 2^32 (the exactness argument of ops/int_ops.py needs the wrap).
@@ -50,6 +51,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace int_stages {
 
@@ -243,18 +246,30 @@ __device__ __forceinline__ int first_sample(int r) {
   return bitrev(16 * lane() + r, kLog2Nfft);
 }
 
-// The ladder's first layout of the frame whose first int16 sample is x[0]:
-// pre-emphasis (the sample before it is x[-1], or 0 when `first`, the
-// signal's start) and the window, lane l's register r holding sample
+// Pre-emphasis by sample type: int16 samples take preemph (K2's wire rule,
+// samples mod 2^16), int32 samples preemph32, read whole with the sum mod
+// 2^32 (K3-v1's rule, pallas_int.py:1271-1272).
+template <typename In>
+__device__ __forceinline__ int emphasize(int x, int prev) {
+  static_assert(std::is_same_v<In, int16_t> || std::is_same_v<In, int32_t>,
+                "int16 or int32 samples");
+  if constexpr (std::is_same_v<In, int16_t>) return preemph(x, prev);
+  else return preemph32(x, prev);
+}
+
+// The ladder's first layout of the frame whose first sample is x[0], int16
+// or int32: pre-emphasis (the sample before it is x[-1], or 0 when `first`,
+// the signal's start) and the window, lane l's register r holding sample
 // first_sample(r).
-__device__ __forceinline__ void load_audio_frame(const int16_t* x, bool first,
+template <typename In>
+__device__ __forceinline__ void load_audio_frame(const In* x, bool first,
                                                  const int* curve,
                                                  int (&re)[kPts]) {
 #pragma unroll
   for (int r = 0; r < kPts; ++r) {
     const int p = first_sample(r);
     const int prev = first && p == 0 ? 0 : x[p - 1];
-    re[r] = window(preemph(x[p], prev), curve[p]);
+    re[r] = window(emphasize<In>(x[p], prev), curve[p]);
   }
 }
 

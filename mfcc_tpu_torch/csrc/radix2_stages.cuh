@@ -454,8 +454,8 @@ int launch_r2(Kernel kernel, long long M, int nfft, int nfilters, int ncep,
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const long long ntiles = (M + geo.FT - 1) / geo.FT;
-  return launch_persistent(kernel, ntiles, geo.smem, stream, geo, M,
-                           static_cast<const OpT*>(o.data), args...);
+  return launch_persistent(kernel, kThreads, ntiles, geo.smem, stream, geo,
+                           M, static_cast<const OpT*>(o.data), args...);
 }
 
 }  // namespace radix2_stages

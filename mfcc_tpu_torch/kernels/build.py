@@ -43,10 +43,11 @@ _LL = ctypes.c_longlong
 #                        win, tw, mel, dct, band, mel_floor, stream)
 _FLADDER_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, ctypes.c_double, _P]
-# mfcc_int_i16(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
-#              log_precision, log_width, curve, tw, dtw, fbw, band, stream)
-_INT_I16_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
-                 _P, _P, _P, _P, _P, _P]
+# mfcc_int_{i16,i32}(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
+#                    log_precision, log_width, curve, tw, dtw, fbw, band,
+#                    stream)
+_INT_AUDIO_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
+                   _P, _P, _P, _P, _P, _P]
 # mfcc_int_frames_i32(frames, out, M, nfilters, ncep, fb_shift,
 #                     log_precision, log_width, curve, tw, dtw, fbw, band,
 #                     stream)
@@ -114,7 +115,8 @@ SIGNATURES = {
     "mfcc_frames_float_f32": _FRAMES_FLOAT_ARGS,
     "mfcc_stream_r2_i16": _STREAM_R2_ARGS,
     "mfcc_stream_r2_f32": _STREAM_R2_ARGS,
-    "mfcc_int_i16": _INT_I16_ARGS,
+    "mfcc_int_i16": _INT_AUDIO_ARGS,
+    "mfcc_int_i32": _INT_AUDIO_ARGS,
     "mfcc_int_frames_i32": _INT_FRAMES_ARGS,
     "mfcc_stream_f32_i16": _STREAM_F32_ARGS,
     "mfcc_stream_f32_f32": _STREAM_F32_ARGS,

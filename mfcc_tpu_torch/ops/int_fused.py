@@ -14,15 +14,16 @@ of ``tools/ab_int_r5.py``:
     function under K2's wire rule, on K2's kernel;
   * ``mfcc_int_v1`` (K3-v1, the counterpart of ``mfcc_int_pallas``): int32
     samples emphasized as they are (only the emphasis output wraps to 16
-    bits), framed by torch ops, then K3's kernel;
+    bits), on K2's kernel behind an int32 ingest (``mfcc_int_i32``): the
+    kernel frames by address and emphasizes, so no frames tensor exists;
   * ``mfcc_int_split2`` (K10, the counterpart of ``split2_build``): K2's
     function in two launches, ``mfcc_int_front_i16`` up to the power and
     ``mfcc_int_epi`` after it, with a (frames, 256) int32 power buffer in
     device memory between them (``csrc/int_split2.cu``).
 
-K2 and K3 are ``csrc/int_mfcc.cu``; every kernel runs the device functions
-of ``csrc/int_stages.cuh``.  A CUDA tensor launches the kernel (or the
-wrapper raises), a CPU tensor takes the plain version (``*_plain``, the
+K2, K3-v1 and K3 are ``csrc/int_mfcc.cu``; every kernel runs the device
+functions of ``csrc/int_stages.cuh``.  A CUDA tensor launches the kernel (or
+the wrapper raises), a CPU tensor takes the plain version (``*_plain``, the
 ``int_ops`` chain).  ``LAUNCHES`` counts kernel launches per entry.
 
 K2, K9 and K10 read samples as int16, the JAX kernels' wire contract
@@ -160,13 +161,23 @@ def _launch_audio(key: str, audio: torch.Tensor, cfg: MFCCConfig
                   ) -> torch.Tensor:
     """Launch K2's kernel on (..., T) int16 or int32 CUDA audio (int32
     taken mod 2^16 first), counted under ``key``."""
-    x, lead, F = _wire_audio(key, audio, cfg)
+    return _launch_samples(key, *_wire_audio(key, audio, cfg), cfg)
+
+
+def _launch_samples(key: str, x: torch.Tensor, lead: tuple, F: int,
+                    cfg: MFCCConfig) -> torch.Tensor:
+    """Launch K2's audio kernel on contiguous (S, T) CUDA samples, counted
+    under ``key``: int16 through ``mfcc_int_i16`` (K2's emphasis), int32
+    through ``mfcc_int_i32`` (read whole, the emphasis mod 2^32).  Returns
+    (*lead, F, ncep) int32."""
     S, T = x.shape
-    ops = int_operators(cfg, audio.device)
+    ops = int_operators(cfg, x.device)
     tail = tail_args(cfg, ops)
-    out = torch.empty((S, F, tail[1]), dtype=torch.int32, device=audio.device)
-    _launch(key, build.library().mfcc_int_i16, audio, x.data_ptr(),
-            out.data_ptr(), S, T, F, cfg.hop, *tail, *table_ptrs(ops))
+    out = torch.empty((S, F, tail[1]), dtype=torch.int32, device=x.device)
+    lib = build.library()
+    fn = lib.mfcc_int_i16 if x.dtype == torch.int16 else lib.mfcc_int_i32
+    _launch(key, fn, x, x.data_ptr(), out.data_ptr(), S, T, F, cfg.hop,
+            *tail, *table_ptrs(ops))
     return out.reshape(lead + (F, tail[1]))
 
 
@@ -235,16 +246,26 @@ def mfcc_int_v1(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
                 ) -> torch.Tensor:
     """K3-v1, the counterpart of ``pallas_int.mfcc_int_pallas``: (..., T)
     samples of any integer-valued dtype (cast to int32 as they are) ->
-    (..., F, nceptrums) int32.  On a CUDA tensor the pre-emphasis and the
-    framing are torch ops, as they are XLA ops in JAX, and K3's kernel
-    (counted as "K3-v1") windows and runs the rest, or the wrapper raises;
-    a CPU tensor takes ``mfcc_int_v1_plain``."""
+    (..., F, nceptrums) int32.  The wire rule: the samples are taken whole
+    as int32, the pre-emphasis x + (prev >> 5) - prev is taken mod 2^32 and
+    only its output wraps to 16 bits.  On a CUDA tensor one launch of K2's
+    audio kernel (counted as "K3-v1") runs everything, emphasis and
+    framing included: int16 samples through K2's int16 ingest (on them the
+    two wire rules are one function), int32 through its int32 ingest, any
+    other dtype after one cast to int32 (JAX's ``astype(jnp.int32)``); or
+    the wrapper raises.  A CPU tensor takes ``mfcc_int_v1_plain``."""
     _require_family(cfg)
     if audio.device.type == "cpu":
         return mfcc_int_v1_plain(audio, cfg)
-    emph = framing.preemphasis_int(audio.to(torch.int32), width=cfg.width)
-    frames = framing.extract_frames(emph, cfg.nfft, cfg.hop).contiguous()
-    return _launch_frames("K3-v1", frames, cfg)
+    if audio.device.type != "cuda":
+        raise ValueError(f"K3-v1 runs on CUDA or CPU tensors, got "
+                         f"{audio.device}")
+    lead, T = audio.shape[:-1], audio.shape[-1]
+    F = framing.num_frames(T, cfg.hop, cfg.nfft)
+    x = audio if audio.dtype in (torch.int16, torch.int32) else audio.to(
+        torch.int32)
+    return _launch_samples("K3-v1", x.reshape(-1, T).contiguous(), lead, F,
+                           cfg)
 
 
 # -- K10: K2's function in two launches ------------------------------------------

@@ -3,11 +3,14 @@
 K2's INT tail (``csrc/int_stages.cuh``: K2, K3, K4-INT, K9, K3-v1, K10) and
 K1's float tail (``csrc/fladder_stages.cuh``: K1, K6, K4-float, K7) give
 each frame to one warp of 32 lanes and keep its points in registers; between
-passes the warp exchanges them through the frame's shared row.  This module
-states those schedules with the kernels' own index formulas -- which lane
-and register holds which point in each pass, which stages run in each pass,
-where each point sits in the row, which table entry is each twiddle -- and
-runs a batch of frames through them in torch.  The CPU tests use it to check
+passes the warp exchanges them through the frame's shared row.  The batch
+kernels' warps walk the frames in a persistent grid (``persistent_walk``),
+and K2's and K3-v1's ingest loads each frame from the samples
+(``int_audio_ingest_model``).  This module states those schedules with the
+kernels' own index formulas -- which lane and register holds which point in
+each pass, which stages run in each pass, where each point sits in the row,
+which table entry is each twiddle -- and runs a batch of frames through them
+in torch.  The CPU tests use it to check
 that every exchange is a permutation, that the passes perform each butterfly
 of the standard plan once, and that the scheduled arithmetic equals the
 ``int_ops`` chain element for element (INT) and the float64 FFT and
@@ -33,7 +36,7 @@ LANES = 32
 _L = torch.arange(LANES)
 
 
-# -- INT: the 512-point ladder and the DCT ladder (int_stages.cuh) -------------
+# -- INT: the 512-point ladder and the DCT ladder (int_stages.cuh) ------------
 
 INT_NFFT = 512
 INT_PTS = INT_NFFT // LANES            # ladder points per lane
@@ -131,21 +134,72 @@ def _ladder_pass(re, im, name, stages, tw):
     return re, im
 
 
+def int_first_sample() -> torch.Tensor:
+    """(32, 16) int64: the sample lane l's register r holds in the ladder's
+    first layout, ``first_sample(r)`` = bitrev(16l + r, 9)."""
+    return _bitrev(int_layout("A"), int(np.log2(INT_NFFT)))
+
+
+def int_first_layout(windowed: torch.Tensor) -> torch.Tensor:
+    """(N, 512) int32 windowed frames as the warps hold them after their
+    load: (N, 32, 16), lane l's register r sample ``first_sample(r)``."""
+    return windowed.to(torch.int32)[:, int_first_sample()]
+
+
+def int_audio_ingest_model(x: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
+                           ) -> torch.Tensor:
+    """K2's and K3-v1's ingest (``int_stages.cuh`` ``load_audio_frame``) on
+    (S, T) int16 or int32 samples, with the kernel's index formulas: warp
+    G = s*F + g, lane l, register r takes sample p = first_sample(r) of
+    frame g, x[s, g*hop + p], and prev = x[s, g*hop + p - 1], or 0 at t =
+    0; int16 samples take ``preemph``, int32 ``preemph32`` (x + (prev >> 5)
+    - prev in uint32, then wrap16), then the window wrap16((v * curve[p]
+    mod 2^32) >> 9).  Returns (S*F, 32, 16) int32 registers."""
+    S, T = x.shape
+    F = (T - INT_NFFT) // cfg.hop + 1
+    curve = torch.as_tensor(tables.int_window_curve(INT_NFFT,
+                                                    cfg.window_precision),
+                            dtype=torch.int64)
+    p = int_first_sample()                                   # (32, 16)
+    g = torch.arange(F)[:, None, None]
+    t = g * cfg.hop + p                                      # (F, 32, 16)
+    xs = x.to(torch.int64)
+    cur = xs[:, t]                                           # (S, F, 32, 16)
+    first = (t == 0)
+    prev = torch.where(first, torch.zeros((), dtype=torch.int64),
+                       xs[:, torch.clamp(t - 1, min=0)])
+    if x.dtype == torch.int16:
+        emph = int_ops.wrap_signed(cur + (prev >> 5) - prev, 16)
+    elif x.dtype == torch.int32:
+        y = ((cur & 0xFFFFFFFF) + ((prev >> 5) & 0xFFFFFFFF)
+             - (prev & 0xFFFFFFFF)) & 0xFFFFFFFF             # uint32
+        emph = int_ops.wrap_signed(y, 16)
+    else:
+        raise TypeError(f"the ingest reads int16 or int32, got {x.dtype}")
+    prod = (emph * curve[p]) & 0xFFFFFFFF                    # uint32 product
+    prod = prod - ((prod >> 31) << 32)                       # as int32
+    win = int_ops.wrap_signed(prod >> (cfg.window_precision + 1), 16)
+    return win.reshape(S * F, LANES, INT_PTS).to(torch.int32)
+
+
 def int_ladder_power_model(windowed: torch.Tensor) -> torch.Tensor:
     """The warp's ladder and power on (N, 512) int32 windowed frames: the
-    bit-reversed load (the kernels' warps load these values straight into
-    layout A), layout A's four stages, the packed exchange to B, four
-    stages, the exchange to C, stage 8's lower outputs and their power.
-    Returns (N, 256) int32 power, bin l + 32k from lane l's register k."""
-    N = windowed.shape[0]
+    bit-reversed load (``int_first_layout``), then
+    ``int_ladder_power_registers``.  Returns (N, 256) int32 power."""
+    return int_ladder_power_registers(int_first_layout(windowed))
+
+
+def int_ladder_power_registers(re: torch.Tensor) -> torch.Tensor:
+    """The warp's ladder and power from its registers in the first layout
+    (N, 32, 16) int32, as the kernels' warps load them: layout A's four
+    stages, the packed exchange to B, four stages, the exchange to C,
+    stage 8's lower outputs and their power.  Returns (N, 256) int32
+    power, bin l + 32k from lane l's register k."""
+    N = re.shape[0]
     tw = torch.as_tensor(np.stack(tables.twiddle_table(INT_NFFT, 16), axis=1),
                          dtype=torch.int32)
     row = torch.zeros((N, INT_ROW), dtype=torch.int32)
-    p = torch.arange(INT_NFFT)
-    bits = int(np.log2(INT_NFFT))
-    rev = torch.as_tensor([int(f"{v:0{bits}b}"[::-1], 2) for v in range(INT_NFFT)])
-    row[:, int_pad(rev[p])] = windowed.to(torch.int32)
-    re = _gather_regs(row, int_layout("A"))
+    re = re.to(torch.int32)
     im = torch.zeros_like(re)
     for (name, stages), nxt in zip(INT_PASSES, ("B", "C", None)):
         re, im = _ladder_pass(re, im, name, stages, tw)
@@ -274,7 +328,40 @@ def int_tail_model(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
     return int_post_power_model(int_ladder_power_model(win), cfg)
 
 
-# -- float: the packed FFT, unpack, mel and DCT (fladder_stages.cuh) -----------
+# -- the persistent walk (persistent.cuh; K1, K7, K2, K3-v1, K3) --------------
+
+FRAMES_PER_BLOCK = 8    # kFrames: 8 warps a block, one frame a warp
+
+
+def persistent_grid(tiles: int, sms: int, per_sm: int) -> int:
+    """``persistent_grid`` of persistent.cuh: as many blocks as the card
+    holds at once (``per_sm`` from the occupancy calculator, 1 where it
+    gives 0), no more than ``tiles`` (8-frame tiles of work)."""
+    resident = sms * (per_sm if per_sm > 0 else 1)
+    return tiles if tiles < resident else resident
+
+
+def persistent_walk(frames: int, F: int, grid: int) -> list:
+    """The frames each warp of a persistent launch of ``grid`` blocks
+    takes, by the kernels' loop bounds: warp w of block b starts at G =
+    b*8 + w and steps by grid*8 while G < frames; flat frame G is stream s
+    = G // F, frame g = G - s*F, and ``first`` (the signal's start: the
+    sample before the frame reads as 0) is g == 0.  The frames entries walk
+    rows the same way (F = frames).  Returns [(b, w, G, s, g, first)],
+    each warp's frames in the order it takes them."""
+    out = []
+    for b in range(grid):
+        for w in range(FRAMES_PER_BLOCK):
+            G = b * FRAMES_PER_BLOCK + w
+            while G < frames:
+                s = G // F
+                g = G - s * F
+                out.append((b, w, G, s, g, g == 0))
+                G += grid * FRAMES_PER_BLOCK
+    return out
+
+
+# -- float: the packed FFT, unpack, mel and DCT (fladder_stages.cuh) ----------
 
 def swz(i):
     """The row swizzle: bits 3..8 of i select XOR masks 2, 5, 6, 4, 1, 2 of

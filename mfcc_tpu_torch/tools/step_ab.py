@@ -1,6 +1,6 @@
-"""Time the batch kernels K1, K2, K5 and K8 and the serving steps of several
-checkouts of the port on one CUDA card, one process per checkout, in the
-order given.
+"""Time the batch kernels K1, K2, K3-v1, K7, K5 and K8 and the serving steps
+of several checkouts of the port on one CUDA card, one process per
+checkout, in the order given.
 
     python3 mfcc_tpu_torch/tools/step_ab.py TREE [TREE ...]
 
@@ -12,7 +12,14 @@ kernels and prints one JSON line with the tree, the card
 (``fladder.mfcc_float_ladder``) and K2 (``int_fused.mfcc_int_fused``) at
 S=1024 streams x T=63,922 int16 samples (4 s, 382,976 frames), with K1's
 max-abs difference from its plain version and a digest of K2's output
-(element-exact in every tree, so the digests agree); K8
+(element-exact in every tree, so the digests agree); K3-v1
+(``int_fused.mfcc_int_v1``) on the same samples as int32, K7
+(``f64ish.mfcc_f64ish``) on them and K7-frames (``mfcc_f64ish_frames``)
+on their (1024, 374, 512) f32 frames, and K1 and K7 at the JAX bench's
+f64ish shape S=512 x T=16,322 (``*_bench_ms``), with a digest of each
+output of K1, K3-v1, K7 and K7-frames held to the first tree's bit for
+bit (``*_ok``: these kernels' arithmetic is fixed, so a tree that moves
+a bit has changed it); K8
 (``dense_fused.mfcc_raw`` and ``mfcc_batch_dense``) and K5
 (``float_fused.mfcc_radix2`` at 3 and 6 passes) on the same input, with a
 digest of each output and its max-abs difference from the first tree's
@@ -25,9 +32,9 @@ float and INT (the mean of a chain of 16 steps with the state threaded
 through); each the median of 10 after warm-up, device time by CUDA
 events.  ``*_host_ms`` is the host's time to issue one step of the chain
 (no synchronization inside it): a step whose host time reaches its device
-time is held back by the host.  The first tree's K5 and K8 outputs are
-kept in ``mfcc_tpu_torch/_build/step_ab/`` of the tree that runs the
-script, for the later trees to compare with.
+time is held back by the host.  The first tree's outputs are kept in
+``mfcc_tpu_torch/_build/step_ab/`` of the tree that runs the script, for
+the later trees to compare with.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import time
 
 S, C, STEPS, ITERS, WARMUP = 4096, 1024, 16, 10, 3
 S_BATCH, T_BATCH = 1024, 63_922
+S_BENCH, T_BENCH = 512, 512 + 93 * 170     # the JAX bench's f64ish shape
 KERNEL_TOL, R2_TOL = 5e-5, 2e-4     # chip_smoke.py's
 REF_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build", "step_ab")
@@ -105,8 +113,9 @@ def child(tree: str, first: bool) -> dict:
     import torch
     from mfcc_tpu_torch import MFCCConfig, StreamingMFCC
     from mfcc_tpu_torch.kernels import build
-    from mfcc_tpu_torch.ops import (dense_fused, fladder, float_fused,
-                                    int_fused, stream_fused)
+    from mfcc_tpu_torch.ops import (dense_fused, f64ish, fladder,
+                                    float_fused, framing, int_fused,
+                                    stream_fused)
 
     build.build()
     build.library()
@@ -120,8 +129,25 @@ def child(tree: str, first: bool) -> dict:
         audio, cfg)).abs().max())
     out["k2_sha1"] = hashlib.sha1(int_fused.mfcc_int_fused(audio, cfg)
                                   .cpu().numpy().tobytes()).hexdigest()
-    out["k1_ms"] = time_ms(lambda: fladder.mfcc_float_ladder(audio, cfg))[0]
-    out["k2_ms"] = time_ms(lambda: int_fused.mfcc_int_fused(audio, cfg))[0]
+    audio32 = audio.to(torch.int32)
+    hframes = framing.extract_frames(framing.preemphasis(
+        audio.to(torch.float32)), cfg.nfft, cfg.hop).contiguous()
+    bench = torch.from_numpy(make_audio(S_BENCH, T_BENCH, seed=3)
+                             .astype(np.int16)).to(dev)
+    for name, fn in (
+            ("k1", lambda: fladder.mfcc_float_ladder(audio, cfg)),
+            ("k2", lambda: int_fused.mfcc_int_fused(audio, cfg)),
+            ("k3v1", lambda: int_fused.mfcc_int_v1(audio32, cfg)),
+            ("k7", lambda: f64ish.mfcc_f64ish(audio, cfg)),
+            ("k7_frames", lambda: f64ish.mfcc_f64ish_frames(hframes, cfg))):
+        if name != "k2":
+            against_first(out, name, fn(), first, 0.0)
+        out[f"{name}_ms"] = time_ms(fn)[0]
+    for name, fn in (
+            ("k1_bench", lambda: fladder.mfcc_float_ladder(bench, cfg)),
+            ("k7_bench", lambda: f64ish.mfcc_f64ish(bench, cfg))):
+        out[f"{name}_ms"] = time_ms(fn)[0]
+    del audio32, hframes, bench
     for name, fn, tol in (
             ("k8_raw", lambda: dense_fused.mfcc_raw(audio, cfg), KERNEL_TOL),
             ("k8_batch", lambda: dense_fused.mfcc_batch_dense(audio, cfg),

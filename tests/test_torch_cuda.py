@@ -2,9 +2,11 @@
 plain version within TOL, K2 and K3 (INT) against theirs element for
 element (``torch.equal``), the serving step K4 (float within TOL, INT and
 every carry ``torch.equal``), K5, K5-frames and the split-DFT step (within
-TOL_R2), K6, K7 and K7-frames (within TOL), K8's seven dense-DFT entries
-(within TOL), K9, K3-v1 and K10 (``torch.equal``), streaming against
-batch, the split chain and the ``FeatureServer`` on the card; and the
+TOL_R2), K6, K7 and K7-frames (within TOL; K7 on int16 equal to K1, on
+ragged shapes and at the headline size), K8's seven dense-DFT entries
+(within TOL), K9, K3-v1 and K10 (``torch.equal``; K3-v1 on int32 edges
+and int64 too, one launch and no allocation but its output), streaming
+against batch, the split chain and the ``FeatureServer`` on the card; and the
 warp tails' geometry (one warp a frame, 8 frames a block): ragged frame
 counts for K1, K2, K3 and K10, and K4 where a stream's frame slots fill a
 tile partly, wholly or into a second one; and the FP64 product engine of
@@ -611,6 +613,49 @@ def test_stream_f64ish_on_card(dev):
         assert np.abs(got[s] - want[s]).max() <= TOL
 
 
+@pytest.mark.parametrize("nfft,hop", [(256, 86), (512, 170), (1024, 340)])
+def test_f64ish_persistent_walk_on_card(dev, nfft, hop):
+    """K7 and K7-frames in their persistent grids on ragged shapes: S*F not
+    a multiple of 8 (3 x 5), F = 1, S = 1, one frame; K7 on int16 equal to
+    K1 bit for bit and within TOL of its plain version on int16 and on
+    [-1, 1] f32 on and off the wire grid; K7-frames within TOL on M < 8
+    rows and on 9."""
+    cfg = MFCCConfig(nfft=nfft, step=hop)
+    for S, F in ((3, 5), (13, 1), (1, 21), (1, 1)):
+        T = nfft + (F - 1) * hop + F % 3
+        sig = _tonal(S, T, seed=S * 31 + F)
+        x16 = torch.from_numpy(sig.astype(np.int16)).to(dev)
+        got = f64ish.mfcc_f64ish(x16, cfg)
+        assert got.shape == (S, F, 32)
+        assert torch.equal(got, fladder.mfcc_float_ladder(x16, cfg)), (S, F)
+        xf = torch.from_numpy(sig / np.float32(32768)).to(dev)
+        for x, wg in ((x16, True), (xf, True), (xf, False)):
+            got = f64ish.mfcc_f64ish(x, cfg, wire_grid=wg)
+            want = f64ish.mfcc_batch_f64ish_plain(x, cfg, wire_grid=wg)
+            assert (got - want).abs().max().item() <= TOL, (S, F, wg)
+    for M in (1, 5, 7, 9):
+        fr = torch.from_numpy(np.random.default_rng(M).uniform(
+            -1, 1, (M, nfft)).astype(np.float32)).to(dev)
+        got = f64ish.mfcc_f64ish_frames(fr, cfg)
+        assert got.shape == (M, 32)
+        want = f64ish.mfcc_frames_f64ish_plain(fr, cfg)
+        assert (got - want).abs().max().item() <= TOL, M
+
+
+def test_f64ish_many_frames_a_warp_on_card(dev):
+    """At S=1024 x 4 s (382,976 frames: over 100 a resident warp at 3
+    blocks of 8 warps an SM) K7 on int16 equals K1 bit for bit and
+    K7-frames its plain version within TOL."""
+    x = torch.from_numpy(_tonal(1024, 63_922, 5).astype(np.int16)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1024 * 374 > 100 * sms * 3 * 8
+    assert torch.equal(f64ish.mfcc_f64ish(x), fladder.mfcc_float_ladder(x))
+    frames = framing.extract_frames(framing.preemphasis(x.float()), 512, 170)
+    got = f64ish.mfcc_f64ish_frames(frames)
+    want = f64ish.mfcc_frames_f64ish_plain(frames)
+    assert (got - want).abs().max().item() <= TOL
+
+
 def test_split_and_segmented_on_card(dev):
     """The split chain and the segmented formulation on the card hold the
     float gate on the JAX bench's gate input (2 streams x 5 frames)."""
@@ -761,6 +806,54 @@ def test_int_split2_stages_on_card(dev):
         int_fused.mfcc_int_epi(power[..., :128].contiguous())
     with pytest.raises(TypeError, match="int16 or torch.int32"):
         int_fused.mfcc_int_v2(x.float())
+
+
+INT32_EDGES = (2 ** 31 - 1, -(2 ** 31 - 1), -2 ** 31)
+
+
+def test_int_v1_kernel_on_card(dev):
+    """K3-v1 is one launch of K2's audio kernel a call (K3's count does not
+    move), equal to its plain version on int16, on full-range int32, on
+    int32 edges +-(2^31 - 1) and -2^31 among full-range samples (where
+    the emphasis wraps mod 2^32; equal to ``int_ref`` there) and on int64
+    input with two leading axes; equal to K2 on int16 and off it on
+    full-range int32 and int64.  On
+    int16 and int32 a call allocates its output and nothing else (1 MB
+    of slack)."""
+    rng = np.random.default_rng(21)
+    T = 512 + 40 * 170 + 77
+    edges = np.array(INT32_EDGES, np.int64)[rng.integers(0, 3, (3, T))]
+    wild = rng.random(edges.shape) < 0.25
+    edges[wild] = rng.integers(-2 ** 31, 2 ** 31, int(wild.sum()))
+    edges[:, :3] = INT32_EDGES
+    inputs = [
+        ("int16", _tonal(5, T, 21).astype(np.int16)),
+        ("int32", rng.integers(-2 ** 31, 2 ** 31, (4, T)).astype(np.int32)),
+        ("int32 edges", edges.astype(np.int32)),
+        ("int64", rng.integers(-2 ** 31, 2 ** 31, (2, 3, T))),
+    ]
+    int_fused.mfcc_int_v1(torch.from_numpy(inputs[0][1]).to(dev))  # warm
+    for name, x in inputs:
+        xt = torch.from_numpy(x).to(dev)
+        want_n = dict(int_fused.LAUNCHES)
+        want_n["K3-v1"] += 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got = int_fused.mfcc_int_v1(xt)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated(dev) - base
+        assert int_fused.LAUNCHES == want_n, name
+        assert got.shape == x.shape[:-1] + (MFCCConfig().n_frames(T), 32)
+        if x.dtype != np.int64:
+            assert grown <= got.nbytes + 2 ** 20, (name, grown)
+        assert torch.equal(got, int_fused.mfcc_int_v1_plain(xt)), name
+        k2 = int_fused.mfcc_int_fused(xt.reshape(-1, T).to(torch.int32))
+        if name in ("int16", "int32", "int64"):
+            assert torch.equal(got.reshape(k2.shape), k2) == (name == "int16")
+        if name == "int32 edges":
+            want = np.stack([int_ref.mfcc_int(s) for s in edges])
+            assert np.array_equal(got.cpu().numpy(), want)
 
 
 # -- the FP64 product engine (K5, K5-frames, K4-split, K8) --------------------------

@@ -3,7 +3,9 @@ CPU, through their plain versions: K9 (``mfcc_int_v2``) and K3-v1
 (``mfcc_int_v1``) element for element against the JAX package's
 ``mfcc_int_pallas_v2`` and ``mfcc_int_pallas`` run in interpret mode, and
 K10 (``mfcc_int_split2``) against K2's plain version; all against the RTL
-oracle ``int_ref.mfcc_int``.
+oracle ``int_ref.mfcc_int``.  K3-v1's kernel path is modelled too: K2's
+ingest at int32 (``warp_tails.int_audio_ingest_model``) through the warp
+schedule, on a stream of int32 edges where every emphasis wraps.
 
 The JAX kernels take no ``interpret`` argument, so the ``interpret``
 fixture swaps ``pl.pallas_call`` for one that forces ``interpret=True``
@@ -30,6 +32,7 @@ from mfcc_tpu.ref import int_ref
 
 from mfcc_tpu_torch import MFCCConfig, MIC_CONFIG
 from mfcc_tpu_torch.ops import framing, int_fused, int_ops
+from mfcc_tpu_torch.ops import warp_tails as wt
 
 
 @pytest.fixture
@@ -52,6 +55,33 @@ def _mixed():
     return x, ref
 
 
+INT32_EDGES = (2 ** 31 - 1, -(2 ** 31 - 1), -2 ** 31)
+
+
+@functools.lru_cache(maxsize=None)
+def _edges():
+    """One stream as long as ``_mixed``'s whose samples are the int32 edges
+    +-(2^31 - 1) and -2^31 (t = 0 among them) or, one in four, any int32:
+    every emphasis x + (prev >> 5) - prev wraps mod 2^32.  And the oracle
+    on it."""
+    rng = np.random.default_rng(3)
+    T = _mixed()[0].shape[1]
+    x = np.array(INT32_EDGES, np.int64)[rng.integers(0, 3, T)]
+    wild = rng.random(T) < 0.25
+    x[wild] = rng.integers(-2 ** 31, 2 ** 31, int(wild.sum()))
+    x[:3] = INT32_EDGES
+    x = x.astype(np.int32)[None]
+    return x, int_ref.mfcc_int(x[0].astype(np.int64), JaxConfig())[None]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_v1(stream):
+    """JAX v1 (``mfcc_int_pallas``) on ``_mixed`` or ``_edges``, computed
+    once; call it under the ``interpret`` fixture."""
+    x, _ = {"mixed": _mixed, "edges": _edges}[stream]()
+    return np.asarray(pallas_int.mfcc_int_pallas(jnp.asarray(x), JaxConfig()))
+
+
 def _oracle(x, cfg):
     jc = JaxConfig(nfft=cfg.nfft, step=cfg.step, nfilters=cfg.nfilters,
                    nceptrums=cfg.nceptrums, samplerate=cfg.samplerate)
@@ -63,7 +93,7 @@ def test_v1_matches_jax_and_the_oracle(interpret):
     element, on int16-range and full-range int32 samples alike; the CPU
     wrapper takes the plain version without a launch."""
     x, ref = _mixed()
-    want = np.asarray(pallas_int.mfcc_int_pallas(jnp.asarray(x), JaxConfig()))
+    want = _jax_v1("mixed")
     got = int_fused.mfcc_int_v1_plain(torch.from_numpy(x)).numpy()
     assert got.dtype == np.int32 and got.shape == want.shape == ref.shape
     assert np.array_equal(got, want)
@@ -72,6 +102,44 @@ def test_v1_matches_jax_and_the_oracle(interpret):
     assert np.array_equal(int_fused.mfcc_int_v1(torch.from_numpy(x)).numpy(),
                           got)
     assert int_fused.LAUNCHES == before
+
+
+@pytest.mark.parametrize("stream", ["mixed", "edges", "int16"])
+def test_int_audio_ingest_model_is_the_framed_chain(stream):
+    """K2's and K3-v1's ingest, modelled with the kernel's index formulas
+    (``warp_tails.int_audio_ingest_model``: lane, register, sample, prev,
+    ``preemph32`` on int32 and ``preemph`` on int16, the window), equals the
+    ``int_ops`` chain's framed, emphasized and windowed samples in the
+    ladder's first layout: on int32 samples with the emphasis wrapping
+    mod 2^32, and on int16 samples."""
+    x = {"mixed": lambda: _mixed()[0], "edges": lambda: _edges()[0],
+         "int16": lambda: _mixed()[0][:, :5000].astype(np.int16)}[stream]()
+    xt = torch.from_numpy(x)
+    got = wt.int_audio_ingest_model(xt)
+    frames = framing.extract_frames(framing.preemphasis_int(
+        xt.to(torch.int32)), 512, 170)
+    want = wt.int_first_layout(int_ops.window_int(frames).reshape(-1, 512))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_v1_kernel_schedule_matches_jax_and_the_oracle(interpret):
+    """K3-v1's whole path through the kernel's schedule: the modelled
+    int32 ingest, then the ladder and power (``int_ladder_power_registers``)
+    and the post-power stages (``int_post_power_model``) equal JAX v1 in
+    interpret mode and ``int_ref`` element for element, on the mixed
+    stream and on the stream of int32 edges, where K2's wire rule
+    differs; the plain version agrees."""
+    cfg = MFCCConfig()
+    for stream, (x, ref) in (("mixed", _mixed()), ("edges", _edges())):
+        xt = torch.from_numpy(x)
+        regs = wt.int_audio_ingest_model(xt, cfg)
+        got = wt.int_post_power_model(wt.int_ladder_power_registers(regs),
+                                      cfg).reshape(ref.shape).numpy()
+        assert np.array_equal(got, _jax_v1(stream)), stream
+        assert np.array_equal(got, ref), stream
+        assert np.array_equal(got, int_fused.mfcc_int_v1_plain(xt).numpy())
+        assert (got != int_fused.mfcc_int_fused_plain(xt).numpy()).any()
 
 
 def test_v2_matches_jax_under_the_wire_rule(interpret):

@@ -6,8 +6,13 @@ butterfly of the standard plan once (the DCT ladder skips only butterflies
 whose inputs are zero or whose outputs no lane keeps); the INT schedule
 equals the ``int_ops`` chain and JAX ``mfcc_tpu`` element for element; the
 float schedule's spectrum is within 1e-12 of ``torch.fft.rfft`` in float64
-and its cepstra within KERNEL_TOL of ``ladder_tail_plain``.
+and its cepstra within KERNEL_TOL of ``ladder_tail_plain``; the persistent
+grid's walk (K1, K7, K2, K3-v1, K3) takes every frame once, with the loop
+bounds the kernels' sources hold.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,7 +41,7 @@ def _pairs(i0, i1, tw):
     return sorted(zip(i0.tolist(), i1.tolist(), tw.tolist()))
 
 
-# -- INT -----------------------------------------------------------------------
+# -- INT ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["A", "B", "C"])
 def test_int_layouts_are_permutations(name):
@@ -110,7 +115,75 @@ def test_int_schedule_equals_chain_and_jax(name):
     assert np.array_equal(got.numpy(), want)
 
 
-# -- float ---------------------------------------------------------------------
+# -- the persistent walk ------------------------------------------------------
+
+# (S, F) of the batch kernels and M rows of the frames kernels: S*F not a
+# multiple of 8, F = 1, S = 1, a headline-length stream, and more frames
+# than the smallest grid's 16 resident warps by more than 100x
+WALKS = {"3x5": (3, 5), "F=1": (13, 1), "S=1": (1, 21), "1x374": (1, 374),
+         "7x374": (7, 374), "rows M=5": (1, 5), "rows M=1": (1, 1),
+         "rows M=1700": (1, 1700)}
+
+
+@pytest.mark.parametrize("name", sorted(WALKS))
+@pytest.mark.parametrize("sms,per_sm", [(2, 1), (4, 3), (132, 3), (3, 0)])
+def test_persistent_walk_takes_every_frame_once(name, sms, per_sm):
+    """The persistent grid's warps (``warp_tails.persistent_walk``, the
+    kernels' loop bounds) take every flat frame G = s*F + g exactly once,
+    with its stream, its frame and the ``first`` flag (g == 0, the
+    signal's start), each warp's frames in ascending order and no two
+    warps more than one frame apart; for the grid the occupancy gives
+    (smaller than the tile count, or all the tiles) and for a grid larger
+    than the tile count (idle blocks)."""
+    S, F = WALKS[name]
+    frames = S * F
+    tiles = -(-frames // wt.FRAMES_PER_BLOCK)
+    grid = wt.persistent_grid(tiles, sms, per_sm)
+    assert 1 <= grid <= tiles and grid == min(tiles, sms * max(per_sm, 1))
+    for g_ in (grid, tiles + 3):
+        walk = wt.persistent_walk(frames, F, g_)
+        assert sorted(G for _, _, G, *_ in walk) == list(range(frames))
+        per_warp = {}
+        for b, w, G, s_, g, first in walk:
+            assert 0 <= b < g_ and 0 <= w < wt.FRAMES_PER_BLOCK
+            assert s_ * F + g == G and 0 <= g < F and 0 <= s_ < S
+            assert first == (g == 0)
+            per_warp.setdefault((b, w), []).append(G)
+        for seq in per_warp.values():
+            assert seq == sorted(seq)
+        counts = [len(v) for v in per_warp.values()]
+        warps = g_ * wt.FRAMES_PER_BLOCK
+        assert max(counts) - (min(counts) if len(counts) == warps else 0) <= 1
+
+
+@pytest.mark.parametrize("source,loops", [("fladder.cu", 1), ("f64ish.cu", 2),
+                                          ("int_mfcc.cu", 2)])
+def test_persistent_walk_is_the_kernels_loop(source, loops):
+    """The model's loop is the kernels' own: each persistent kernel of K1,
+    K7 (audio and frames) and K2/K3-v1/K3 walks G from blockIdx.x * kFrames
+    + the warp by gridDim.x * kFrames, and K1's and K7's batch kernels and
+    K2's take (s, g) = (G / F, G - s*F) and the frame before the start as 0
+    where g == 0; every launch goes through ``launch_persistent``
+    (persistent.cuh), whose grid is ``persistent_grid``'s."""
+    csrc = Path(wt.__file__).resolve().parent.parent / "csrc"
+    text = (csrc / source).read_text()
+    assert re.search(r"persistent_grid\(kernel, threads, smem, tiles, &grid\)",
+                     (csrc / "persistent.cuh").read_text())
+    head = re.findall(
+        r"for \(long long (\w+) = static_cast<long long>\(blockIdx\.x\) \* "
+        r"kFrames \+ threadIdx\.x / kLanes;\s*\1 < (\w+); \1 \+= "
+        r"static_cast<long long>\(gridDim\.x\) \* kFrames\)", text)
+    assert len(head) == loops, head
+    assert "launch_persistent(" in text
+    if source != "int_mfcc.cu":
+        assert "const long long s = G / F;" in text
+        assert "g > 0 || m > 0" in text
+    else:
+        assert "const long long s = G / F;" in text
+        assert "g == 0" in text
+
+
+# -- float --------------------------------------------------------------------
 
 @pytest.mark.parametrize("nfft", NFFTS)
 def test_float_layouts_are_conflict_free_permutations(nfft):
