@@ -13,7 +13,10 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      every instantiation of the FP64 product engine's kernels (``nvcc
      -Xptxas=-v``) and the shared memory and ring stages of their launches,
      on another those of the tails' persistent batch kernels (K1, K7 and
-     K7-frames, K2 and K3-v1, K3);
+     K7-frames, K2 and K3-v1, K3, K10's epilogue), and on a third the
+     static SASS instructions of the INT kernels (K2, K3-v1, K3, K10's
+     two launches; ``cuobjdump``, ``tools/sass_mix.py``) with the body
+     size of each of their loops, K2's held beside its recorded count;
   3. float path: compares K1 (``ops/fladder.py``) with its plain torch
      version on the card at nfft 256/86, 512/170 and 1024/340 on int16,
      f32, normalized [-1, 1] f32 and silent (``mel_floor=1.0``) input, and
@@ -25,8 +28,9 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
   4. INT path: compares K2 and K3 (``ops/int_fused.py``) with their plain
      versions element for element (``torch.equal``): K2 on tonal, full-range,
      silent and out-of-int16-range input, T = 512 and 512+169, MIC_CONFIG,
-     16 filters, hop 160 and the headline shape; K3 on frames with two
-     leading axes and on out-of-range int32 frames; K3-v1
+     16 filters, hop 160 and the headline shape; K3 (on its balanced
+     filterbank) on frames with two leading axes, on out-of-range int32
+     frames and on M = 1, 5 and 9 rows at 16 and 32 filters; K3-v1
      (``int_fused.mfcc_int_v1``, K2's kernel behind its int32 ingest) on
      int16, full-range int32, the int32 edges (+-(2^31 - 1), -2^31; also
      against ``int_ref``), int64 with two leading axes and a ragged tail,
@@ -109,6 +113,8 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      (``mfcc_int_split2``, two launches) with their plain versions and K2
      element for element (K3-v1 with ``int_ref`` on int32 outside the
      int16 range), and with the oracle on the headline's spread streams;
+     K10's persistent epilogue on M = 1, 7, 9 and 4,000 rows and on rows
+     with two leading axes;
      times every entry, its plain version, K2, and the float64
      ``torch.matmul`` of the headline's DFT product (K8's library_ms).
 
@@ -512,6 +518,13 @@ def int_phases(dev, card: str) -> list[dict]:
         errs["K3"] = max(errs["K3"], err)
         print(f"K3 vs plain, {name} {tuple(f.shape)} -> {tuple(got.shape)}: "
               f"equal (max-abs {err})")
+    for icfg in (MFCCConfig(), MFCCConfig(nfilters=16, nceptrums=16)):
+        for M in (1, 5, 9):
+            f = torch.from_numpy(wide.reshape(-1, 512)[:M]).to(dev)
+            compare_exact(int_fused.mfcc_int_fused_frames(f, icfg),
+                          int_fused.mfcc_int_fused_frames_plain(f, icfg),
+                          f"K3 on {M} rows, {icfg.nfilters} filters")
+    print("K3 vs plain on M = 1, 5, 9 rows at 32 and 16 filters: equal")
 
     # -- K3-v1 vs plain version: K2's kernel behind its int32 ingest ----------
     edges = np.array(INT32_EDGES, np.int64)[rng.integers(0, 3, (6, 16000))]
@@ -669,6 +682,8 @@ def int_phases(dev, card: str) -> list[dict]:
 
     ops = int_fused.int_operators(cfg, dev)
     tables = sum(t.nbytes for t in ops[:5])
+    # K3 reads the balanced schedule in place of fbw and band
+    k3_tables = sum(t.nbytes for t in (ops.curve, ops.tw, ops.dtw, ops.fbs))
     out_bytes = frames_n * cfg.nceptrums * 4
     band = ops.band.cpu()
     k2_ops = (4 * S_MAIN * T_MAIN          # pre-emphasis: >> 5, +, -, sext
@@ -676,12 +691,12 @@ def int_phases(dev, card: str) -> list[dict]:
     k3_ops = frames_n * int_ops_per_frame(cfg, band)
     frames_bytes = frames_n * cfg.nfft * 4
     k2_bound = bound(audio.nbytes + out_bytes + tables, k2_ops, INT32_OPS)
-    k3_bound = bound(frames_bytes + out_bytes + tables, k3_ops, INT32_OPS)
+    k3_bound = bound(frames_bytes + out_bytes + k3_tables, k3_ops, INT32_OPS)
     # K3-v1 does K2's work, emphasis and window included, on int32 input
     v1_bound = bound(audio32.nbytes + out_bytes + tables, k2_ops, INT32_OPS)
     print(f"K2 bound: {audio.nbytes + out_bytes + tables} bytes, "
           f"{k2_ops:.4e} int32 operations -> {k2_bound[0]:.4f} ms "
-          f"({k2_bound[1]}); K3 bound: {frames_bytes + out_bytes + tables} "
+          f"({k2_bound[1]}); K3 bound: {frames_bytes + out_bytes + k3_tables} "
           f"bytes, {k3_ops:.4e} -> {k3_bound[0]:.4f} ms ({k3_bound[1]}); "
           f"K3-v1 bound: {audio32.nbytes + out_bytes + tables} bytes, "
           f"{k2_ops:.4e} -> {v1_bound[0]:.4f} ms ({v1_bound[1]})")
@@ -2001,6 +2016,20 @@ def legacy_phases(dev, card: str) -> list[dict]:
     compare_exact(int_fused.mfcc_int_epi(hpower, cfg),
                   int_fused.mfcc_int_epi_plain(hpower, cfg),
                   "K10-epi at the headline")
+    # the persistent epilogue's walk: ragged row counts, more rows than
+    # resident warps, two leading axes
+    rows = hpower.reshape(-1, hpower.shape[-1])
+    for M in (1, 7, 9, 4000):
+        compare_exact(int_fused.mfcc_int_epi(rows[:M], cfg),
+                      int_fused.mfcc_int_epi_plain(rows[:M], cfg),
+                      f"K10-epi on {M} rows")
+    lead = rows[:3 * 37].reshape(3, 37, -1)
+    compare_exact(int_fused.mfcc_int_epi(lead, cfg),
+                  int_fused.mfcc_int_epi_plain(lead, cfg),
+                  "K10-epi on (3, 37, 256) rows")
+    print("K10-epi vs plain on M = 1, 7, 9, 4000 rows and (3, 37, 256): "
+          "equal")
+    del rows, lead
     print(f"MFCC int entries on {tuple(audio.shape)} int16: K9 and "
           f"K10 equal to K2 and to int_ref on 8 spread streams; launches "
           f"{int_launches}; K10's power rows {tuple(hpower.shape)}")
@@ -2032,8 +2061,9 @@ def legacy_phases(dev, card: str) -> list[dict]:
                  4 * S_MAIN * T_MAIN + frames_n * per_frame, INT32_OPS)
     front_b = bound(audio.nbytes + hpower.nbytes + tables,
                     4 * S_MAIN * T_MAIN + frames_n * front_ops, INT32_OPS)
-    epi_b = bound(hpower.nbytes + out_bytes + tables, frames_n * epi_ops,
-                  INT32_OPS)
+    # the epilogue reads the DCT twiddles and the balanced schedule
+    epi_b = bound(hpower.nbytes + out_bytes + ops.dtw.nbytes + ops.fbs.nbytes,
+                  frames_n * epi_ops, INT32_OPS)
     print(f"bounds: K9 {k9_b[0]:.4f} ms ({k9_b[1]}); K10-front "
           f"{front_b[0]:.4f} ms ({front_b[1]}, {front_ops} int32 "
           f"operations a frame), K10-epi {epi_b[0]:.4f} ms ({epi_b[1]}, "
@@ -2056,9 +2086,19 @@ def legacy_phases(dev, card: str) -> list[dict]:
 ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
                   "stream_r2_kernel")
 # the tails' persistent batch kernels: K1 (and K6), K7 and K7-frames, K2 and
-# K3-v1 (int16 and int32 instantiations), K3
+# K3-v1 (int16 and int32 instantiations), K3, K10's epilogue
 TAIL_KERNELS = ("fladder_kernel", "f64ish_kernel", "f64ish_frames_kernel",
-                "int_audio_kernel", "int_frames_kernel")
+                "int_audio_kernel", "int_frames_kernel", "int_epi_kernel")
+# the INT kernels whose SASS is counted: (name, library, a substring of the
+# mangled name)
+INT_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
+            ("K3-v1", "int_mfcc", "int_audio_kernelIiE"),
+            ("K3", "int_mfcc", "int_frames_kernel"),
+            ("K10-front", "int_split2", "int_front_kernel"),
+            ("K10-epi", "int_split2", "int_epi_kernel"))
+# K2's static SASS instructions as PERF.md records them: K2's kernel also
+# runs K9, so a change to the count is a change to both
+K2_SASS = 4312
 _TYPES = {"s": "i16", "i": "i32", "f": "f32"}
 
 
@@ -2086,6 +2126,42 @@ def ptxas_registers(build_log: str, kernels) -> list[str]:
             regs.append(f"{name} {m.group(1)} regs {spill} B spilled")
             name = None
     return regs
+
+
+def int_sass(libs) -> str:
+    """One line: the static SASS instructions of the INT kernels
+    (``cuobjdump -sass`` of the built libraries, counted by
+    ``tools/sass_mix.py``) and the body size of each of their loops (the
+    outermost the walk over frames), K2's beside ``K2_SASS``; "not
+    measured" without a ``cuobjdump`` beside nvcc."""
+    from pathlib import Path
+    from mfcc_tpu_torch.kernels import build
+    from mfcc_tpu_torch.tools import sass_mix
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return "INT kernels' SASS: not measured (no cuobjdump beside nvcc)"
+    listings = {}
+    for lib in libs:
+        stem = lib.name[3:].split("-")[0]
+        if stem in ("int_mfcc", "int_split2"):
+            listings[stem] = subprocess.run(
+                [str(tool), "-sass", str(lib)], capture_output=True,
+                text=True, check=True, timeout=300).stdout
+    parts, k2 = [], None
+    for key, stem, sub in INT_SASS:
+        counts = sass_mix.kernels(listings[stem])
+        bodies = sass_mix.loops(listings[stem])
+        for name, ops in counts.items():
+            if sub in name:
+                n = sum(ops.values())
+                k2 = n if key == "K2" else k2
+                parts.append(f"{key} {n}, loop bodies {bodies[name]}")
+    return ("INT kernels' SASS (cuobjdump, tools/sass_mix.py; static "
+            "instructions a kernel, then the body of each loop: a "
+            "persistent kernel's largest is its walk, a frame's "
+            "instructions with each inner loop once): " + "; ".join(parts)
+            + f" | K2 {'equals' if k2 == K2_SASS else 'differs from'} its "
+            f"recorded {K2_SASS}")
 
 
 def engine_resources(build_log: str, dev) -> str:
@@ -2148,8 +2224,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(engine_resources(log.getvalue(), dev))
     print("tail kernels (nvcc -Xptxas=-v; K1 fladder, K7 f64ish, K2/K3-v1 "
-          "int_audio, K3 int_frames): "
+          "int_audio, K3 int_frames, K10's epilogue int_epi): "
           + "; ".join(ptxas_registers(log.getvalue(), TAIL_KERNELS)))
+    print(int_sass(build.build()))
 
     kernels = [float_phases(dev, card)]
     torch.cuda.empty_cache()

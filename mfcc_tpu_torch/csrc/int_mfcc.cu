@@ -15,7 +15,9 @@
 //  K3, mfcc_int_frames_i32:  (M, 512) int32 pre-emphasized frames ->
 //      (M, ncep) int32.  Replaces pallas_int.py:_int_kernel (entry
 //      mfcc_int_pallas_frames, which windows in XLA before the kernel;
-//      here the window runs in the kernel: the same function).
+//      here the window runs in the kernel: the same function).  Its tail
+//      sums the filterbank on the balanced schedule (int_stages.cuh
+//      post_power_balanced), K2's and K3-v1's a lane per filter.
 //  Tail (int_stages.cuh): 512-point bit-exact radix-2 DIT (3-multiply
 //  butterfly, bias round, >> 14, >> 1, wrap16), power mod 2^32 >> 2, the
 //  integer mel filterbank mod 2^64 keeping bits [shift, shift+16), Turner
@@ -23,9 +25,10 @@
 //  element-exact with the RTL oracle ref/int_ref.mfcc_int.
 //
 // Design (int_stages.cuh): a persistent grid (persistent.cuh) of blocks of
-// 8 warps, 4 an SM (K3-v1 3); a block loads its twiddle, band and
-// filterbank tables into shared memory once, then each warp takes frames
-// in a grid-stride loop, one frame at a time.  K2's and K3-v1's warp reads
+// 8 warps, 4 an SM (K3-v1 and K3 3); a block loads its twiddle, band and
+// filterbank tables (K3: the balanced schedule) into shared memory once,
+// then each warp takes frames in a grid-stride loop, one frame at a time.
+// K2's and K3-v1's warp reads
 // its frame's 512 samples and the one before its start (0 at t = 0)
 // straight from the input -- overlapped framing is addressing, and no
 // pre-emphasis carry crosses frames -- and K3's its frame row, each lane
@@ -34,13 +37,14 @@
 // consecutive samples across the lanes).  From
 // there the warp runs its frame alone: the 512-point ladder in registers,
 // 16 points a lane, two exchanges through its shared row under
-// __syncwarp; the power in registers; the filterbank and log2 a lane per
-// filter over its band; the DCT ladder's nonzero half in registers and
-// shuffles; lane c stores cepstrum c.  No barrier after the tables', and
-// what is provably zero is skipped (the first stage's imaginary inputs,
-// the DCT's lower half, stage 8's bins >= 256); one butterfly per thread
-// per stage through shared memory, with a barrier each (18 a tile of 8
-// frames), takes ~3.9 ms.
+// __syncwarp; the power in registers; the filterbank a lane per filter
+// over its band (K3: 16 scheduled terms a lane, then a lane per filter
+// sums its segments) and log2 a lane per filter; the DCT ladder's nonzero
+// half in registers and shuffles; lane c stores cepstrum c.  No barrier
+// after the tables', and what is provably zero is skipped (the first
+// stage's imaginary inputs, the DCT's lower half, stage 8's bins >= 256);
+// one butterfly per thread per stage through shared memory, with a barrier
+// each (18 a tile of 8 frames), takes ~3.9 ms.
 // The TPU kernels' structure is not carried: their sigma/evenodd8 row
 // order and _regroup_perm, (8, lanes) sublane blocks, pltpu.roll
 // reversals, 128-lane frame tiles, NBMAX_INT super-blocks with an SMEM
@@ -58,12 +62,13 @@
 // 4k, 3/4 of its inputs zero and 32 real outputs kept; window, power,
 // filterbank and log2 5k), ~2.1e10 per call, ~0.64 ms at the issue limit
 // of 128 lanes per clock per SM (132 SMs, 1.98 GHz).  Instruction issue
-// bounds it, not memory: a warp issues ~4.3k SASS instructions per frame
-// straight-line (tools/sass_mix.py; 42% of them IMAD, the moves, adds and
-// shifts the compiler maps onto the FMA pipe), ~1.6 ms at one warp
-// instruction a clock per scheduler, where the function needs ~1.7k a
-// lane; then the filterbank loop, whose widest band (37 bins) sets its
-// length for an average of 13.
+// bounds it, not memory (tools/sass_mix.py; 42% IMAD, the moves, adds and
+// shifts the compiler maps onto the FMA pipe): K2's walk is ~2.5k SASS
+// instructions a frame with its filterbank loop once, and that loop runs
+// the widest band's 37 bins (for an average of 13), ~3.4k issued, ~1.2
+// ms at one warp instruction a clock per scheduler, where the function
+// needs ~1.7k a lane; K3's walk with its 16 scheduled filterbank terms a
+// lane inline is ~2.3k.
 //
 // Offsets are 64-bit: S*T passes 2^31 at S=4096 x 60 s.
 
@@ -82,16 +87,23 @@ using namespace int_stages;
 // Both kernels are persistent (persistent.cuh): a block loads its tables
 // once, then each warp takes frames G in a grid-stride loop, loading the
 // frame's windowed samples straight into the ladder's first layout.  The
-// launch bounds hold K2 and K3 to 64 registers, 4 blocks an SM (without
-// them the compiler pipelines the loop at 173 registers, one block fits,
-// and K2 runs ~40% slower); at 64 nvcc -Xptxas=-v reports 68 (K2) and 156
-// (K3) bytes spilled.  K3-v1's int32 instantiation spills the same 68 at 4
-// blocks and none at 3 (80 registers), where it runs ~5% faster against
-// K2 in the same process (tools/step_ab.py), so it takes 3.
+// launch bounds hold K2 to 64 registers, 4 blocks an SM (without them the
+// compiler pipelines the loop at 173 registers, one block fits, and K2
+// runs ~40% slower); at 64 nvcc -Xptxas=-v reports 68 bytes spilled (K3,
+// before its balanced filterbank, 156).  K3-v1's int32 instantiation
+// spills the same 68 at 4 blocks and none at 3 (80 registers), where it
+// runs ~5% faster against K2 in the same process (tools/step_ab.py), so it
+// takes 3, and so does K3.
 constexpr int kResident = 4;
+constexpr int kFramesResident = 3;
 
 template <typename In>
 constexpr int kAudioResident = std::is_same_v<In, int16_t> ? kResident : 3;
+
+// r's 4 bits reversed (r < 16)
+__host__ __device__ constexpr int rev4(int r) {
+  return ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3);
+}
 
 // In: int16_t (K2) or int32_t (K3-v1), the ingest's sample type.
 template <typename In>
@@ -115,24 +127,33 @@ int_audio_kernel(const In* __restrict__ audio, int* __restrict__ out,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, kResident)
+__global__ void __launch_bounds__(kThreads, kFramesResident)
 int_frames_kernel(const int* __restrict__ frames, int* __restrict__ out,
                   long long M, const int* __restrict__ curve,
-                  const int2* __restrict__ tw, Tail c) {
-  __shared__ Smem sm;
+                  const int2* __restrict__ tw,
+                  const uint2* __restrict__ sched, Tail c) {
+  __shared__ FbLadderSmem sm;
   load_ladder_tables(sm, tw);
-  load_tail_tables(sm, c);
+  load_fb_tables(sm.fb, sched, c);
+  for (int i = threadIdx.x; i < kNfft; i += blockDim.x) sm.curve[i] = curve[i];
   __syncthreads();
+  // The curve is read each frame, through a volatile pointer: kept in
+  // registers across the walk, a lane's 16 curve values spilled at 3
+  // blocks an SM.
+  const volatile int* cv = sm.curve;
   for (long long m = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
        m < M; m += static_cast<long long>(gridDim.x) * kFrames) {
-    const int* x = frames + m * kNfft;
+    // first_sample(r) = bitrev(lane, 5) + 32 * rev4(r): one base a lane
+    // and constant offsets, the loads of first_sample's own addresses
+    const int b = bitrev(lane(), 5);
+    const int* x = frames + m * kNfft + b;
     int re[kPts];
 #pragma unroll
     for (int r = 0; r < kPts; ++r) {
-      const int p = first_sample(r);
-      re[r] = window(x[p], curve[p]);
+      const int q = 32 * rev4(r);
+      re[r] = window(x[q], cv[b + q]);
     }
-    tail(re, sm, c, out + m * c.ncep);
+    tail_balanced(re, sm, c, out + m * c.ncep);
   }
 }
 
@@ -163,8 +184,10 @@ int launch_audio(const In* audio, int* out, long long S, long long T, int F,
 // (re, im) twiddles of tables.twiddle_table(512, 16) and dtw the 2*nfilters
 // of twiddle_table(4*nfilters, 16); fbw the (256, nfilters) int64
 // filterbank matrix, row-major; band nfilters int32 pairs [lo, hi) outside
-// which a column of fbw is zero.  audio is (S, T) and contiguous; out is
-// (S, F, ncep), resp. (M, ncep), int32.  Launches on `stream`, on the
+// which a column of fbw is zero; sched the balanced filterbank's schedule
+// (int_stages.cuh, ops/int_fused.py fb_schedule: kFbSteps * 32 uint2
+// entries, then 32 uint32 gather words).  audio is (S, T) and contiguous;
+// out is (S, F, ncep), resp. (M, ncep), int32.  Launches on `stream`, on the
 // calling thread's current device (the caller sets it), without
 // synchronizing; returns a cudaError_t (0 = launched).
 extern "C" int mfcc_int_i16(const int16_t* audio, int* out, long long S,
@@ -194,13 +217,14 @@ extern "C" int mfcc_int_frames_i32(const int* frames, int* out, long long M,
                                    int nfilters, int ncep, int fb_shift,
                                    int log_precision, int log_width,
                                    const int* curve, const int* tw,
-                                   const int* dtw, const long long* fbw,
-                                   const int* band, void* stream) {
-  const Tail c = make_tail(fbw, band, dtw, nfilters, ncep, fb_shift,
+                                   const int* dtw, const int* sched,
+                                   void* stream) {
+  const Tail c = make_tail(nullptr, nullptr, dtw, nfilters, ncep, fb_shift,
                            log_precision, log_width);
   if (!tail_ok(c) || M < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   return launch_persistent(int_frames_kernel, kThreads,
                            (M + kFrames - 1) / kFrames, 0, stream, frames, out,
-                           M, curve, reinterpret_cast<const int2*>(tw), c);
+                           M, curve, reinterpret_cast<const int2*>(tw),
+                           reinterpret_cast<const uint2*>(sched), c);
 }

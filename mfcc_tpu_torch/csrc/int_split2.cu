@@ -11,22 +11,29 @@
 //      Replaces tools/ab_int_r5.py:epi_kernel (the second pallas_call).
 //
 // Both run the device functions of int_stages.cuh that K2 runs (ingest,
-// ladder_power, then post_power), in the same order on the same values, so
-// the pair is element-exact with K2 and with the RTL oracle
+// ladder_power; then the filterbank, log2 and DCT, the filterbank on the
+// balanced schedule, whose sum mod 2^64 is K2's bit for bit), on the same
+// values, so the pair is element-exact with K2 and with the RTL oracle
 // ref/int_ref.mfcc_int.  The TPU arm wrote (N, nbins, L) lane-major power
 // blocks; here a power row is one frame's 256 bins, as the next launch
 // reads them.
 //
-// Design: one thread block of 256 threads per tile of 8 frames in each
-// launch, one warp per frame, as K2: the front loads its frame as K2 does
-// and stores lane l's power of bins l + 32k straight from its registers
-// (coalesced), the epilogue loads a frame's row the same way into the
-// warp's shared row.  What bounds it:
-// K2's int32 operations (the front the ladder and power, the epilogue the
-// filterbank, log2 and DCT) plus the power buffer's write and read, 2 x 1
-// KB per frame (0.78 GB at the headline's 382,976 frames, ~0.23 ms at 3.35
-// TB/s).  The split exists to measure what the fused kernel saves by
-// keeping the power on chip.
+// Design: one warp per frame, as K2.  The front runs a block of 256
+// threads per tile of 8 frames, loads its frame as K2 does and stores lane
+// l's power of bins l + 32k straight from its registers (coalesced).  The
+// epilogue is persistent (persistent.cuh): a block loads the balanced
+// filterbank's schedule and the DCT twiddles into shared memory once (5 KB;
+// it used to build a 12 KB banded weight table, a division and a gather
+// per entry, for every 8 frames: ~590 MB of table traffic at the headline),
+// then each warp walks rows in a grid-stride loop, loading a row as two
+// 16-byte words a lane into its shared row and the next row's into
+// registers while the current one runs post_power_balanced.  What bounds
+// it: the epilogue reads 1 KB of power and writes 128 B a frame (~0.13 ms
+// at the headline's 382,976 frames at 3.35 TB/s) for ~9k int32 operations
+// of filterbank, log2 and DCT (~0.1 ms at the issue limit); the front the
+// ladder's int32 operations (~0.56 ms) beside its 1 KB write.  The split
+// exists to measure what the fused kernel saves by keeping the power on
+// chip.
 //
 // Offsets are 64-bit.
 
@@ -34,10 +41,18 @@
 #include <stdint.h>
 
 #include "int_stages.cuh"
+#include "persistent.cuh"
 
 namespace {
 
 using namespace int_stages;
+
+// The epilogue's blocks an SM: at 4 nvcc -Xptxas=-v reports 47 registers
+// and no spill; 6 (40 registers) read no faster and 8 (32, spilling) 10%
+// slower in an A/B of the residencies (tools/step_ab.py).
+constexpr int kEpiResident = 4;
+constexpr int kRowWords = kNbins / 4;    // a power row's 16-byte words
+static_assert(kRow % 4 == 0, "the warps' rows start on 16-byte boundaries");
 
 __global__ void __launch_bounds__(kThreads)
 int_front_kernel(const int16_t* __restrict__ audio, int* __restrict__ power,
@@ -59,29 +74,43 @@ int_front_kernel(const int16_t* __restrict__ audio, int* __restrict__ power,
   for (int k = 0; k < kBinsPerLane; ++k) p[32 * k] = pw[k];
 }
 
-__global__ void __launch_bounds__(kThreads)
-int_epi_kernel(const int* __restrict__ power, int* __restrict__ out,
-               long long M, Tail c) {
-  __shared__ Smem sm;
-  const int f = static_cast<int>(threadIdx.x) / kLanes;
-  const long long m = static_cast<long long>(blockIdx.x) * kFrames + f;
-  load_tail_tables(sm, c);
+// Lane l's two 16-byte words of power row m: words l and l + 32.
+__device__ __forceinline__ void load_row(const int4* power, long long m,
+                                         int4 (&v)[2]) {
+  v[0] = power[m * kRowWords + lane()];
+  v[1] = power[m * kRowWords + kLanes + lane()];
+}
+
+__global__ void __launch_bounds__(kThreads, kEpiResident)
+int_epi_kernel(const int4* __restrict__ power, int* __restrict__ out,
+               long long M, const uint2* __restrict__ sched, Tail c) {
+  __shared__ FbSmem sm;
+  load_fb_tables(sm.fb, sched, c);
   __syncthreads();
-  if (m >= M) return;
-  int* row = sm.row + f * kRow;
-  const int* p = power + m * kNbins + lane();
-#pragma unroll
-  for (int k = 0; k < kBinsPerLane; ++k) row[lane() + 32 * k] = p[32 * k];
-  __syncwarp();
-  post_power(row, sm, c, out + m * c.ncep);
+  int* row = sm.row + (threadIdx.x / kLanes) * kRow;
+  int4* row4 = reinterpret_cast<int4*>(row);
+  const long long step = static_cast<long long>(gridDim.x) * kFrames;
+  long long m = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+  int4 v[2];
+  if (m < M) load_row(power, m, v);
+  for (; m < M; m += step) {
+    row4[lane()] = v[0];
+    row4[kLanes + lane()] = v[1];
+    __syncwarp();
+    if (m + step < M) load_row(power, m + step, v);   // in flight meanwhile
+    post_power_balanced(row, sm.fb, c, out + m * c.ncep);
+    __syncwarp();
+  }
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes (mfcc_tpu_torch/kernels/build.py).
 // Every pointer is a device pointer; the tables are those of int_mfcc.cu's
-// entry points.  power is (S*F, 256) int32, row (s*F + g) the power of
-// stream s's frame g; out is (M, ncep) int32.  Launches on `stream`, on the
+// entry points (sched the balanced filterbank's schedule, as
+// mfcc_int_frames_i32 takes it).  power is (S*F, 256) int32, row (s*F + g)
+// the power of stream s's frame g, 16-byte aligned; out is (M, ncep)
+// int32.  Launches on `stream`, on the
 // calling thread's current device (the caller sets it), without
 // synchronizing; returns a cudaError_t (0 = launched).
 extern "C" int mfcc_int_front_i16(const int16_t* audio, int* power,
@@ -105,15 +134,14 @@ extern "C" int mfcc_int_front_i16(const int16_t* audio, int* power,
 extern "C" int mfcc_int_epi(const int* power, int* out, long long M,
                             int nfilters, int ncep, int fb_shift,
                             int log_precision, int log_width, const int* dtw,
-                            const long long* fbw, const int* band,
-                            void* stream) {
-  const Tail c = make_tail(fbw, band, dtw, nfilters, ncep, fb_shift,
+                            const int* sched, void* stream) {
+  const Tail c = make_tail(nullptr, nullptr, dtw, nfilters, ncep, fb_shift,
                            log_precision, log_width);
-  if (!tail_ok(c) || M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tail_ok(c) || M < 0 || reinterpret_cast<uintptr_t>(power) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const long long blocks = (M + kFrames - 1) / kFrames;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  int_epi_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(power, out, M, c);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(int_epi_kernel, kThreads,
+                           (M + kFrames - 1) / kFrames, 0, stream,
+                           reinterpret_cast<const int4*>(power), out, M,
+                           reinterpret_cast<const uint2*>(sched), c);
 }

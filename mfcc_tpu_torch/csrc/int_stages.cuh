@@ -33,7 +33,9 @@
 //    order; the filterbank one lane per filter (two lanes per filter at 16
 //    filters, their uint64 sums joined by a shuffle, exact mod 2^64) over
 //    its band, the weights read by band offset from a block table; log2 in
-//    the same lane;
+//    the same lane (K2, K9, K3-v1, K4-INT); or, in K3 and K10's epilogue,
+//    the balanced filterbank: the bank's nonzero (filter, bin) terms split
+//    evenly over the 32 lanes by a schedule built on the host (below);
 //  * the 4*nfilters-point DCT ladder in registers: its lower half is zero
 //    through every stage but the last (bit-reversed storage puts the
 //    scattered log-mel row's odd points in the upper half), so the upper
@@ -42,10 +44,11 @@
 //    c, stored by lane c (one coalesced store a frame).
 // The butterfly is the RTL's datapath, unchanged; only data movement and
 // schedule are the kernel's.  What bounds it now is instruction issue,
-// ~4.3k SASS instructions a warp per frame (int_mfcc.cu).  Left for later:
-// fewer instructions per butterfly and per exchange; the filterbank lanes
-// idle on narrow bands (the loop runs the widest band's length, 37 bins,
-// for an average of 13).
+// ~3.4k SASS instructions a warp issues per frame in K2 (int_mfcc.cu).
+// Left for later: fewer instructions per butterfly and per exchange.  The
+// lane-per-filter loop runs the widest band's length (37 bins at 32
+// filters, for an average of 13); the balanced filterbank runs kFbSteps =
+// 16 entries a lane whatever the widths.
 
 #pragma once
 
@@ -216,7 +219,8 @@ struct Smem {
 
 // The ladder's twiddle table from the 256 twiddles of twiddle_table(512,
 // 16) in global memory; the caller's barrier follows.
-__device__ __forceinline__ void load_ladder_tables(Smem& sm, const int2* tw) {
+template <typename S>
+__device__ __forceinline__ void load_ladder_tables(S& sm, const int2* tw) {
   for (int i = threadIdx.x; i < kNfft - 1; i += blockDim.x) {
     const int s = 31 - __clz(i + 1);
     sm.stw[i] = twiddle(tw[(i + 1 - (1 << s)) << (kLog2Nfft - 1 - s)]);
@@ -353,28 +357,17 @@ __device__ __forceinline__ void shfl_butterfly(int& vr, int& vi, int span,
   vi = upper ? x1i : x0i;
 }
 
-// The stages after the power for the warp's frame, whose power sits in
-// pw[k], k < 256: the integer mel filterbank mod 2^64 over each filter's
-// band, log2, and the DCT-II as a 4*nfilters-point INT FFT of the
-// scattered log-mel row (buf[2k+1] = buf[4n-1-2k] = logmel[k],
+// The stages after the filterbank for the warp's frame: lane l holds the
+// uint64 filterbank sum (mod 2^64) of filter l / lpf in acc; the 16-bit
+// field at fb_shift, log2, and the DCT-II as a 4*nfilters-point INT FFT of
+// the scattered log-mel row (buf[2k+1] = buf[4n-1-2k] = logmel[k],
 // mfcc/core/dct_stream.py:29-34).  Lane c < ncep stores cepstrum c at
-// out[c].  Needs load_tail_tables and a barrier after it.
-__device__ __forceinline__ void post_power(const int* pw, const Smem& sm,
-                                           const Tail& c, int* out) {
+// out[c].  dtw: the DCT's twiddles as butterfly() takes them.
+__device__ __forceinline__ void log_dct(unsigned long long acc, int lpf,
+                                        const int4* dtw, const Tail& c,
+                                        int* out) {
   const int l = lane();
   const int nf = c.nfilters;
-  const int lpf = kLanes / nf;          // lanes per filter: 1 or 2
-  const int j = l / lpf;
-  const int2 bd = sm.band[j];
-  const int cap = kFbTable / nf;
-  unsigned long long acc = 0;
-  for (int t = l - j * lpf; t < bd.y - bd.x; t += lpf) {
-    const unsigned long long w = t < cap
-        ? sm.fbt[t * nf + j]
-        : static_cast<unsigned long long>(c.fbw[(bd.x + t) * nf + j]);
-    acc += static_cast<unsigned long long>(static_cast<uint32_t>(pw[bd.x + t])) * w;
-  }
-  if (lpf == 2) acc += __shfl_xor_sync(kFull, acc, 1);
   const int mel = static_cast<int>(static_cast<long long>(acc) >> c.fb_shift) & kMelMask;
   const int logmel = log2fix(mel, c.log_precision, c.log_width);
 
@@ -393,19 +386,41 @@ __device__ __forceinline__ void post_power(const int* pw, const Smem& sm,
   }
 #pragma unroll
   for (int s = 0; s < 5; ++s) {
-    const int4 w = sm.dtw[(l & ((1 << s) - 1)) << (log2h - s)];
+    const int4 w = dtw[(l & ((1 << s) - 1)) << (log2h - s)];
     shfl_butterfly(vr[0], vi[0], 1 << s, w, s == 0);
     if (nf == 32) shfl_butterfly(vr[1], vi[1], 1 << s, w, s == 0);
   }
   if (nf == 32) {   // span 32: the lane's own two points
-    const int4 w = sm.dtw[l << 1];
+    const int4 w = dtw[l << 1];
     butterfly(vr[0], vi[0], vr[1], vi[1], w);
   }
   // the last stage: x0 from the zero lower half, x1 the lane's point l
   int y0r = 0, y0i = 0;
-  const int4 w = sm.dtw[l];
+  const int4 w = dtw[l];
   butterfly(y0r, y0i, vr[0], vi[0], w);
   if (l < c.ncep) out[l] = y0r;
+}
+
+// The stages after the power for the warp's frame, whose power sits in
+// pw[k], k < 256: the integer mel filterbank mod 2^64 over each filter's
+// band, then log_dct.  Needs load_tail_tables and a barrier after it.
+__device__ __forceinline__ void post_power(const int* pw, const Smem& sm,
+                                           const Tail& c, int* out) {
+  const int l = lane();
+  const int nf = c.nfilters;
+  const int lpf = kLanes / nf;          // lanes per filter: 1 or 2
+  const int j = l / lpf;
+  const int2 bd = sm.band[j];
+  const int cap = kFbTable / nf;
+  unsigned long long acc = 0;
+  for (int t = l - j * lpf; t < bd.y - bd.x; t += lpf) {
+    const unsigned long long w = t < cap
+        ? sm.fbt[t * nf + j]
+        : static_cast<unsigned long long>(c.fbw[(bd.x + t) * nf + j]);
+    acc += static_cast<unsigned long long>(static_cast<uint32_t>(pw[bd.x + t])) * w;
+  }
+  if (lpf == 2) acc += __shfl_xor_sync(kFull, acc, 1);
+  log_dct(acc, lpf, sm.dtw, c, out);
 }
 
 // The warp's frame through the ladder, the power and post_power, from its
@@ -420,6 +435,108 @@ __device__ __forceinline__ void tail(int (&re)[kPts], Smem& sm, const Tail& c,
   ladder_power(re, row, sm.stw, pw);
   store_power(row, pw);
   post_power(row, sm, c, out);
+  __syncwarp();
+}
+
+// -- The balanced filterbank (K3 and K10's epilogue) ------------------------
+//
+// The lane-per-filter loop above runs the widest band's length while most
+// lanes idle (37 bins at 32 filters for an average of 13; 70 at 16 filters,
+// two lanes a filter).  Here the bank's nonzero (filter, bin) terms, in
+// filter order and ascending bins, are cut into 32 runs of L = ceil(terms /
+// 32) (14 at both 32 and 16 filters of the 512-point family), lane l
+// taking run l, so a lane's run covers consecutive filters.  The schedule is
+// built on the host (ops/int_fused.py fb_schedule), kFbSteps entries a
+// lane, zero-padded: every in-family bank has at most 512 terms (a bin
+// feeds at most two triangular filters), so 16 steps hold any of them and
+// the loop unrolls whole.  Entry i of lane l, at i*32 + l (consecutive
+// lanes on consecutive 8-byte words), is {weight, offsets}: the weight as
+// uint32 (in the family the weights are at most 2^power_width = 2^30) and
+// two byte offsets in the warp's row, the term's power word (4 * bin) in
+// the low 16 bits and, in the high 16 bits, 0 or, at the last term of a
+// segment (a run's stretch of one filter), the segment's uint64 slot past
+// the power (kSlotBase on).  The lane's sum runs over its whole run mod
+// 2^64 and is stored to the slot at each segment's end (a predicated store:
+// storing at every term, to a scratch slot, cost more shared-memory
+// bandwidth than the predicate saves in instructions).  A segment's sum is
+// its slot less the slot before it where that is the same lane's, which
+// only a filter's first segment can follow.  After a __syncwarp lane j
+// adds filter j's slots, which are consecutive: gather[j] holds the first
+// one's byte offset, their count in bits 16-30 and in bit 31 whether the
+// slot before the first is subtracted (0 for a lane past the filters).
+// Every sum is mod 2^64, so any order or split of the terms gives the
+// lane-per-filter sum's bits exactly.
+constexpr int kFbSteps = 16;              // schedule entries a lane
+constexpr int kSlotBase = kNbins * 4;     // the slots' first byte in a row
+
+struct FbTables {
+  uint2 sched[kFbSteps * kLanes];
+  unsigned gather[kLanes];
+  int4 dtw[2 * kMaxFilters];
+};
+
+// K10's epilogue's shared memory: the warps' rows (power, then slots) and
+// the tables; K3's adds the ladder's twiddles and the window curve.
+struct FbSmem {
+  int row[kFrames * kRow];
+  FbTables fb;
+};
+
+struct FbLadderSmem {
+  int row[kFrames * kRow];
+  int4 stw[kNfft - 1];
+  int curve[kNfft];
+  FbTables fb;
+};
+
+// The balanced filterbank's tables from the schedule in global memory
+// (kFbSteps * 32 entries, then the 32 gather words) and the DCT's
+// twiddles; the caller's barrier follows.
+__device__ __forceinline__ void load_fb_tables(FbTables& fb, const uint2* sched,
+                                               const Tail& c) {
+  for (int i = threadIdx.x; i < 2 * c.nfilters; i += blockDim.x)
+    fb.dtw[i] = twiddle(c.dtw[i]);
+  for (int i = threadIdx.x; i < kFbSteps * kLanes; i += blockDim.x)
+    fb.sched[i] = sched[i];
+  const unsigned* gather = reinterpret_cast<const unsigned*>(sched + kFbSteps * kLanes);
+  for (int i = threadIdx.x; i < kLanes; i += blockDim.x) fb.gather[i] = gather[i];
+}
+
+// post_power on the balanced filterbank: the warp's power in row[k], k <
+// 256, its slots in the same row past it (the ladder's exchanges are done
+// with both by now).  Needs load_fb_tables and a barrier after it.
+__device__ __forceinline__ void post_power_balanced(int* row, const FbTables& fb,
+                                                    const Tail& c, int* out) {
+  const int l = lane();
+  char* rb = reinterpret_cast<char*>(row);
+  unsigned long long acc = 0;
+#pragma unroll
+  for (int i = 0; i < kFbSteps; ++i) {
+    const uint2 e = fb.sched[i * kLanes + l];
+    const uint32_t p = *reinterpret_cast<const uint32_t*>(rb + (e.y & 0xFFFF));
+    acc += static_cast<unsigned long long>(p) * e.x;
+    if (e.y >> 16) *reinterpret_cast<unsigned long long*>(rb + (e.y >> 16)) = acc;
+  }
+  __syncwarp();
+  const unsigned g = fb.gather[l];
+  const unsigned long long* s =
+      reinterpret_cast<const unsigned long long*>(rb + (g & 0xFFFF));
+  acc = g >> 31 ? 0ull - s[-1] : 0ull;
+#pragma unroll 1
+  for (unsigned k = 0; k < ((g >> 16) & 0x7FFF); ++k) acc += s[k];  // <= 6
+  log_dct(acc, 1, fb.dtw, c, out);
+}
+
+// tail() on the balanced filterbank (K3).  Needs load_ladder_tables,
+// load_fb_tables and a barrier after them; ends with the warp's row free
+// for its next frame.
+__device__ __forceinline__ void tail_balanced(int (&re)[kPts], FbLadderSmem& sm,
+                                              const Tail& c, int* out) {
+  int* row = sm.row + (threadIdx.x / kLanes) * kRow;
+  int pw[kBinsPerLane];
+  ladder_power(re, row, sm.stw, pw);
+  store_power(row, pw);
+  post_power_balanced(row, sm.fb, c, out);
   __syncwarp();
 }
 

@@ -49,10 +49,10 @@ _FLADDER_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
 _INT_AUDIO_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
                    _P, _P, _P, _P, _P, _P]
 # mfcc_int_frames_i32(frames, out, M, nfilters, ncep, fb_shift,
-#                     log_precision, log_width, curve, tw, dtw, fbw, band,
+#                     log_precision, log_width, curve, tw, dtw, sched,
 #                     stream)
 _INT_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I,
-                    _P, _P, _P, _P, _P, _P]
+                    _P, _P, _P, _P, _P]
 # mfcc_stream_f32_{i16,f32}(carry, chunk, start, prev, out, ncarry, S, P, C,
 #                           F, hop, nfft, nfilters, ncep, carry_s, carry_p,
 #                           chunk_s, chunk_t, ncarry_s, ncarry_p, win, tw,
@@ -94,8 +94,8 @@ _F64ISH_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
 # mfcc_int_front_i16(audio, power, S, T, F, hop, curve, tw, stream)
 _INT_FRONT_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P]
 # mfcc_int_epi(power, out, M, nfilters, ncep, fb_shift, log_precision,
-#              log_width, dtw, fbw, band, stream)
-_INT_EPI_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+#              log_width, dtw, sched, stream)
+_INT_EPI_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P]
 # mfcc_dense_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
 #                      ingest, split, <engine>, mel weights, mel offsets,
 #                      dct, band, mel length, mel_floor, stream)

@@ -22,7 +22,10 @@ of ``tools/ab_int_r5.py``:
     device memory between them (``csrc/int_split2.cu``).
 
 K2, K3-v1 and K3 are ``csrc/int_mfcc.cu``; every kernel runs the device
-functions of ``csrc/int_stages.cuh``.  A CUDA tensor launches the kernel (or
+functions of ``csrc/int_stages.cuh``.  K3 and K10's epilogue sum the
+filterbank on the balanced schedule that ``fb_schedule`` builds (the bank's
+nonzero terms split evenly over a warp's 32 lanes); K2, K9, K3-v1 and K4-INT
+a lane per filter over its band.  A CUDA tensor launches the kernel (or
 the wrapper raises), a CPU tensor takes the plain version (``*_plain``, the
 ``int_ops`` chain).  ``LAUNCHES`` counts kernel launches per entry.
 
@@ -74,6 +77,63 @@ class IntOperators(NamedTuple):
     fbw: torch.Tensor      # (256, nfilters) int64 filterbank matrix
     band: torch.Tensor     # (nfilters, 2) int32 [lo, hi) nonzero rows of fbw
     fb_shift: int          # the filterbank keeps bits [shift, shift+16)
+    fbs: torch.Tensor      # int32 balanced filterbank schedule (fb_schedule)
+
+
+# The balanced filterbank (csrc/int_stages.cuh): schedule entries a lane
+# (kFbSteps), lanes, and the byte offset in a warp's row of the first
+# segment slot (kSlotBase, past the 256 power words) and the row's bytes
+# (kRow words).
+FB_STEPS = 16
+LANES = 32
+FB_SLOT_BASE = 4 * 256
+FB_ROW_BYTES = 4 * 544
+
+
+def fb_schedule(W: np.ndarray) -> np.ndarray:
+    """The balanced filterbank's schedule of the (nbins, nfilters)
+    filterbank matrix ``W``, as K3 and K10's epilogue read it
+    (``csrc/int_stages.cuh``): the nonzero terms (filter j, bin k),
+    filter-major with ascending bins, cut into 32 runs of L = ceil(terms /
+    32), lane l taking run l.  Returns int32 words: FB_STEPS x 32 entries
+    {weight, 4k | slot << 16}, entry i of lane l at (i*32 + l)*2, then 32
+    gather words.  A lane's running sum (mod 2^64) is stored after the last
+    term of each segment (a run's stretch of one filter) to the segment's
+    slot, FB_SLOT_BASE + 8 * segment, a byte offset in the warp's row (slot
+    0: no store); entries past a lane's run are 0.  The gather word of lane
+    j < nfilters is filter j's first slot | its segment count << 16 | 1 <<
+    31 where that segment follows another in its lane (whose slot, the one
+    before, is subtracted); 0 past the filters.  The weights fit 32 bits in
+    the family (at most 2^power_width = 2^30)."""
+    f, k = np.nonzero(W.T)                       # filter-major, bins ascending
+    terms = len(f)
+    L = max(1, -(-terms // LANES))
+    if L > FB_STEPS:
+        raise ValueError(f"{terms} filterbank terms exceed the schedule's "
+                         f"{FB_STEPS} x {LANES} entries")
+    w = W[k, f]
+    if terms and not (0 < int(w.min()) and int(w.max()) < 2 ** 32):
+        raise ValueError("the schedule holds filterbank weights in 32 bits")
+    idx = np.arange(terms)
+    lane, step = idx // L, idx % L
+    last = np.ones(terms, bool)                  # a segment's last term
+    last[:-1] = (f[1:] != f[:-1]) | (lane[1:] != lane[:-1])
+    seg = np.cumsum(last) - last
+    slot = FB_SLOT_BASE + 8 * seg
+    if terms and int(slot.max()) + 8 > FB_ROW_BYTES:
+        raise ValueError("the segment slots overflow a warp's row")
+    table = np.zeros((FB_STEPS, LANES, 2), np.int64)
+    table[step, lane, 0] = w
+    table[step, lane, 1] = 4 * k + np.where(last, slot, 0) * 65536
+    gather = np.zeros(LANES, np.int64)
+    for j in range(W.shape[1]):
+        own = np.flatnonzero(f == j)
+        if len(own):
+            follows = step[own[0]] > 0           # mid-run: subtract before
+            gather[j] = (int(slot[own].min()) + (int(last[own].sum()) << 16)
+                         + (int(follows) << 31))
+    words = np.concatenate([table.reshape(-1), gather]).astype(np.uint32)
+    return words.view(np.int32)
 
 
 def _twiddles(size: int) -> np.ndarray:
@@ -87,11 +147,11 @@ def int_operators(cfg: MFCCConfig, device: torch.device) -> IntOperators:
     W, shift = int_ops._fb_constants(cfg.samplerate, cfg.nfft, cfg.nfilters,
                                      cfg.filter_wsize, cfg.filter_gain, 16,
                                      cfg.power_width)
-    curve, tw, dtw, fbw = (torch.as_tensor(a, device=device) for a in (
+    curve, tw, dtw, fbw, fbs = (torch.as_tensor(a, device=device) for a in (
         tables.int_window_curve(cfg.nfft, cfg.window_precision)
         .astype(np.int32), _twiddles(cfg.nfft), _twiddles(4 * cfg.nfilters),
-        W))
-    return IntOperators(curve, tw, dtw, fbw, mel_bands(fbw), shift)
+        W, fb_schedule(W)))
+    return IntOperators(curve, tw, dtw, fbw, mel_bands(fbw), shift, fbs)
 
 
 def _check(x: torch.Tensor, dtypes, what: str) -> None:
@@ -195,7 +255,8 @@ def _launch_frames(key: str, frames: torch.Tensor, cfg: MFCCConfig
     tail = tail_args(cfg, ops)
     out = torch.empty((M, tail[1]), dtype=torch.int32, device=frames.device)
     _launch(key, build.library().mfcc_int_frames_i32, frames,
-            frames.data_ptr(), out.data_ptr(), M, *tail, *table_ptrs(ops))
+            frames.data_ptr(), out.data_ptr(), M, *tail, ops.curve.data_ptr(),
+            ops.tw.data_ptr(), ops.dtw.data_ptr(), ops.fbs.data_ptr())
     return out.reshape(lead + (tail[1],))
 
 
@@ -325,14 +386,16 @@ def mfcc_int_epi(power: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
     if power.dim() < 1 or power.shape[-1] != nbins:
         raise ValueError(f"K10-epi takes (..., {nbins}) power rows, got "
                          f"{tuple(power.shape)}")
+    if power.data_ptr() % 16:
+        raise ValueError("K10-epi reads its power rows in 16-byte words: "
+                         "the tensor's data must start 16-byte aligned")
     lead = power.shape[:-1]
     M = power.numel() // nbins
     ops = int_operators(cfg, power.device)
     tail = tail_args(cfg, ops)
     out = torch.empty((M, tail[1]), dtype=torch.int32, device=power.device)
     _launch("K10-epi", build.library().mfcc_int_epi, power, power.data_ptr(),
-            out.data_ptr(), M, *tail, ops.dtw.data_ptr(), ops.fbw.data_ptr(),
-            ops.band.data_ptr())
+            out.data_ptr(), M, *tail, ops.dtw.data_ptr(), ops.fbs.data_ptr())
     return out.reshape(lead + (tail[1],))
 
 

@@ -5,8 +5,9 @@ K1's float tail (``csrc/fladder_stages.cuh``: K1, K6, K4-float, K7) give
 each frame to one warp of 32 lanes and keep its points in registers; between
 passes the warp exchanges them through the frame's shared row.  The batch
 kernels' warps walk the frames in a persistent grid (``persistent_walk``),
-and K2's and K3-v1's ingest loads each frame from the samples
-(``int_audio_ingest_model``).  This module states those schedules with the
+K2's and K3-v1's ingest loads each frame from the samples
+(``int_audio_ingest_model``), and K3 and K10's epilogue sum the filterbank
+on the balanced schedule (``int_fb_balanced``).  This module states those schedules with the
 kernels' own index formulas -- which lane and register holds which point in
 each pass, which stages run in each pass, where each point sits in the row,
 which table entry is each twiddle -- and runs a batch of frames through them
@@ -30,9 +31,8 @@ from .. import tables
 from ..config import FILTERBANK_WIDTH, MFCCConfig
 from . import int_ops
 from .fladder import LadderOperators
-from .int_fused import int_operators
+from .int_fused import FB_STEPS, LANES, int_operators
 
-LANES = 32
 _L = torch.arange(LANES)
 
 
@@ -264,30 +264,72 @@ def _shfl_butterfly(vr, vi, span, twr, twi, real):
     return torch.where(upper, y1r, y0r), torch.where(upper, y1i, y0i)
 
 
-def int_post_power_model(power: torch.Tensor, cfg: MFCCConfig) -> torch.Tensor:
+def int_fb_balanced(power: torch.Tensor, fbs: torch.Tensor) -> torch.Tensor:
+    """The balanced filterbank (``int_stages.cuh`` ``post_power_balanced``)
+    on (N, 256) int32 power rows, reading the schedule ``fbs``
+    (``int_fused.fb_schedule``) with the kernel's index formulas: for step
+    i, lane l reads entry i*32 + l {weight, offsets}, the power word at
+    byte offsets & 0xFFFF of its row, adds the product to its running sum
+    mod 2^64 and, where offsets >> 16 is not 0, stores the sum to the
+    uint64 slot at that byte; then lane j with gather word g starts from
+    minus the slot before byte g & 0xFFFF if bit 31 is set, else 0, and
+    adds the (g >> 16) & 0x7FFF slots from there on.  Returns (N, 32)
+    int64: lane j's sum, filter j's for j < nfilters."""
+    N = power.shape[0]
+    words = fbs.long() & 0xFFFFFFFF
+    ent = words[: FB_STEPS * LANES * 2].reshape(FB_STEPS, LANES, 2)
+    gather = words[FB_STEPS * LANES * 2:]
+    row = torch.zeros((N, INT_ROW), dtype=torch.int64)      # 32-bit words
+    row[:, : INT_NFFT // 2] = power.long()
+    slots = torch.zeros((N, INT_ROW // 2), dtype=torch.int64)  # 64-bit
+    acc = torch.zeros((N, LANES), dtype=torch.int64)
+    for i in range(FB_STEPS):
+        w, offs = ent[i, :, 0], ent[i, :, 1]
+        acc = acc + row[:, (offs & 0xFFFF) >> 2] * w         # mod 2^64
+        slot = offs >> 16
+        store = slot != 0
+        slots[:, slot[store] >> 3] = acc[:, store]
+    first, count = (gather & 0xFFFF) >> 3, (gather >> 16) & 0x7FFF
+    sub = (gather >> 31) != 0
+    out = torch.where(sub, -slots[:, torch.clamp(first - 1, min=0)],
+                      torch.zeros((), dtype=torch.int64))
+    for k in range(int(count.max())):
+        live = k < count
+        out[:, live] = out[:, live] + slots[:, (first + k)[live]]
+    return out
+
+
+def int_post_power_model(power: torch.Tensor, cfg: MFCCConfig,
+                         balanced: bool = False) -> torch.Tensor:
     """The warp's post-power stages on (N, 256) int32 power: the filterbank
     a lane per filter (two lanes per filter at 16 filters, their sums
-    joined), log2, the DCT ladder's upper half in lanes and shuffles, and
-    lane c's last-stage output c.  Returns (N, ncep) int32."""
+    joined; K2's tail), or with ``balanced`` on the balanced schedule
+    (``int_fb_balanced``; K3's and K10's epilogue's), log2, the DCT
+    ladder's upper half in lanes and shuffles, and lane c's last-stage
+    output c.  Returns (N, ncep) int32."""
     ops = int_operators(cfg, torch.device("cpu"))
     nf, ncep = cfg.nfilters, min(cfg.nceptrums, cfg.nfilters)
     N = power.shape[0]
-    lpf = LANES // nf
-    j, h0 = _L // lpf, _L % lpf
-    band = ops.band.long()
-    lo, w = band[j, 0], band[j, 1] - band[j, 0]
-    cap = INT_FB_TABLE // nf
-    fbt = int_fb_table(ops.fbw, band)
-    t = h0[:, None] + lpf * torch.arange(int(w.max()) // lpf + 1)[None, :]
-    live = t < w[:, None]
-    k = torch.clamp(lo[:, None] + t, max=INT_NFFT // 2 - 1)
-    wt = torch.where(t < cap, fbt[torch.clamp(t * nf + j[:, None],
-                                              max=INT_FB_TABLE - 1)],
-                     ops.fbw[k, j[:, None]])
-    wt = torch.where(live, wt, torch.zeros((), dtype=torch.int64))
-    acc = (power.long()[:, k] * wt).sum(-1)            # mod 2^64, per lane
-    if lpf == 2:
-        acc = acc + acc[:, _L ^ 1]
+    if balanced:
+        lpf = 1
+        acc = int_fb_balanced(power, ops.fbs)
+    else:
+        lpf = LANES // nf
+        j, h0 = _L // lpf, _L % lpf
+        band = ops.band.long()
+        lo, w = band[j, 0], band[j, 1] - band[j, 0]
+        cap = INT_FB_TABLE // nf
+        fbt = int_fb_table(ops.fbw, band)
+        t = h0[:, None] + lpf * torch.arange(int(w.max()) // lpf + 1)[None, :]
+        live = t < w[:, None]
+        k = torch.clamp(lo[:, None] + t, max=INT_NFFT // 2 - 1)
+        wt = torch.where(t < cap, fbt[torch.clamp(t * nf + j[:, None],
+                                                  max=INT_FB_TABLE - 1)],
+                         ops.fbw[k, j[:, None]])
+        wt = torch.where(live, wt, torch.zeros((), dtype=torch.int64))
+        acc = (power.long()[:, k] * wt).sum(-1)            # mod 2^64, per lane
+        if lpf == 2:
+            acc = acc + acc[:, _L ^ 1]
     mel = ((acc >> ops.fb_shift) & 0xFFFF).to(torch.int32)
     logmel = int_ops.log2fix_int(mel, FILTERBANK_WIDTH, cfg.log_width_output)
 
@@ -319,13 +361,14 @@ def int_post_power_model(power: torch.Tensor, cfg: MFCCConfig) -> torch.Tensor:
     return y0r[:, :ncep].to(torch.int32)
 
 
-def int_tail_model(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig()
-                   ) -> torch.Tensor:
+def int_tail_model(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
+                   balanced: bool = False) -> torch.Tensor:
     """K3's function through the warp schedule: (N, 512) int32
-    pre-emphasized frames -> (N, ncep) int32."""
+    pre-emphasized frames -> (N, ncep) int32; ``balanced`` (K3's own
+    filterbank) as ``int_post_power_model`` takes it."""
     win = int_ops.window_int(frames, cfg.nfft, cfg.window_precision,
                              cfg.width)
-    return int_post_power_model(int_ladder_power_model(win), cfg)
+    return int_post_power_model(int_ladder_power_model(win), cfg, balanced)
 
 
 # -- the persistent walk (persistent.cuh; K1, K7, K2, K3-v1, K3) --------------
@@ -358,6 +401,28 @@ def persistent_walk(frames: int, F: int, grid: int) -> list:
                 g = G - s * F
                 out.append((b, w, G, s, g, g == 0))
                 G += grid * FRAMES_PER_BLOCK
+    return out
+
+
+def epilogue_walk(M: int, grid: int) -> list:
+    """K10's epilogue's loop (``int_split2.cu`` ``int_epi_kernel``) over
+    M power rows in ``grid`` blocks: warp w of block b starts at m = b*8 +
+    w, loads row m into registers if m < M, then while m < M stores the
+    loaded row to its shared row, loads row m + step (step = grid*8) if
+    that is < M, runs the stored row and steps m.  Returns [(b, w, row)],
+    the rows each warp runs in order; ``persistent_walk`` with F = M gives
+    the same rows when the prefetch runs the row the loop stands on."""
+    out, step = [], grid * FRAMES_PER_BLOCK
+    for b in range(grid):
+        for w in range(FRAMES_PER_BLOCK):
+            m = b * FRAMES_PER_BLOCK + w
+            loaded = m if m < M else None
+            while m < M:
+                row = loaded
+                if m + step < M:
+                    loaded = m + step
+                out.append((b, w, row))
+                m += step
     return out
 
 

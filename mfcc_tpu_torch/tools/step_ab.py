@@ -1,8 +1,8 @@
-"""Time the batch kernels K1, K2, K3-v1, K7, K5 and K8 and the serving steps
-of several checkouts of the port on one CUDA card, one process per
-checkout, in the order given.
+"""Time the batch kernels K1, K2, K9, K3, K3-v1, K10's epilogue, K7, K5 and
+K8 and the serving steps of several checkouts of the port on one CUDA card,
+one process per checkout, in the order given.
 
-    python3 mfcc_tpu_torch/tools/step_ab.py TREE [TREE ...]
+    python3 mfcc_tpu_torch/tools/step_ab.py [--int] TREE [TREE ...]
 
 Each TREE is a directory that holds a ``mfcc_tpu_torch`` package (a
 checkout, or ``git archive`` of one); give two trees in the order A B B A
@@ -11,15 +11,19 @@ kernels and prints one JSON line with the tree, the card
 (``nvidia-smi``), and, as ``chip_smoke.py`` times them: K1
 (``fladder.mfcc_float_ladder``) and K2 (``int_fused.mfcc_int_fused``) at
 S=1024 streams x T=63,922 int16 samples (4 s, 382,976 frames), with K1's
-max-abs difference from its plain version and a digest of K2's output
-(element-exact in every tree, so the digests agree); K3-v1
+max-abs difference from its plain version; K9 (``mfcc_int_v2``, K2's
+kernel) on them, K3 (``mfcc_int_fused_frames``) on their (1024, 374, 512)
+int32 emphasized frames and K10's epilogue (``mfcc_int_epi``) on their
+(1024, 374, 256) power rows (``mfcc_int_front``), each element-exact with
+K2's function, so their digests (``k2_sha1``, ``k9_sha1``, ``k3_sha1``,
+``k10_epi_sha1``) are one in every tree (``int_same_ok``); K3-v1
 (``int_fused.mfcc_int_v1``) on the same samples as int32, K7
 (``f64ish.mfcc_f64ish``) on them and K7-frames (``mfcc_f64ish_frames``)
 on their (1024, 374, 512) f32 frames, and K1 and K7 at the JAX bench's
 f64ish shape S=512 x T=16,322 (``*_bench_ms``), with a digest of each
-output of K1, K3-v1, K7 and K7-frames held to the first tree's bit for
-bit (``*_ok``: these kernels' arithmetic is fixed, so a tree that moves
-a bit has changed it); K8
+output of K1, K2, K9, K3, K10's epilogue, K3-v1, K7 and K7-frames held to
+the first tree's bit for bit (``*_ok``: these kernels' arithmetic is
+fixed, so a tree that moves a bit has changed it); K8
 (``dense_fused.mfcc_raw`` and ``mfcc_batch_dense``) and K5
 (``float_fused.mfcc_radix2`` at 3 and 6 passes) on the same input, with a
 digest of each output and its max-abs difference from the first tree's
@@ -32,7 +36,9 @@ float and INT (the mean of a chain of 16 steps with the state threaded
 through); each the median of 10 after warm-up, device time by CUDA
 events.  ``*_host_ms`` is the host's time to issue one step of the chain
 (no synchronization inside it): a step whose host time reaches its device
-time is held back by the host.  The first tree's outputs are kept in
+time is held back by the host.  With ``--int`` each process times the
+INT batch kernels alone (K2, K9, K3, K10's epilogue, K3-v1), a quicker
+A/B of INT variants.  The first tree's outputs are kept in
 ``mfcc_tpu_torch/_build/step_ab/`` of the tree that runs the script, for
 the later trees to compare with.
 """
@@ -107,7 +113,10 @@ def against_first(out: dict, name: str, got, first: bool, tol: float
     out[f"{name}_ok"] = ok and e <= tol
 
 
-def child(tree: str, first: bool) -> dict:
+INT_KEYS = ("k2", "k9", "k3", "k10_epi", "k3v1")
+
+
+def child(tree: str, first: bool, int_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -124,12 +133,14 @@ def child(tree: str, first: bool) -> dict:
     out = {"tree": tree}
     audio = torch.from_numpy(make_audio(S_BATCH, T_BATCH, seed=0)
                              .astype(np.int16)).to(dev)
-    k1 = fladder.mfcc_float_ladder(audio, cfg)
-    out["k1_vs_plain"] = float((k1 - fladder.mfcc_float_ladder_plain(
-        audio, cfg)).abs().max())
-    out["k2_sha1"] = hashlib.sha1(int_fused.mfcc_int_fused(audio, cfg)
-                                  .cpu().numpy().tobytes()).hexdigest()
+    if not int_only:
+        out["k1_vs_plain"] = float((fladder.mfcc_float_ladder(audio, cfg)
+                                    - fladder.mfcc_float_ladder_plain(
+                                        audio, cfg)).abs().max())
     audio32 = audio.to(torch.int32)
+    iframes = framing.extract_frames(framing.preemphasis_int(audio32),
+                                     cfg.nfft, cfg.hop).contiguous()
+    power = int_fused.mfcc_int_front(audio, cfg)
     hframes = framing.extract_frames(framing.preemphasis(
         audio.to(torch.float32)), cfg.nfft, cfg.hop).contiguous()
     bench = torch.from_numpy(make_audio(S_BENCH, T_BENCH, seed=3)
@@ -137,17 +148,25 @@ def child(tree: str, first: bool) -> dict:
     for name, fn in (
             ("k1", lambda: fladder.mfcc_float_ladder(audio, cfg)),
             ("k2", lambda: int_fused.mfcc_int_fused(audio, cfg)),
+            ("k9", lambda: int_fused.mfcc_int_v2(audio, cfg)),
+            ("k3", lambda: int_fused.mfcc_int_fused_frames(iframes, cfg)),
+            ("k10_epi", lambda: int_fused.mfcc_int_epi(power, cfg)),
             ("k3v1", lambda: int_fused.mfcc_int_v1(audio32, cfg)),
             ("k7", lambda: f64ish.mfcc_f64ish(audio, cfg)),
             ("k7_frames", lambda: f64ish.mfcc_f64ish_frames(hframes, cfg))):
-        if name != "k2":
-            against_first(out, name, fn(), first, 0.0)
+        if int_only and name not in INT_KEYS:
+            continue
+        against_first(out, name, fn(), first, 0.0)
         out[f"{name}_ms"] = time_ms(fn)[0]
+    out["int_same_ok"] = len({out[f"{k}_sha1"] for k in (
+        "k2", "k9", "k3", "k10_epi")}) == 1
+    if int_only:
+        return out
     for name, fn in (
             ("k1_bench", lambda: fladder.mfcc_float_ladder(bench, cfg)),
             ("k7_bench", lambda: f64ish.mfcc_f64ish(bench, cfg))):
         out[f"{name}_ms"] = time_ms(fn)[0]
-    del audio32, hframes, bench
+    del audio32, hframes, bench, iframes, power
     for name, fn, tol in (
             ("k8_raw", lambda: dense_fused.mfcc_raw(audio, cfg), KERNEL_TOL),
             ("k8_batch", lambda: dense_fused.mfcc_batch_dense(audio, cfg),
@@ -158,7 +177,7 @@ def child(tree: str, first: bool) -> dict:
                                                      dft_passes=6), R2_TOL)):
         against_first(out, name, fn(), first, tol)
         out[f"{name}_ms"] = time_ms(fn)[0]
-    del audio, k1
+    del audio
     serve = torch.from_numpy(make_audio(S, (STEPS + 2) * C, seed=6)
                              .astype(np.int16)).to(dev)
     chunks = [serve[:, i * C:(i + 1) * C].contiguous()
@@ -189,9 +208,12 @@ def child(tree: str, first: bool) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) >= 3 and argv[0] == "--child":
-        print(json.dumps(child(argv[1], argv[2] == "first")), flush=True)
+    if len(argv) >= 4 and argv[0] == "--child":
+        print(json.dumps(child(argv[1], argv[2] == "first",
+                               argv[3] == "int")), flush=True)
         return 0
+    int_only = bool(argv) and argv[0] == "--int"
+    argv = argv[int_only:]
     if not argv:
         raise SystemExit(__doc__)
     card = subprocess.run(
@@ -201,7 +223,8 @@ def main(argv: list[str]) -> int:
     rc = 0
     for i, tree in enumerate(map(os.path.abspath, argv)):
         res = subprocess.run([sys.executable, __file__, "--child", tree,
-                              "first" if i == 0 else "later"],
+                              "first" if i == 0 else "later",
+                              "int" if int_only else "all"],
                              capture_output=True, text=True, timeout=600)
         line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() \
             else ""

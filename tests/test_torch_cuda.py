@@ -5,7 +5,9 @@ every carry ``torch.equal``), K5, K5-frames and the split-DFT step (within
 TOL_R2), K6, K7 and K7-frames (within TOL; K7 on int16 equal to K1, on
 ragged shapes and at the headline size), K8's seven dense-DFT entries
 (within TOL), K9, K3-v1 and K10 (``torch.equal``; K3-v1 on int32 edges
-and int64 too, one launch and no allocation but its output), streaming
+and int64 too, one launch and no allocation but its output), K3 and K10's
+persistent epilogue on the balanced filterbank (ragged row counts, leading
+axes, 16 and 32 filters), streaming
 against batch, the split chain and the ``FeatureServer`` on the card; and the
 warp tails' geometry (one warp a frame, 8 frames a block): ragged frame
 counts for K1, K2, K3 and K10, and K4 where a stream's frame slots fill a
@@ -806,6 +808,67 @@ def test_int_split2_stages_on_card(dev):
         int_fused.mfcc_int_epi(power[..., :128].contiguous())
     with pytest.raises(TypeError, match="int16 or torch.int32"):
         int_fused.mfcc_int_v2(x.float())
+
+
+# row counts of the persistent K3 and K10-epilogue walks: one row, fewer
+# than a block's 8 warps, not a multiple of 8, and several times the
+# resident warps (132 SMs x 4 blocks x 8 warps = 4,224)
+RAGGED_ROWS = (1, 5, 7, 9, 23, 3 * 4224 + 5)
+
+
+@pytest.mark.parametrize("nf", [32, 16])
+def test_balanced_tails_on_ragged_rows(dev, nf):
+    """K3 and K10's epilogue, both on the balanced filterbank in a
+    persistent grid, equal their plain versions element for element on
+    ragged row counts (tonal and out-of-range int32 frames; power rows up
+    to the top of their 30-bit range) and with two leading axes; one
+    launch a call; K10 still equals K2."""
+    cfg = MFCCConfig(nfilters=nf, nceptrums=nf)
+    rng = np.random.default_rng(nf)
+    M = max(RAGGED_ROWS)
+    wide = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (M, 512))
+                            .astype(np.int32)).to(dev)
+    x = torch.from_numpy(_tonal(2, 16000, nf).astype(np.int32)).to(dev)
+    tonal = framing.extract_frames(framing.preemphasis_int(x), 512,
+                                   cfg.hop).reshape(-1, 512)
+    power = torch.from_numpy(rng.integers(0, 2 ** 30, (M, 256))
+                             .astype(np.int32)).to(dev)
+    power[:3] = 2 ** 30 - 1
+    for m in RAGGED_ROWS:
+        for name, f in (("wide", wide[:m]), ("tonal", tonal[:m])):
+            want_n = dict(int_fused.LAUNCHES)
+            want_n["K3"] += 1
+            got = int_fused.mfcc_int_fused_frames(f, cfg)
+            torch.cuda.synchronize()
+            assert int_fused.LAUNCHES == want_n
+            assert torch.equal(got, int_fused.mfcc_int_fused_frames_plain(
+                f, cfg)), (name, m)
+        want_n = dict(int_fused.LAUNCHES)
+        want_n["K10-epi"] += 1
+        got = int_fused.mfcc_int_epi(power[:m], cfg)
+        torch.cuda.synchronize()
+        assert int_fused.LAUNCHES == want_n
+        assert torch.equal(got, int_fused.mfcc_int_epi_plain(power[:m], cfg)), m
+    lead = wide[:2 * 3 * 7].reshape(2, 3, 7, 512)
+    assert torch.equal(int_fused.mfcc_int_fused_frames(lead, cfg),
+                       int_fused.mfcc_int_fused_frames_plain(lead, cfg))
+    lead = power[:2 * 5 * 9].reshape(2, 5, 9, 256)
+    got = int_fused.mfcc_int_epi(lead, cfg)
+    assert got.shape == (2, 5, 9, nf)
+    assert torch.equal(got, int_fused.mfcc_int_epi_plain(lead, cfg))
+    a = torch.from_numpy(_tonal(3, 9000, nf).astype(np.int16)).to(dev)
+    assert torch.equal(int_fused.mfcc_int_split2(a, cfg),
+                       int_fused.mfcc_int_fused(a, cfg))
+
+
+def test_int_epilogue_refuses_unaligned_rows(dev):
+    """K10's epilogue reads its rows in 16-byte words: power whose data
+    starts off a 16-byte boundary raises, and nothing is launched."""
+    power = torch.zeros(2 * 256 + 1, dtype=torch.int32, device=dev)
+    before = dict(int_fused.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        int_fused.mfcc_int_epi(power[1:].reshape(2, 256))
+    assert int_fused.LAUNCHES == before
 
 
 INT32_EDGES = (2 ** 31 - 1, -(2 ** 31 - 1), -2 ** 31)

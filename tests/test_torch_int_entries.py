@@ -5,7 +5,10 @@ CPU, through their plain versions: K9 (``mfcc_int_v2``) and K3-v1
 K10 (``mfcc_int_split2``) against K2's plain version; all against the RTL
 oracle ``int_ref.mfcc_int``.  K3-v1's kernel path is modelled too: K2's
 ingest at int32 (``warp_tails.int_audio_ingest_model``) through the warp
-schedule, on a stream of int32 edges where every emphasis wraps.
+schedule, on a stream of int32 edges where every emphasis wraps; and the
+balanced filterbank of K3 and K10's epilogue, against JAX K3
+(``mfcc_int_pallas_frames``) and the oracle, on power rows at the top of
+their range and on ragged row counts of the epilogue's walk.
 
 The JAX kernels take no ``interpret`` argument, so the ``interpret``
 fixture swaps ``pl.pallas_call`` for one that forces ``interpret=True``
@@ -234,3 +237,89 @@ def test_int_entry_checks():
                int_fused.mfcc_int_split2):
         assert fn(x).shape == (2, MFCCConfig().n_frames(4000), 32)
     assert int_fused.LAUNCHES == before
+
+
+# -- the balanced filterbank of K3 and K10's epilogue ---------------------------
+
+FB_CFGS = {32: (MFCCConfig(), JaxConfig()),
+           16: (MFCCConfig(nfilters=16, nceptrums=16),
+                JaxConfig(nfilters=16, nceptrums=16))}
+
+
+def _oracle_from_power(power, jcfg):
+    """``int_ref``'s stages after the power, its filterbank summed exactly
+    (Python integers) before the shift."""
+    mel = np.stack([int_ref.filterbank_int(
+        p, jcfg.samplerate, jcfg.nfft, jcfg.nfilters, jcfg.filter_wsize,
+        jcfg.filter_gain, width=jcfg.power_width) for p in power])
+    logmel = int_ref.log2fix_int(mel, 16, jcfg.log_width_output)
+    return int_ref.dct_int(logmel, jcfg.width)[:, : jcfg.nceptrums]
+
+
+@pytest.mark.parametrize("nf", sorted(FB_CFGS))
+def test_balanced_filterbank_matches_jax_k3_and_oracle(interpret, nf):
+    """K3's path on the balanced filterbank, modelled with the kernel's
+    index formulas (``int_tail_model(..., balanced=True)``), equals JAX K3
+    (``mfcc_int_pallas_frames``, interpret mode), ``int_ref.mfcc_int`` and
+    ``int_ops.mfcc_int_from_power`` element for element on the mixed
+    stream's 60 frames (int16-range, then full-range int32 samples), at
+    16 and 32 filters."""
+    cfg, jcfg = FB_CFGS[nf]
+    x, _ = _mixed()
+    frames = framing.extract_frames(framing.preemphasis_int(
+        torch.from_numpy(x)), 512, cfg.hop)[0]
+    got = wt.int_tail_model(frames, cfg, balanced=True)
+    want = np.asarray(pallas_int.mfcc_int_pallas_frames(
+        jnp.asarray(frames.numpy()), jcfg, interpret=True))
+    assert got.shape == want.shape == (60, nf)
+    assert np.array_equal(got.numpy(), want)
+    ref = int_ref.mfcc_int(x[0].astype(np.int64), jcfg)
+    assert np.array_equal(got.numpy(), ref)
+    power = wt.int_ladder_power_model(int_ops.window_int(frames))
+    assert torch.equal(got, int_ops.mfcc_int_from_power(power, cfg))
+
+
+@pytest.mark.parametrize("nf", sorted(FB_CFGS))
+def test_balanced_filterbank_at_the_top_of_the_power_range(nf):
+    """Power rows at the top of their 30-bit range (every bin 2^30 - 1,
+    bins drawn from [2^29, 2^30), one hot bin per row), where every
+    product of the filterbank passes 2^32 and its sums wrap mod 2^64: the
+    balanced model equals the lane-per-filter model, ``int_ops`` and the
+    oracle's exact sums, and K10's epilogue (its plain version on the CPU)
+    on them."""
+    cfg, jcfg = FB_CFGS[nf]
+    rng = np.random.default_rng(nf)
+    top = 2 ** 30 - 1
+    hot = np.zeros((4, 256), np.int64)
+    hot[np.arange(4), rng.integers(0, 256, 4)] = top
+    power = np.concatenate([np.full((2, 256), top),
+                            rng.integers(2 ** 29, 2 ** 30, (6, 256)), hot,
+                            np.zeros((1, 256), np.int64)]).astype(np.int32)
+    p = torch.from_numpy(power)
+    got = wt.int_post_power_model(p, cfg, balanced=True)
+    assert torch.equal(got, wt.int_post_power_model(p, cfg))
+    assert torch.equal(got, int_ops.mfcc_int_from_power(p, cfg))
+    assert torch.equal(got, int_fused.mfcc_int_epi(p, cfg))
+    assert np.array_equal(got.numpy(), _oracle_from_power(power, jcfg))
+
+
+@pytest.mark.parametrize("M", [1, 5, 7, 9, 1700])
+def test_epilogue_on_ragged_rows(M):
+    """K10's epilogue on M power rows (M = 1, M < 8, M not a multiple of 8,
+    M beyond the resident warps), as the kernel's walk and the balanced
+    filterbank take them (``epilogue_walk`` on a grid of 3 blocks, each
+    row through ``int_post_power_model(..., balanced=True)``), equals the
+    epilogue's plain version, also with two leading axes."""
+    cfg = MFCCConfig()
+    rng = np.random.default_rng(M)
+    p = torch.from_numpy(rng.integers(0, 2 ** 30, (M, 256)).astype(np.int32))
+    want = int_fused.mfcc_int_epi_plain(p, cfg)
+    rows = [row for *_, row in wt.epilogue_walk(M, 3)]
+    assert sorted(rows) == list(range(M))
+    got = torch.empty_like(want)
+    got[rows] = wt.int_post_power_model(p[rows], cfg, balanced=True)
+    assert torch.equal(got, want)
+    if M % 2 == 0 or M == 1:
+        lead = p.reshape(1, M, 256) if M == 1 else p.reshape(2, M // 2, 256)
+        assert torch.equal(int_fused.mfcc_int_epi(lead, cfg).reshape(M, -1),
+                           want)

@@ -7,8 +7,11 @@ whose inputs are zero or whose outputs no lane keeps); the INT schedule
 equals the ``int_ops`` chain and JAX ``mfcc_tpu`` element for element; the
 float schedule's spectrum is within 1e-12 of ``torch.fft.rfft`` in float64
 and its cepstra within KERNEL_TOL of ``ladder_tail_plain``; the persistent
-grid's walk (K1, K7, K2, K3-v1, K3) takes every frame once, with the loop
-bounds the kernels' sources hold.
+grid's walk (K1, K7, K2, K3-v1, K3, and K10's epilogue with its prefetch)
+takes every frame once, with the loop bounds the kernels' sources hold;
+the balanced filterbank's schedule (K3, K10's epilogue) holds every term
+of the bank once with no lane over ceil(terms / 32) + 2, and the tail on
+it equals the chain and JAX.
 """
 
 import re
@@ -23,7 +26,8 @@ import jax
 import mfcc_tpu
 
 from mfcc_tpu_torch import MFCCConfig, MIC_CONFIG, tables
-from mfcc_tpu_torch.ops import fladder, int_ops, warp_tails as wt
+from mfcc_tpu_torch.ops import fladder, int_fused, int_ops, warp_tails as wt
+from mfcc_tpu_torch.ops.int_fused import FB_STEPS
 
 KERNEL_TOL = 5e-5     # kernel vs plain version, both float64 inside
 SPECTRUM_TOL = 1e-12  # two float64 FFTs of unit-scale frames
@@ -260,3 +264,164 @@ def test_float_schedule_cepstra_match_plain(nfft):
     silent = torch.zeros(2, nfft, dtype=torch.float64)
     got = wt.float_tail_model(silent, ops, cfg, mel_floor=1.0)
     assert torch.equal(got, fladder.ladder_tail_plain(silent, ops, cfg, 1.0))
+
+
+# -- the balanced filterbank (K3, K10's epilogue) ------------------------------
+
+FB_CONFIGS = dict(INT_CONFIGS, hop160=(MFCCConfig(step=160),
+                                       mfcc_tpu.MFCCConfig(step=160)))
+
+
+def _decode_schedule(fbs):
+    """The (filter, bin, weight) terms of a schedule as the kernel runs
+    them: lane l's entries i*32 + l in step order, each term owned by the
+    segment whose slot its lane stores to next, each slot by the filter
+    whose gather range holds it.  Also each lane's (filters, real
+    entries), the padding entries and the slot owners."""
+    words = fbs.numpy().view(np.uint32).astype(np.int64)
+    ent = words[: FB_STEPS * 32 * 2].reshape(FB_STEPS, 32, 2)
+    gather = words[FB_STEPS * 32 * 2:]
+    owner = {}
+    for j, g in enumerate(gather):
+        for k in range((int(g) >> 16) & 0x7FFF):
+            assert (int(g) & 0xFFFF) + 8 * k not in owner
+            owner[(int(g) & 0xFFFF) + 8 * k] = j
+    terms, lanes, pads = [], [], []
+    for lane in range(32):
+        pending, filters, n = [], [], 0
+        for i in range(FB_STEPS):
+            w, offs = (int(v) for v in ent[i, lane])
+            off, slot = offs & 0xFFFF, offs >> 16
+            assert off % 4 == 0 and off < 4 * 256
+            if w == 0:
+                pads.append(offs)
+                continue
+            n += 1
+            pending.append((off, w))
+            if slot:
+                j = owner[slot]
+                filters.append(j)
+                terms += [(j, o // 4, w_) for o, w_ in pending]
+                pending = []
+        assert not pending, lane       # every run ends at a segment's slot
+        lanes.append((filters, n))
+    return terms, lanes, pads, owner
+
+
+@pytest.mark.parametrize("name", sorted(FB_CONFIGS))
+def test_fb_schedule_covers_every_term_once(name):
+    """The balanced schedule (``int_fused.fb_schedule``) read as the kernel
+    reads it holds every nonzero (filter, bin) term of the filterbank
+    exactly once with its weight; padding entries are 0 (weight 0, no
+    store); no lane holds more than ceil(terms / 32) + 2 terms (at most 16
+    at 16 and 32 filters); a lane's run covers consecutive filters; every
+    slot lies past the power in the warp's row and belongs to one
+    filter."""
+    cfg = FB_CONFIGS[name][0]
+    ops = int_fused.int_operators(cfg, torch.device("cpu"))
+    W = ops.fbw.numpy()
+    terms, lanes, pads, owner = _decode_schedule(ops.fbs)
+    want = sorted((int(j), int(k), int(W[k, j]))
+                  for k, j in zip(*np.nonzero(W)))
+    assert sorted(terms) == want and len(terms) == len(set(terms))
+    bound = -(-len(want) // 32) + 2
+    assert max(n for _, n in lanes) <= bound <= FB_STEPS
+    assert all(offs == 0 for offs in pads)
+    for filters, _ in lanes:
+        assert filters == list(range(filters[0], filters[0] + len(filters))) \
+            if filters else True
+    assert all(int_fused.FB_SLOT_BASE <= off and off % 8 == 0
+               and off + 8 <= int_fused.FB_ROW_BYTES for off in owner)
+    assert sorted(set(owner.values())) == list(range(cfg.nfilters))
+
+
+def test_fb_schedule_constants_match_header():
+    """The schedule's layout constants are the header's: kFbSteps entries a
+    lane, slots from kSlotBase = 4 * 256 (past the power words), rows of
+    kRow = 544 words, a multiple of 16 bytes (the epilogue stores its rows
+    in 16-byte words)."""
+    head = (Path(wt.__file__).resolve().parent.parent / "csrc"
+            / "int_stages.cuh").read_text()
+    assert f"constexpr int kFbSteps = {FB_STEPS};" in head
+    assert "constexpr int kSlotBase = kNbins * 4;" in head
+    assert "constexpr int kRow = kNfft + kNfft / 16;" in head
+    assert int_fused.FB_SLOT_BASE == 4 * wt.INT_NFFT // 2
+    assert int_fused.FB_ROW_BYTES == 4 * wt.INT_ROW == 4 * 544
+    assert int_fused.FB_ROW_BYTES % 16 == 0
+
+
+@pytest.mark.parametrize("name", sorted(INT_CONFIGS))
+def test_balanced_schedule_equals_chain_and_jax(name):
+    """K3's tail on the balanced filterbank (``int_tail_model(...,
+    balanced=True)``) equals the lane-per-filter schedule, the ``int_ops``
+    chain and JAX ``MFCC().int_frames`` element for element, on tonal,
+    full-range int16 and out-of-range int32 frames."""
+    cfg, jcfg = INT_CONFIGS[name]
+    rng = np.random.default_rng(17)
+    t = np.arange(3 * 512) / 16000.0
+    tone = np.round(12000 * np.sin(2 * np.pi * (300 + 2500 * t) * t))
+    frames = np.concatenate([
+        tone.reshape(3, 512),
+        rng.integers(-32768, 32768, (3, 512)),
+        rng.integers(-2 ** 31, 2 ** 31, (2, 512)),
+    ]).astype(np.int32)
+    x = torch.from_numpy(frames)
+    got = wt.int_tail_model(x, cfg, balanced=True)
+    assert torch.equal(got, wt.int_tail_model(x, cfg))
+    assert torch.equal(got, int_ops.mfcc_int_frames(x, cfg))
+    with jax.default_device(jax.devices("cpu")[0]):
+        want = np.asarray(mfcc_tpu.MFCC(jcfg).int_frames(frames))
+    assert np.array_equal(got.numpy(), want)
+
+
+EPI_ROWS = [1, 5, 7, 9, 23, 1700]
+
+
+@pytest.mark.parametrize("M", EPI_ROWS)
+@pytest.mark.parametrize("sms,per_sm", [(2, 1), (132, 4)])
+def test_epilogue_walk_is_the_persistent_walk(M, sms, per_sm):
+    """K10's epilogue's loop with its prefetch (``epilogue_walk``: the row
+    a warp runs is the row it loaded one iteration before) runs every row
+    once, in the rows and order of ``persistent_walk`` (F = M), on ragged
+    row counts: M = 1, M < 8, M not a multiple of 8, and M far beyond the
+    resident warps."""
+    tiles = -(-M // wt.FRAMES_PER_BLOCK)
+    for grid in (wt.persistent_grid(tiles, sms, per_sm), tiles + 2):
+        got = wt.epilogue_walk(M, grid)
+        want = [(b, w, G) for b, w, G, *_ in wt.persistent_walk(M, M, grid)]
+        assert got == want
+
+
+def test_epilogue_loop_is_the_kernels():
+    """``epilogue_walk`` is the kernel's loop: int_split2.cu's
+    ``int_epi_kernel`` starts at blockIdx.x * kFrames + the warp, steps by
+    gridDim.x * kFrames, loads its first row before the loop and the next
+    inside it, and launches through ``launch_persistent``."""
+    text = (Path(wt.__file__).resolve().parent.parent / "csrc"
+            / "int_split2.cu").read_text()
+    body = text[text.index("int_epi_kernel("):]
+    for line in (
+            "const long long step = static_cast<long long>(gridDim.x) * "
+            "kFrames;",
+            "long long m = static_cast<long long>(blockIdx.x) * kFrames + "
+            "threadIdx.x / kLanes;",
+            "if (m < M) load_row(power, m, v);",
+            "for (; m < M; m += step) {",
+            "if (m + step < M) load_row(power, m + step, v);",
+            "launch_persistent(int_epi_kernel,"):
+        assert line in body, line
+
+
+def test_k3_ingest_folds_first_sample():
+    """K3's ingest reads first_sample(r) = bitrev(16l + r, 9) as a lane
+    base bitrev(l, 5) plus the constant 32 * rev4(r), the same addresses;
+    the kernel's source holds that form."""
+    lane, r = torch.arange(32)[:, None], torch.arange(16)[None, :]
+    rev4 = ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3)
+    assert torch.equal(wt.int_first_sample(), wt._bitrev(lane.expand(32, 1),
+                                                           5) + 32 * rev4)
+    text = (Path(wt.__file__).resolve().parent.parent / "csrc"
+            / "int_mfcc.cu").read_text()
+    body = text[text.index("int_frames_kernel("):]
+    assert "const int b = bitrev(lane(), 5);" in body
+    assert "re[r] = window(x[q], cv[b + q]);" in body
