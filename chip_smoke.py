@@ -12,10 +12,11 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      seconds taken, and on a line of its own the registers and spills of
      every instantiation of the FP64 product engine's kernels (``nvcc
      -Xptxas=-v``) and the shared memory and ring stages of their launches,
-     on another those of the tails' persistent batch kernels (K1, K7 and
-     K7-frames, K2 and K3-v1, K3, K10's epilogue), and on a third the
-     static SASS instructions of the INT kernels (K2, K3-v1, K3, K10's
-     two launches; ``cuobjdump``, ``tools/sass_mix.py``) with the body
+     on another those of the tails' persistent kernels (K1, K7 and
+     K7-frames, K2 and K3-v1, K3, K10's epilogue, K4 float and INT), and
+     on a third the static SASS instructions of the INT kernels (K2,
+     K3-v1, K3, K10's two launches, K4-INT on int16; ``cuobjdump``,
+     ``tools/sass_mix.py``) with the body
      size of each of their loops, K2's held beside its recorded count;
   3. float path: compares K1 (``ops/fladder.py``) with its plain torch
      version on the card at nfft 256/86, 512/170 and 1024/340 on int16,
@@ -50,15 +51,28 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      in {1, 170, 600, 1024, 2048}, hop 170 and 160, int16 / int32 outside
      int16 range / non-integer f32 chunks, every carry and chunk layout,
      and S=4096 x C=1024): INT features and every carry with
-     ``torch.equal``, float features within ``KERNEL_TOL``; runs
+     ``torch.equal``, float features within ``KERNEL_TOL``; the same for
+     the step-level entries (``stream_step_*_state``: the reset merge and
+     the mask, count and prev update in the kernel, the launch
+     ``StreamingMFCC.step`` makes) at S=130 x C in {1, 169, 170, 171, 600,
+     1024, 2048} and S=4096 x C=1024 with random resets, and on 576
+     streams whose counts put count + C - 512 in (-170, 0) and in every
+     residue mod 170 (C in {1, 170, 171}), mask, carry, count and prev
+     with ``torch.equal``; runs
      ``StreamingMFCC().process`` on S=64 streams at C=1024 (64 full chunks)
      and C=149 (ending in a flush), float and INT, against batch K1 / K2
      (INT element for element, float bit for bit on the frames of
      full-chunk steps, since both run the same tail, and within ``GATE``
      of the float64 oracle on 8 spread streams) with the launch counts (K4
      once per full-chunk step, K1/K2 never, K3 once per INT flush); times
-     K4 beside its plain version and one ``StreamingMFCC.step`` (the mean
-     over a chain of 16) at S=4096 x C=1024 int16, with real-time streams;
+     K4 (its step-level and JAX-signature entries, 16 calls back to back
+     behind one already queued, and the step-level entry alone) beside its
+     plain version and one ``StreamingMFCC.step`` (the mean over a chain
+     of 16)
+     at S=4096 x C=1024 int16, with real-time streams, and prints each
+     step's host issue ms beside its device ms and the operations one
+     full-chunk step runs on the card (``torch.profiler``: K4's kernel
+     alone, checked);
      and serves 8 concurrent TCP clients from an INT and a float
      ``FeatureServer`` on the card, each client's frames held equal to the
      INT oracle, resp. to ``StreamingMFCC(mel_floor=1.0)`` on its signal,
@@ -242,6 +256,61 @@ def time_ms(fn) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_dev_host(fn) -> tuple[float, float]:
+    """(median device ms, median host ms) of one call: the host's time to
+    issue it (no synchronization inside ``fn``) beside its CUDA-event
+    time."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(ITERS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b))
+    return statistics.median(dev), statistics.median(host)
+
+
+def time_b2b(fn, n: int = 16) -> float:
+    """Device ms of one call: ``n`` calls back to back between two CUDA
+    events, the first recorded behind one more call so that the card is
+    busy while the timed calls are issued (a single call's time also holds
+    the host's time to issue it); the median over ITERS."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ITERS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        fn()
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def device_ops(fn) -> list[str]:
+    """The names of the operations ``fn`` runs on the card (kernels,
+    copies, fills), from ``torch.profiler``'s CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def zero_counts(*modules) -> None:
@@ -799,6 +868,86 @@ def k4_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
     return err
 
 
+STATE_WIDTHS = (1, 169, 170, 171, 600, 1024, 2048)
+
+
+def k4_state_run(dev, int_path: bool, S: int, C: int, cfg, steps: int = 4,
+                 seed: int = 0, count0=None) -> float:
+    """The step-level K4 entry (``stream_step_*_state``: the reset merged
+    and the state updated in the kernel, the main path's launch) against
+    its plain version over a multi-step run on the card, with a random
+    reset pattern on every step but the first (None there); chunks
+    alternate int16 and the state dtype (INT: int32 outside int16 range;
+    float: values that are not integers), the layouts rotate.
+    ``count0``: the first step's counts over a random carry (the
+    floor-division cases), else an empty state.  INT features and, for
+    both, mask, carry, count and prev with ``torch.equal``; float features
+    within KERNEL_TOL on the valid slots.  Returns the float max-abs
+    difference (0 for INT)."""
+    from mfcc_tpu_torch.ops import stream_fused
+    rng = np.random.default_rng(seed)
+    P = cfg.nfft - 1
+    sdt = torch.int32 if int_path else torch.float32
+    kern = (stream_fused.stream_step_int_state if int_path
+            else stream_fused.stream_step_float_state)
+    plain = (stream_fused.stream_step_int_state_plain if int_path
+             else stream_fused.stream_step_float_state_plain)
+    if count0 is None:
+        carry = torch.zeros(S, P, dtype=sdt, device=dev)
+        count = torch.zeros(S, dtype=torch.int32, device=dev)
+    else:
+        carry = torch.from_numpy(rng.integers(-3000, 3000, (S, P))).to(
+            dev, sdt)
+        count = torch.as_tensor(count0, dtype=torch.int32, device=dev)
+    prev = torch.from_numpy(rng.integers(-3000, 3000, S)).to(dev, sdt)
+    err = 0 if int_path else 0.0
+    what = f"K4-{'INT' if int_path else 'float'} step-level S={S} C={C}"
+    for k in range(steps):
+        if k % 2 == 0:
+            x = rng.integers(-32768, 32768, (S, C)).astype(np.int16)
+        elif int_path:
+            x = rng.integers(-2 ** 31, 2 ** 31, (S, C)).astype(np.int32)
+        else:
+            x = (rng.integers(-25000, 25000, (S, C))
+                 + rng.random((S, C))).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        reset = (None if k == 0 else
+                 torch.from_numpy(rng.random(S) < 0.3).to(dev))
+        ts, layout = k % 2 == 1, ("time", "positions", "stream")[k % 3]
+        xin = x.T.contiguous() if layout == "positions" else x
+        cin = carry.T.contiguous() if ts else carry
+        got = kern(cin, xin, count, prev, reset, cfg, transposed_state=ts,
+                   chunk_layout=layout)
+        ref = plain(cin, xin, count, prev, reset, cfg, transposed_state=ts,
+                    chunk_layout=layout)
+        torch.cuda.synchronize()
+        where = f"{what} step {k} ({x.dtype}, {layout}, " \
+                f"transposed_state={ts})"
+        check(tuple(got[0].shape) == (S, (C - 1) // cfg.hop + 1,
+                                      cfg.nceptrums),
+              f"{where}: shape {tuple(got[0].shape)}")
+        for name, a, b in zip(("mask", "carry", "count", "prev"), got[1:],
+                              ref[1:]):
+            compare_exact(a, b, f"{where} {name}")
+        if int_path:
+            compare_exact(got[0], ref[0], f"{where} features")
+        else:
+            m = got[1]
+            e = compare(got[0][m], ref[0][m], f"{where} features")
+            check(e <= KERNEL_TOL, f"{where}: {e} > {KERNEL_TOL}")
+            err = max(err, e)
+        if count0 is not None and k == 0:
+            total = np.asarray(count0) + C
+            n_valid = np.maximum((total - cfg.windowlen) // cfg.hop + 1, 0)
+            check(np.array_equal(got[1].sum(dim=1).cpu().numpy(), n_valid)
+                  and np.array_equal(got[3].cpu().numpy(),
+                                     total - n_valid * cfg.hop),
+                  f"{where}: valid frames or count off the floor division")
+        carry = got[2].T if ts else got[2]
+        count, prev = got[3], got[4]
+    return err
+
+
 def serving_phases(dev, card: str) -> list[dict]:
     """K4 against its plain version, streaming against batch, K4's times
     at the serving shape, and FeatureServer on the card; returns K4's
@@ -822,6 +971,27 @@ def serving_phases(dev, card: str) -> list[dict]:
               "{1, 170, 600, 1024, 2048}, hop 170 and 160, 4 steps each, "
               f"and S={S_SERVE} x C={C_SERVE}: every carry equal, features "
               + ("equal" if int_path else f"max-abs {errs[int_path]:.3e}"))
+        # the step-level entry: widths, random resets, the floor division
+        e_state = 0 if int_path else 0.0
+        for C in STATE_WIDTHS:
+            e_state = max(e_state, k4_state_run(dev, int_path, 130, C,
+                                                MFCCConfig(), seed=C))
+        e_state = max(e_state, k4_state_run(dev, int_path, S_SERVE, C_SERVE,
+                                            MFCCConfig(), steps=3, seed=2))
+        rng = np.random.default_rng(3)
+        count0 = np.concatenate([np.arange(512), rng.integers(0, 512, 64)])
+        for C in (1, 170, 171):
+            e_state = max(e_state, k4_state_run(
+                dev, int_path, len(count0), C, MFCCConfig(), steps=2,
+                seed=C, count0=count0))
+        errs[int_path] = max(errs[int_path], e_state)
+        print(f"K4-{'INT' if int_path else 'float'} step-level (reset, mask, "
+              f"count, prev in the kernel) vs plain: S=130 x C in "
+              f"{set(STATE_WIDTHS)}, S={S_SERVE} x C={C_SERVE}, random "
+              "resets, and 576 streams of counts 0..511 and 64 random at C "
+              "in {1, 170, 171} (count + C - 512 over (-170, 0) and every "
+              "residue mod 170): mask, carry, count, prev equal, features "
+              + ("equal" if int_path else f"max-abs {e_state:.3e}"))
 
     # -- streaming equals batch ------------------------------------------------
     cfg = MFCCConfig()
@@ -901,33 +1071,55 @@ def serving_phases(dev, card: str) -> list[dict]:
         valid = int(mask.sum())
         start = (cfg.windowlen - 1 - state.count).to(torch.int32)
         args = (state.buffer, chunks[2], start, state.prev, cfg)
+        sargs = (state.buffer, chunks[2], state.count, state.prev, None, cfg)
         kern = (stream_fused.stream_step_int if int_path
                 else stream_fused.stream_step_float)
-        plain = (stream_fused.stream_step_int_plain if int_path
-                 else stream_fused.stream_step_float_plain)
-        k_ms = time_ms(lambda: kern(*args))
-        p_ms = time_ms(lambda: plain(*args))
+        kern_state = (stream_fused.stream_step_int_state if int_path
+                      else stream_fused.stream_step_float_state)
+        plain_state = (stream_fused.stream_step_int_state_plain if int_path
+                       else stream_fused.stream_step_float_state_plain)
+        k_ms = time_b2b(lambda: kern_state(*sargs))
+        k1_ms, k_host = time_dev_host(lambda: kern_state(*sargs))
+        j_ms = time_b2b(lambda: kern(*args))
+        p_ms = time_ms(lambda: plain_state(*sargs))
 
         def chain():
             st = state
             for c in chunks[2:]:
                 _, _, st = sm.step(c, st)
-        step_ms = time_ms(chain) / steps
-        for name, ms in ((f"K4-{kind} kernel", k_ms),
-                         (f"K4-{kind} plain version", p_ms),
+        step_ms, step_host = (v / steps for v in time_dev_host(chain))
+        card_ops = device_ops(lambda: sm.step(chunks[2], state))
+        check(len(card_ops) == 1 and "stream_" in card_ops[0],
+              f"StreamingMFCC({kind}).step ran {len(card_ops)} operations "
+              f"on the card, not K4's kernel alone: {card_ops[:8]}")
+        for name, ms in ((f"K4-{kind} kernel, step-level entry (16 back "
+                          f"to back)", k_ms),
+                         (f"K4-{kind} kernel, step-level entry, one call "
+                          f"(its host issue included)", k1_ms),
+                         (f"K4-{kind} kernel, JAX-signature entry (16 back "
+                          f"to back)", j_ms),
+                         (f"K4-{kind} plain version (step-level)", p_ms),
                          (f"StreamingMFCC({kind}).step, mean of a chain of "
                           f"{steps}", step_ms)):
             print(f"time {name}: {ms:.4f} ms per step, "
                   f"{S_SERVE * C_SERVE / 16000 / (ms / 1e3):.4e} real-time "
                   f"streams (S={S_SERVE} x C={C_SERVE} int16, median of "
                   f"{ITERS}; {card})")
+        print(f"host issue StreamingMFCC({kind}).step: {step_host:.4f} ms "
+              f"a step beside {step_ms:.4f} ms on the card (mean of a chain "
+              f"of {steps}); the step-level entry alone {k_host:.4f} ms "
+              f"beside {k1_ms:.4f} for one call; operations on the card in "
+              f"one full-chunk "
+              f"step: {len(card_ops)} ({card_ops[0]})")
         F = stream_fused.frames_per_step(C_SERVE, cfg)
         P = cfg.windowlen - 1
-        nbytes = (chunks[2].nbytes + 2 * S_SERVE * P * 4 + S_SERVE * 8
-                  + S_SERVE * F * cfg.nceptrums * 4)
+        # chunk, carry in and out, count and prev in and out, mask, features
+        nbytes = (chunks[2].nbytes + 2 * S_SERVE * P * 4 + 4 * S_SERVE * 4
+                  + S_SERVE * F + S_SERVE * F * cfg.nceptrums * 4)
         if int_path:
             ops_ = int_fused.int_operators(cfg, dev)
-            nbytes += sum(t.nbytes for t in ops_[:5])
+            nbytes += sum(t.nbytes for t in (ops_.curve, ops_.tw, ops_.dtw,
+                                             ops_.fbs))
             ops = (valid * int_ops_per_frame(cfg, ops_.band.cpu())
                    + 4 * S_SERVE * C_SERVE)
             b_ms, b_by = bound(nbytes, ops, INT32_OPS)
@@ -947,8 +1139,8 @@ def serving_phases(dev, card: str) -> list[dict]:
             "replaces": ("mfcc_tpu/ops/pallas_stream.py:502" if int_path
                          else "mfcc_tpu/ops/pallas_stream.py:421"),
             "launches": launches[int_path], "max_abs_err": errs[int_path],
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "ms": k1_ms, "ms_b2b": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
         })
     del serve, chunks
 
@@ -2088,14 +2280,16 @@ ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
 # the tails' persistent batch kernels: K1 (and K6), K7 and K7-frames, K2 and
 # K3-v1 (int16 and int32 instantiations), K3, K10's epilogue
 TAIL_KERNELS = ("fladder_kernel", "f64ish_kernel", "f64ish_frames_kernel",
-                "int_audio_kernel", "int_frames_kernel", "int_epi_kernel")
+                "int_audio_kernel", "int_frames_kernel", "int_epi_kernel",
+                "stream_f32_kernel", "stream_int_kernel")
 # the INT kernels whose SASS is counted: (name, library, a substring of the
 # mangled name)
 INT_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
             ("K3-v1", "int_mfcc", "int_audio_kernelIiE"),
             ("K3", "int_mfcc", "int_frames_kernel"),
             ("K10-front", "int_split2", "int_front_kernel"),
-            ("K10-epi", "int_split2", "int_epi_kernel"))
+            ("K10-epi", "int_split2", "int_epi_kernel"),
+            ("K4-INT", "stream_step", "stream_int_kernelIsE"))
 # K2's static SASS instructions as PERF.md records them: K2's kernel also
 # runs K9, so a change to the count is a change to both
 K2_SASS = 4312
@@ -2143,7 +2337,7 @@ def int_sass(libs) -> str:
     listings = {}
     for lib in libs:
         stem = lib.name[3:].split("-")[0]
-        if stem in ("int_mfcc", "int_split2"):
+        if stem in {lib_ for _, lib_, _ in INT_SASS}:
             listings[stem] = subprocess.run(
                 [str(tool), "-sass", str(lib)], capture_output=True,
                 text=True, check=True, timeout=300).stdout
@@ -2224,7 +2418,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(engine_resources(log.getvalue(), dev))
     print("tail kernels (nvcc -Xptxas=-v; K1 fladder, K7 f64ish, K2/K3-v1 "
-          "int_audio, K3 int_frames, K10's epilogue int_epi): "
+          "int_audio, K3 int_frames, K10's epilogue int_epi, K4 stream_f32 "
+          "and stream_int): "
           + "; ".join(ptxas_registers(log.getvalue(), TAIL_KERNELS)))
     print(int_sass(build.build()))
 

@@ -100,11 +100,6 @@ constexpr int kFramesResident = 3;
 template <typename In>
 constexpr int kAudioResident = std::is_same_v<In, int16_t> ? kResident : 3;
 
-// r's 4 bits reversed (r < 16)
-__host__ __device__ constexpr int rev4(int r) {
-  return ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3);
-}
-
 // In: int16_t (K2) or int32_t (K3-v1), the ingest's sample type.
 template <typename In>
 __global__ void __launch_bounds__(kThreads, kAudioResident<In>)

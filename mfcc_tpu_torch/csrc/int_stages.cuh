@@ -250,6 +250,12 @@ __device__ __forceinline__ int first_sample(int r) {
   return bitrev(16 * lane() + r, kLog2Nfft);
 }
 
+// r's 4 bits reversed (r < 16): first_sample(r) = bitrev(lane, 5) + 32 *
+// rev4(r), one base a lane and constant offsets.
+__host__ __device__ constexpr int rev4(int r) {
+  return ((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3);
+}
+
 // Pre-emphasis by sample type: int16 samples take preemph (K2's wire rule,
 // samples mod 2^16), int32 samples preemph32, read whole with the sum mod
 // 2^32 (K3-v1's rule, pallas_int.py:1271-1272).

@@ -1,36 +1,50 @@
 // The serving step K4 for Hopper (sm_90a): one chunk of every stream in,
-// its completed frames' cepstra and the new carry out, in one kernel.  Three
-// kernels, float, split-DFT float and bit-exact INT:
+// its frames' cepstra, the new carry and (the step-level entries) the new
+// stream state out, in one kernel.  Three kernels, float, split-DFT float
+// and bit-exact INT:
 //
 //  mfcc_stream_f32_{i16,f32}:  carry (S, P) f32, chunk (S, C) int16 or f32
-//      -> (S, F, ncep) f32 + new carry (S, P) f32.  Replaces the TPU kernel
+//      -> (S, F, ncep) f32 + new carry (S, P) f32, and with the state
+//      operands mask (S, F) bool, new count (S,) int32 and new prev (S,)
+//      f32.  Replaces the TPU kernel
 //      mfcc_tpu/ops/pallas_stream.py:_stream_fladder_kernel (entry
-//      stream_step_float); the tail is K1's (fladder_stages.cuh).
-//  mfcc_stream_r2_{i16,f32}:  the same operands and new carry, with K5's
-//      split-DFT tail (radix2_stages.cuh) at dft_passes 3, 4 or 6.
-//      Replaces pallas_stream.py:_stream_float_kernel (stream_step_float
-//      where use_ladder is false: the precision="fast" serving step).  Its
+//      stream_step_float) and the state update that mfcc_tpu/streaming.py
+//      runs around it in the same jitted step; the tail is K1's
+//      (fladder_stages.cuh).
+//  mfcc_stream_r2_{i16,f32}:  the carry and chunk operands and new carry of
+//      the JAX-signature float step, with K5's split-DFT tail
+//      (radix2_stages.cuh) at dft_passes 3, 4 or 6.  Replaces
+//      pallas_stream.py:_stream_float_kernel (stream_step_float where
+//      use_ladder is false: the precision="fast" serving step).  Its
 //      ingest and new carry are K4-float's, so the carry is the same
 //      tensor, and a streamed int16 frame reaches the tail with the f32
 //      values K5's batch ingest gives it: the same operations.
 //  mfcc_stream_int_{i16,i32}:  carry (S, P) int32, chunk (S, C) int16 or
-//      int32 -> (S, F, ncep) int32 + new carry (S, P) int32.  Replaces
-//      pallas_stream.py:_stream_int_kernel (entry stream_step_int); the
-//      tail is K2's (int_stages.cuh), element-exact.
+//      int32 -> (S, F, ncep) int32 + new carry (S, P) int32, and the state
+//      outputs as for the float step (new prev int32).  Replaces
+//      pallas_stream.py:_stream_int_kernel (entry stream_step_int) and its
+//      state update; the tail is K3's (int_stages.cuh tail_balanced),
+//      element-exact.
 //
-// The function, per stream s (P = nfft - 1, F = (C - 1) / hop + 1;
-// start[s] = P - count and prev[s] with the reset already merged by the
-// caller):
+// The function, per stream s (P = nfft - 1 = windowlen - 1, F = (C - 1) /
+// hop + 1): count = reset[s] ? 0 : count[s], prev = reset[s] ? 0 : prev[s]
+// (a null reset is no reset; the JAX-signature wrappers pass count = P -
+// start and no reset, and drop the state outputs).  Then
 //   E[q] = carry[s, q]                                   for q < P,
-//          emph(chunk[s, q-P], q == P ? prev[s] : chunk[s, q-P-1])
+//          emph(chunk[s, q-P], q == P ? prev : chunk[s, q-P-1])
 //                                                        for P <= q < P+C,
 //          0                                              beyond (the zero
 //          pad of streaming._chunk_step_batch);
-//   frame f, point j = E[start[s] + f*hop + j] for f < F, then the batch
+//   frame f, point j = E[P - count + f*hop + j] for f < F, then the batch
 //   tail; the new carry is E[C : C+P].
-// Frame slots past a stream's valid count are computed from the zero-padded
-// signal like the others (the caller masks them), so kernel and plain
-// version agree on every slot.
+// The state outputs: total = count + C, n_valid = max(floor((total -
+// windowlen) / hop) + 1, 0) -- an explicit floor: C++'s / truncates toward
+// zero and would give one frame for total - windowlen in (-hop, 0) --,
+// mask[s, f] = f < n_valid, new count = total - n_valid * hop, new prev =
+// the chunk's last raw sample in the state's dtype.  Frame slots past a
+// stream's valid count are computed from the zero-padded signal like the
+// others (the mask drops them), so kernel and plain version agree on every
+// slot.
 //
 // Emphasis.  Float: x - 0.96875f * p in f32, rounded twice (__fmul_rn /
 // __fsub_rn: nvcc would contract it into an FMA, which changes the carry of
@@ -40,17 +54,29 @@
 // - p) mod 2^32 on int32 (preemph32): int32 chunks are taken as they are,
 // not mod 2^16 (the TPU step casts them to int32).
 //
-// Design, one thread block per (stream, tile of frames), as in K1 and K2:
-// framing is addressing into the carry and the chunk, each point reading its
-// sample and the one before it through L1; the carry and the chunk are read
-// in place through a stream stride and a position stride, so the (S, P) and
-// (P, S) carries and the (S, C) and (C, S) chunks need no relayout pass
-// (the (C, S) chunk is read with a stride of S per point, uncoalesced).  The
-// new carry is a separate output (the other tiles of the stream still read
-// the old one), written by each stream's first tile.  Offsets are 64-bit:
-// S*C passes 2^31 at S=4096 x C=2^19.  Float and INT tiles are K1's and
-// K2's, 8 frames, one warp each: F = 7 at C = 1024 takes one tile, one warp
-// idle.
+// Design: a persistent grid (persistent.cuh) over the flat list of M = S*F
+// frame slots, as K1 and K3: a block of 8 warps loads its tables once
+// (float: K1's twiddles and mel table; INT: K3's ladder twiddles, window
+// curve and balanced filterbank schedule), then each warp takes slots G =
+// s*F + g in a grid-stride loop (32-bit slot indices: a launch refuses S*F
+// >= 2^30), so a tile of 8 slots spans stream boundaries and no warp idles
+// where F is not a multiple of 8 (F = 7 at C = 1024).  The float kernel runs
+// at K1's residency (3 blocks an SM at nfft 512), the INT kernel at K3's (3,
+// its window curve read from shared memory through a volatile pointer).
+// Framing is addressing into the carry and the chunk, read in place through
+// a stream stride and a position stride, so the (S, P) and (P, S) carries
+// and the (S, C) and (C, S) chunks need no relayout pass (the (C, S) chunk
+// is read with a stride of S per point, uncoalesced).  Each point is read
+// through branches on its region, carry, chunk or pad (the float step reads
+// a frame wholly inside the chunk at constant offsets instead); where the
+// carry and the chunk have unit position strides (the (S, P) carry and
+// (S, C) chunk) the frame is read with those strides as constants.  The
+// step's other outputs are written by the warps that already hold the
+// stream, with no extra pass and no barrier in the loop: the warp on slot g
+// writes carry positions [g * share, (g + 1) * share) of its stream, share
+// = ceil(P / F), and mask[s, g]; the warp on slot 0 writes the new count and
+// prev.  The new carry is a separate output (other warps still read the old
+// one).  Offsets are 64-bit: S*C passes 2^31 at S=4096 x C=2^19.
 //
 // What bounds it at the serving shape (S=4096 x C=1024 int16, hop 170: 7
 // frame slots, ~6 valid per stream): ~8.4 MB of chunk, ~16.7 MB of carry in
@@ -70,6 +96,7 @@
 
 #include "fladder_stages.cuh"
 #include "int_stages.cuh"
+#include "persistent.cuh"
 #include "radix2_stages.cuh"
 
 namespace {
@@ -81,11 +108,50 @@ struct Strides {
   long long ncarry_s, ncarry_p;   // new carry: stream, position
 };
 
+// The per-stream state operands of a step, T the state's dtype (f32 or
+// int32); every array is (S,) and contiguous but mask, (S, F).  Only reset
+// may be null.
+template <typename T>
+struct StepState {
+  const int* count;               // buffered samples
+  const unsigned char* reset;     // bool flags, or null: no reset
+  const T* prev;                  // the raw sample before the chunk
+  unsigned char* mask;            // (S, F) bool: frame slot is a frame
+  int* ncount;                    // new count
+  T* nprev;                       // new prev: the chunk's last sample
+};
+
+template <typename T>
+bool state_ok(const StepState<T>& io) {
+  return io.count != nullptr && io.prev != nullptr && io.mask != nullptr &&
+         io.ncount != nullptr && io.nprev != nullptr;
+}
+
+// Checks shared by both steps.
+bool shape_ok(long long S, int P, int C, int F, int hop, int nfft) {
+  return S >= 0 && C >= 1 && hop >= 1 && P == nfft - 1 &&
+         F == (C - 1) / hop + 1 && C <= 0x7fffffff - 2 * nfft;
+}
+
 constexpr float kEmphF = 0.96875f;   // 1 - 1/32
 constexpr int kU = 8;                // split-DFT ingest pairs in flight a thread
 
+// The float step's points a lane, 2^kLog2P: the serving family's nfft 512
+// (stream_fused.stream_config_ok).  Blocks an SM must hold at once, which
+// caps the registers at 80: K1's at nfft 512 (fladder.cu kResident) for the
+// float step, K3's (int_mfcc.cu) for the INT step.
+constexpr int kLog2P = 3;
+constexpr int kFloatResident = 3;
+constexpr int kIntResident = 3;
+
 __device__ __forceinline__ float to_f32(int16_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
+
+// floor(a / b) for b > 0 (C++'s / truncates toward zero).
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return q - (q * b > a ? 1 : 0);
+}
 
 // E[q] of the float step for one stream (cs, xs: its carry and chunk).
 template <typename In>
@@ -115,51 +181,158 @@ __device__ __forceinline__ int emph_int(const int* cs, const In* xs, int pv,
   return int_stages::preemph32(x, p);
 }
 
-template <typename In, int LOG2P>
-__global__ void __launch_bounds__(fladder_stages::kThreads)
+// The float frame starting at E[q0]: packed points z[r] = (E[q0 + 2m],
+// E[q0 + 2m + 1]) * window / nfft, m = lane + 32r.  A frame wholly inside
+// the chunk (chunk indices q0 - P - 1 .. q0 - P + nfft - 1 all valid: 3 of
+// the 7 slots a stream at C = 1024) reads three samples a pair at constant
+// offsets from the lane's base, the others each point through emph_f32's
+// branches.  (The same path saves the INT step too little to keep it:
+// PERF.md.)
+template <int LOG2P, typename In>
+__device__ __forceinline__ void ingest_f32(double2 (&z)[1 << LOG2P],
+                                           const float* cs, const In* xs,
+                                           float pv, int q0, int P, int C,
+                                           const Strides& st,
+                                           const double2* win, int l) {
+  const int t0 = q0 - P;
+  if (t0 >= 1 && t0 + 64 * (1 << LOG2P) <= C) {
+    const long long c = st.chunk_t;
+    const In* x = xs + (t0 + 2 * l) * c;
+#pragma unroll
+    for (int r = 0; r < (1 << LOG2P); ++r) {
+      const In* y = x + 64 * r * c;
+      const float p = to_f32(y[-c]), a = to_f32(y[0]), b = to_f32(y[c]);
+      z[r] = fladder_stages::window_pair(
+          static_cast<double>(__fsub_rn(a, __fmul_rn(kEmphF, p))),
+          static_cast<double>(__fsub_rn(b, __fmul_rn(kEmphF, a))),
+          win[l + 32 * r]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < (1 << LOG2P); ++r) {
+    const int m = l + 32 * r;
+    z[r] = fladder_stages::window_pair(
+        static_cast<double>(emph_f32(cs, xs, pv, q0 + 2 * m, P, C, st)),
+        static_cast<double>(emph_f32(cs, xs, pv, q0 + 2 * m + 1, P, C, st)),
+        win[m]);
+  }
+}
+
+// The INT frame starting at E[q0], windowed, in the ladder's first layout:
+// register r holds point first_sample(r) = bitrev(lane, 5) + 32 * rev4(r).
+template <typename In>
+__device__ __forceinline__ void ingest_int(int (&re)[int_stages::kPts],
+                                           const int* cs, const In* xs,
+                                           int pv, int q0, int P, int C,
+                                           const Strides& st,
+                                           const volatile int* cv) {
+  const int b = int_stages::bitrev(int_stages::lane(), 5);
+#pragma unroll
+  for (int r = 0; r < int_stages::kPts; ++r) {
+    const int p = b + 32 * int_stages::rev4(r);
+    re[r] = int_stages::window(
+        emph_int(cs, xs, pv, q0 + p, P, C, st), cv[p]);
+  }
+}
+
+// st with unit carry and chunk position strides.  Passed to an inlined
+// ingest, the constants take the place of a 64-bit stride multiply a point
+// (PERF.md measures what that saves on an H100 at the serving shape).
+__device__ __forceinline__ Strides unit_positions(Strides st) {
+  st.carry_p = 1;
+  st.chunk_t = 1;
+  return st;
+}
+
+// A frame's first E index, P - count + g * hop, held in [-nfft, P + C] so
+// that the indices of its points stay in int range (shape_ok bounds C).
+__device__ __forceinline__ int frame_start(int P, int count, int g, int hop,
+                                           int C) {
+  const long long q0 = static_cast<long long>(P - count) +
+                       static_cast<long long>(g) * hop;
+  return static_cast<int>(q0 < -1024 ? -1024 : q0 > P + C ? P + C : q0);
+}
+
+// Stream s's count and prev with its reset merged.
+template <typename T>
+__device__ __forceinline__ void stream_in(const StepState<T>& io, int s,
+                                          int& count, T& prev) {
+  const bool reset = io.reset != nullptr && io.reset[s] != 0;
+  count = reset ? 0 : io.count[s];
+  prev = reset ? T(0) : io.prev[s];
+}
+
+// The outputs besides the features that the warp on frame slot g of stream
+// s writes (G = s*F + g): carry positions [g * share, (g + 1) * share) of
+// E[C + p], share = ceil(P / F), its lanes striding by 32; lane 0 mask[G]
+// and, on slot 0, the new count and the new prev (the chunk's last raw
+// sample xs[C - 1]).
+template <typename T, typename In, typename E>
+__device__ __forceinline__ void step_outputs(const StepState<T>& io,
+                                             T* __restrict__ nc, const In* xs,
+                                             int s, int G, int g,
+                                             int count, int P, int C, int F,
+                                             int hop, const Strides& st,
+                                             E emph) {
+  const int share = (P + F - 1) / F;
+  const int p1 = min(P, (g + 1) * share);
+  for (int p = g * share + (threadIdx.x & 31); p < p1; p += 32)
+    nc[s * st.ncarry_s + p * st.ncarry_p] = emph(C + p);
+  if ((threadIdx.x & 31) == 0) {
+    const int total = count + C;
+    const int n_valid = max(floor_div(total - (P + 1), hop) + 1, 0);
+    io.mask[G] = g < n_valid;
+    if (g == 0) {
+      io.ncount[s] = total - n_valid * hop;
+      io.nprev[s] = static_cast<T>(xs[static_cast<long long>(C - 1) * st.chunk_t]);
+    }
+  }
+}
+
+template <typename In>
+__global__ void __launch_bounds__(fladder_stages::kThreads, kFloatResident)
 stream_f32_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
-                  const int* __restrict__ start, const float* __restrict__ prev,
-                  float* __restrict__ out, float* __restrict__ ncarry, int P,
-                  int C, int F, int hop, int nfilters, int ncep,
-                  int tiles_per_stream, Strides st,
+                  StepState<float> io, float* __restrict__ out,
+                  float* __restrict__ ncarry, int M, int P, int C, int F,
+                  int hop, int nfilters, int ncep, Strides st,
                   const double2* __restrict__ win, const double2* __restrict__ tw,
                   const double* __restrict__ mel, const double* __restrict__ dct,
                   const int2* __restrict__ band, double mel_floor) {
   using namespace fladder_stages;
   extern __shared__ double2 smem[];
+  constexpr int LOG2P = kLog2P;
   constexpr int log2m = 5 + LOG2P;
+  constexpr int kP = 1 << LOG2P;
   const Smem sm = carve(smem, log2m + 1);
-
-  const long long s = blockIdx.x / tiles_per_stream;
-  const int tile = static_cast<int>(blockIdx.x % tiles_per_stream);
-  const int f0 = tile * kFrames;
-  const float* cs = carry + s * st.carry_s;
-  const In* xs = chunk + s * st.chunk_s;
-  const int s0 = start[s];
-  const float pv = prev[s];
-
   load_constants(sm, log2m + 1, tw, mel, band, nfilters);
-  if (tile == 0) {
-    float* nc = ncarry + s * st.ncarry_s;
-    for (int i = threadIdx.x; i < P; i += blockDim.x)
-      nc[i * st.ncarry_p] = emph_f32(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
-  }
   __syncthreads();
-  const int g = f0 + static_cast<int>(threadIdx.x) / kLanes;
-  if (g >= F) return;
-  // E at sample pairs, window * 1/nfft, packed z[m] = y[2m] + i*y[2m+1],
-  // lane l's register r holding z[l + 32r]
-  double2 z[1 << LOG2P];
-#pragma unroll
-  for (int r = 0; r < (1 << LOG2P); ++r) {
-    const int m = lane() + 32 * r;
-    const long long q = s0 + static_cast<long long>(g) * hop + 2 * m;
-    const double a = static_cast<double>(emph_f32(cs, xs, pv, q, P, C, st));
-    const double b = static_cast<double>(emph_f32(cs, xs, pv, q + 1, P, C, st));
-    z[r] = window_pair(a, b, win[m]);
+
+  // each warp takes frame slots G = s * F + g in a grid-stride loop, in
+  // 32-bit indices (the launch checks M < 2^30)
+  const int l = lane();
+  for (int G = static_cast<int>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       G < M; G += static_cast<int>(gridDim.x) * kFrames) {
+    const int s = G / F;
+    const int g = G - s * F;
+    const float* cs = carry + s * st.carry_s;
+    const In* xs = chunk + s * st.chunk_s;
+    int count;
+    float pv;
+    stream_in(io, s, count, pv);
+    step_outputs(io, ncarry, xs, s, G, g, count, P, C, F, hop, st,
+                 [&](int q) { return emph_f32(cs, xs, pv, q, P, C, st); });
+    // E at sample pairs, window * 1/nfft, packed z[m] = y[2m] + i*y[2m+1],
+    // lane l's register r holding z[l + 32r]
+    const int q0 = frame_start(P, count, g, hop, C);
+    double2 z[kP];
+    if (st.carry_p == 1 && st.chunk_t == 1)
+      ingest_f32<LOG2P>(z, cs, xs, pv, q0, P, C, unit_positions(st), win, l);
+    else
+      ingest_f32<LOG2P>(z, cs, xs, pv, q0, P, C, st, win, l);
+    ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, mel_floor,
+                       out + static_cast<long long>(G) * ncep);
   }
-  ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, mel_floor,
-                     out + (s * F + g) * ncep);
 }
 
 // The split-DFT float step: K4-float's ingest (the same f32 emphasized
@@ -226,79 +399,71 @@ stream_r2_kernel(radix2_stages::Geometry geo, long long M,
 }
 
 template <typename In>
-__global__ void __launch_bounds__(int_stages::kThreads)
+__global__ void __launch_bounds__(int_stages::kThreads, kIntResident)
 stream_int_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
-                  const int* __restrict__ start, const int* __restrict__ prev,
-                  int* __restrict__ out, int* __restrict__ ncarry, int P, int C,
-                  int F, int hop, int tiles_per_stream, Strides st,
-                  const int* __restrict__ curve, const int2* __restrict__ tw,
+                  StepState<int> io, int* __restrict__ out,
+                  int* __restrict__ ncarry, int M, int P, int C, int F,
+                  int hop, Strides st, const int* __restrict__ curve,
+                  const int2* __restrict__ tw, const uint2* __restrict__ sched,
                   int_stages::Tail c) {
   using namespace int_stages;
-  __shared__ Smem sm;
-  const long long s = blockIdx.x / tiles_per_stream;
-  const int tile = static_cast<int>(blockIdx.x % tiles_per_stream);
-  const int f0 = tile * kFrames;
-  const int* cs = carry + s * st.carry_s;
-  const In* xs = chunk + s * st.chunk_s;
-  const int s0 = start[s];
-  const int pv = prev[s];
-
+  __shared__ FbLadderSmem sm;
   load_ladder_tables(sm, tw);
-  load_tail_tables(sm, c);
-  if (tile == 0) {
-    int* nc = ncarry + s * st.ncarry_s;
-    for (int i = threadIdx.x; i < P; i += blockDim.x)
-      nc[i * st.ncarry_p] = emph_int(cs, xs, pv, static_cast<long long>(C) + i, P, C, st);
-  }
+  load_fb_tables(sm.fb, sched, c);
+  for (int i = threadIdx.x; i < kNfft; i += blockDim.x) sm.curve[i] = curve[i];
   __syncthreads();
-  const int g = f0 + static_cast<int>(threadIdx.x) / kLanes;
-  if (g >= F) return;
-  int re[kPts];
-#pragma unroll
-  for (int r = 0; r < kPts; ++r) {
-    const int p = first_sample(r);
-    const long long q = s0 + static_cast<long long>(g) * hop + p;
-    re[r] = window(emph_int(cs, xs, pv, q, P, C, st), curve[p]);
+  // the curve is read each frame through a volatile pointer, as in K3
+  const volatile int* cv = sm.curve;
+  for (int G = static_cast<int>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       G < M; G += static_cast<int>(gridDim.x) * kFrames) {
+    const int s = G / F;
+    const int g = G - s * F;
+    const int* cs = carry + s * st.carry_s;
+    const In* xs = chunk + s * st.chunk_s;
+    int count, pv;
+    stream_in(io, s, count, pv);
+    step_outputs(io, ncarry, xs, s, G, g, count, P, C, F, hop, st,
+                 [&](int q) { return emph_int(cs, xs, pv, q, P, C, st); });
+    const int q0 = frame_start(P, count, g, hop, C);
+    int re[kPts];
+    if (st.carry_p == 1 && st.chunk_t == 1)
+      ingest_int(re, cs, xs, pv, q0, P, C, unit_positions(st), cv);
+    else
+      ingest_int(re, cs, xs, pv, q0, P, C, st, cv);
+    tail_balanced(re, sm, c, out + static_cast<long long>(G) * c.ncep);
   }
-  tail(re, sm, c, out + (s * F + g) * c.ncep);
 }
 
-// Checks shared by both steps; returns the tiles per stream, or 0.
+// Checks shared by both steps; returns the tiles per stream, or 0 (the
+// split-DFT step's grid is K5's over the S*F slots).
 long long tiles_for(long long S, int P, int C, int F, int hop, int nfft,
                     int frames_per_tile) {
-  if (S < 0 || C < 1 || hop < 1 || P != nfft - 1 || F != (C - 1) / hop + 1)
-    return 0;
+  if (!shape_ok(S, P, C, F, hop, nfft)) return 0;
   const long long tiles = (F + frames_per_tile - 1) / frames_per_tile;
   if (S * tiles > 0x7fffffffLL) return 0;
   return tiles;
 }
 
 template <typename In>
-int launch_f32(const float* carry, const In* chunk, const int* start,
-               const float* prev, float* out, float* ncarry, long long S,
-               int P, int C, int F, int hop, int nfft, int nfilters, int ncep,
-               const Strides& st, const double* win, const double* tw,
-               const double* mel, const double* dct, const int* band,
-               double mel_floor, void* stream) {
+int launch_f32(const float* carry, const In* chunk, const StepState<float>& io,
+               float* out, float* ncarry, long long S, int P, int C, int F,
+               int hop, int nfft, int nfilters, int ncep, const Strides& st,
+               const double* win, const double* tw, const double* mel,
+               const double* dct, const int* band, double mel_floor,
+               void* stream) {
   using namespace fladder_stages;
-  const long long tiles = tiles_for(S, P, C, F, hop, nfft, kFrames);
-  if (log2_nfft(nfft) < 0 || tiles == 0 || nfilters < 1 ||
-      nfilters > nfft / 2 || ncep < 1)
+  if (nfft != 64 << kLog2P || !shape_ok(S, P, C, F, hop, nfft) ||
+      !state_ok(io) || nfilters < 1 || nfilters > nfft / 2 || ncep < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  const size_t smem = smem_bytes(nfft);
-  return with_points(nfft, [&](auto pts) {
-    constexpr int L = decltype(pts)::value;
-    const int err = allow_smem(stream_f32_kernel<In, L>, smem);
-    if (err != 0) return err;
-    stream_f32_kernel<In, L><<<static_cast<unsigned>(S * tiles), kThreads,
-                               smem, static_cast<cudaStream_t>(stream)>>>(
-        carry, chunk, start, prev, out, ncarry, P, C, F, hop, nfilters, ncep,
-        static_cast<int>(tiles), st, reinterpret_cast<const double2*>(win),
-        reinterpret_cast<const double2*>(tw), mel, dct,
-        reinterpret_cast<const int2*>(band), mel_floor);
-    return static_cast<int>(cudaGetLastError());
-  });
+  if (S * F >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const int M = static_cast<int>(S * F);
+  return launch_persistent(
+      stream_f32_kernel<In>, kThreads, (M + kFrames - 1) / kFrames,
+      smem_bytes(nfft), stream, carry, chunk, io, out, ncarry, M, P, C, F,
+      hop, nfilters, ncep, st, reinterpret_cast<const double2*>(win),
+      reinterpret_cast<const double2*>(tw), mel, dct,
+      reinterpret_cast<const int2*>(band), mel_floor);
 }
 
 template <typename In>
@@ -324,23 +489,25 @@ int launch_step_r2(const float* carry, const In* chunk, const int* start,
 }
 
 template <typename In>
-int launch_int(const int* carry, const In* chunk, const int* start,
-               const int* prev, int* out, int* ncarry, long long S, int P,
-               int C, int F, int hop, const Strides& st, int nfilters,
-               int ncep, int fb_shift, int log_precision, int log_width,
+int launch_int(const int* carry, const In* chunk, const StepState<int>& io,
+               int* out, int* ncarry, long long S, int P, int C, int F,
+               int hop, const Strides& st, int nfilters, int ncep,
+               int fb_shift, int log_precision, int log_width,
                const int* curve, const int* tw, const int* dtw,
-               const long long* fbw, const int* band, void* stream) {
+               const int* sched, void* stream) {
   using namespace int_stages;
-  const Tail c = make_tail(fbw, band, dtw, nfilters, ncep, fb_shift,
+  const Tail c = make_tail(nullptr, nullptr, dtw, nfilters, ncep, fb_shift,
                            log_precision, log_width);
-  const long long tiles = tiles_for(S, P, C, F, hop, kNfft, kFrames);
-  if (!tail_ok(c) || tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tail_ok(c) || !shape_ok(S, P, C, F, hop, kNfft) || !state_ok(io))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;
-  stream_int_kernel<In><<<static_cast<unsigned>(S * tiles), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      carry, chunk, start, prev, out, ncarry, P, C, F, hop,
-      static_cast<int>(tiles), st, curve, reinterpret_cast<const int2*>(tw), c);
-  return static_cast<int>(cudaGetLastError());
+  if (S * F >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const int M = static_cast<int>(S * F);
+  return launch_persistent(stream_int_kernel<In>, kThreads,
+                           (M + kFrames - 1) / kFrames, 0, stream, carry,
+                           chunk, io, out, ncarry, M, P, C, F, hop, st, curve,
+                           reinterpret_cast<const int2*>(tw),
+                           reinterpret_cast<const uint2*>(sched), c);
 }
 
 }  // namespace
@@ -348,15 +515,19 @@ int launch_int(const int* carry, const In* chunk, const int* start,
 // C entry points, bound with ctypes (mfcc_tpu_torch/kernels/build.py).
 // Every pointer is a device pointer.  carry and ncarry (new carry, which
 // must not overlap carry) hold S x P values and chunk S x C, each addressed
-// through its (stream, position) element strides; start (S,) int32 and prev
-// (S,) (f32 for the float step, int32 for the INT step); out is (S, F, ncep)
-// contiguous.  The tables are K1's (window/nfft, twiddles, mel, dct, band:
-// see fladder.cu) for the float step and K2's (curve, tw, dtw, fbw, band:
-// see int_mfcc.cu) for the INT step.  Launches on `stream`, on the calling
-// thread's current device (the caller sets it), without synchronizing;
-// returns a cudaError_t (0 = launched).
-extern "C" int mfcc_stream_f32_i16(const float* carry, const int16_t* chunk, const int* start,
-                      const float* prev, float* out, float* ncarry, long long S,
+// through its (stream, position) element strides.  The state operands, all
+// (S,) and contiguous: count int32; reset bool or null (no reset); prev f32
+// for the float step, int32 for the INT step; then out (S, F, ncep)
+// contiguous, mask (S, F) bool, ncount (S,) int32 and nprev (S,) in prev's
+// dtype.  The tables are K1's (window/nfft, twiddles, mel, dct,
+// band: see fladder.cu) for the float step and K3's (curve, tw, dtw, the
+// balanced filterbank's schedule sched: see int_mfcc.cu) for the INT step.
+// Launches on `stream`, on the calling thread's current device (the caller
+// sets it), without synchronizing; returns a cudaError_t (0 = launched).
+extern "C" int mfcc_stream_f32_i16(const float* carry, const int16_t* chunk,
+                      const int* count, const unsigned char* reset,
+                      const float* prev, float* out, unsigned char* mask,
+                      float* ncarry, int* ncount, float* nprev, long long S,
                       int P, int C, int F, int hop, int nfft, int nfilters,
                       int ncep, long long carry_s, long long carry_p,
                       long long chunk_s, long long chunk_t, long long ncarry_s,
@@ -364,13 +535,16 @@ extern "C" int mfcc_stream_f32_i16(const float* carry, const int16_t* chunk, con
                       const double* mel, const double* dct, const int* band,
                       double mel_floor, void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
-  return launch_f32(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
-                    nfft, nfilters, ncep, st, win, tw, mel, dct, band,
-                    mel_floor, stream);
+  const StepState<float> io{count, reset, prev, mask, ncount, nprev};
+  return launch_f32(carry, chunk, io, out, ncarry, S, P, C, F, hop, nfft,
+                    nfilters, ncep, st, win, tw, mel, dct, band, mel_floor,
+                    stream);
 }
 
-extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk, const int* start,
-                      const float* prev, float* out, float* ncarry, long long S,
+extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk,
+                      const int* count, const unsigned char* reset,
+                      const float* prev, float* out, unsigned char* mask,
+                      float* ncarry, int* ncount, float* nprev, long long S,
                       int P, int C, int F, int hop, int nfft, int nfilters,
                       int ncep, long long carry_s, long long carry_p,
                       long long chunk_s, long long chunk_t, long long ncarry_s,
@@ -378,15 +552,18 @@ extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk, const
                       const double* mel, const double* dct, const int* band,
                       double mel_floor, void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
-  return launch_f32(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
-                    nfft, nfilters, ncep, st, win, tw, mel, dct, band,
-                    mel_floor, stream);
+  const StepState<float> io{count, reset, prev, mask, ncount, nprev};
+  return launch_f32(carry, chunk, io, out, ncarry, S, P, C, F, hop, nfft,
+                    nfilters, ncep, st, win, tw, mel, dct, band, mel_floor,
+                    stream);
 }
 
-// The split-DFT float step: the arguments of mfcc_stream_f32_* up to the
-// strides, then passes (3, 4 or 6), the engine's operator (op, op_rows,
-// chunk_rows) and K5's tables (we, wo, tw, melw,
-// moff, dct, band, mel_len: see float_fused.cu).
+
+// The split-DFT float step: carry, chunk, start, prev, out, ncarry, S, P,
+// C, F, hop, nfft, nfilters, ncep and the strides as in mfcc_stream_f32_*,
+// then passes (3, 4 or 6), the engine's operator (op, op_rows, chunk_rows)
+// and K5's tables (we, wo, tw, melw, moff, dct, band, mel_len: see
+// float_fused.cu).
 extern "C" int mfcc_stream_r2_i16(const float* carry, const int16_t* chunk, const int* start,
                       const float* prev, float* out, float* ncarry, long long S,
                       int P, int C, int F, int hop, int nfft, int nfilters,
@@ -427,30 +604,36 @@ extern "C" int mfcc_stream_r2_f32(const float* carry, const float* chunk, const 
                         mel_floor, stream);
 }
 
-extern "C" int mfcc_stream_int_i16(const int* carry, const int16_t* chunk, const int* start,
-                      const int* prev, int* out, int* ncarry, long long S,
-                      int P, int C, int F, int hop, long long carry_s,
+extern "C" int mfcc_stream_int_i16(const int* carry, const int16_t* chunk,
+                      const int* count, const unsigned char* reset,
+                      const int* prev, int* out, unsigned char* mask,
+                      int* ncarry, int* ncount, int* nprev, long long S, int P,
+                      int C, int F, int hop, long long carry_s,
                       long long carry_p, long long chunk_s, long long chunk_t,
                       long long ncarry_s, long long ncarry_p, int nfilters,
                       int ncep, int fb_shift, int log_precision, int log_width,
                       const int* curve, const int* tw, const int* dtw,
-                      const long long* fbw, const int* band, void* stream) {
+                      const int* sched, void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
-  return launch_int(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
-                    st, nfilters, ncep, fb_shift, log_precision, log_width,
-                    curve, tw, dtw, fbw, band, stream);
+  const StepState<int> io{count, reset, prev, mask, ncount, nprev};
+  return launch_int(carry, chunk, io, out, ncarry, S, P, C, F, hop, st,
+                    nfilters, ncep, fb_shift, log_precision, log_width, curve,
+                    tw, dtw, sched, stream);
 }
 
-extern "C" int mfcc_stream_int_i32(const int* carry, const int* chunk, const int* start,
-                      const int* prev, int* out, int* ncarry, long long S,
-                      int P, int C, int F, int hop, long long carry_s,
+extern "C" int mfcc_stream_int_i32(const int* carry, const int* chunk,
+                      const int* count, const unsigned char* reset,
+                      const int* prev, int* out, unsigned char* mask,
+                      int* ncarry, int* ncount, int* nprev, long long S, int P,
+                      int C, int F, int hop, long long carry_s,
                       long long carry_p, long long chunk_s, long long chunk_t,
                       long long ncarry_s, long long ncarry_p, int nfilters,
                       int ncep, int fb_shift, int log_precision, int log_width,
                       const int* curve, const int* tw, const int* dtw,
-                      const long long* fbw, const int* band, void* stream) {
+                      const int* sched, void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
-  return launch_int(carry, chunk, start, prev, out, ncarry, S, P, C, F, hop,
-                    st, nfilters, ncep, fb_shift, log_precision, log_width,
-                    curve, tw, dtw, fbw, band, stream);
+  const StepState<int> io{count, reset, prev, mask, ncount, nprev};
+  return launch_int(carry, chunk, io, out, ncarry, S, P, C, F, hop, st,
+                    nfilters, ncep, fb_shift, log_precision, log_width, curve,
+                    tw, dtw, sched, stream);
 }

@@ -53,19 +53,20 @@ _INT_AUDIO_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
 #                     stream)
 _INT_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P]
-# mfcc_stream_f32_{i16,f32}(carry, chunk, start, prev, out, ncarry, S, P, C,
-#                           F, hop, nfft, nfilters, ncep, carry_s, carry_p,
-#                           chunk_s, chunk_t, ncarry_s, ncarry_p, win, tw,
-#                           mel, dct, band, mel_floor, stream)
-_STREAM_F32_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_P] * 5
+# mfcc_stream_f32_{i16,f32}(carry, chunk, count, reset, prev, out, mask,
+#                           ncarry, ncount, nprev, S, P, C, F, hop, nfft,
+#                           nfilters, ncep, carry_s, carry_p, chunk_s,
+#                           chunk_t, ncarry_s, ncarry_p, win, tw, mel, dct,
+#                           band, mel_floor, stream)
+_STREAM_F32_ARGS = ([_P] * 10 + [_LL] + [_I] * 7 + [_LL] * 6 + [_P] * 5
                     + [ctypes.c_double, _P])
-# mfcc_stream_int_{i16,i32}(carry, chunk, start, prev, out, ncarry, S, P, C,
-#                           F, hop, carry_s, carry_p, chunk_s, chunk_t,
-#                           ncarry_s, ncarry_p, nfilters, ncep, fb_shift,
-#                           log_precision, log_width, curve, tw, dtw, fbw,
-#                           band, stream)
-_STREAM_INT_ARGS = ([_P] * 6 + [_LL] + [_I] * 4 + [_LL] * 6 + [_I] * 5
-                    + [_P] * 6)
+# mfcc_stream_int_{i16,i32}(carry, chunk, count, reset, prev, out, mask,
+#                           ncarry, ncount, nprev, S, P, C, F, hop, carry_s,
+#                           carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p,
+#                           nfilters, ncep, fb_shift, log_precision,
+#                           log_width, curve, tw, dtw, sched, stream)
+_STREAM_INT_ARGS = ([_P] * 10 + [_LL] + [_I] * 4 + [_LL] * 6 + [_I] * 5
+                    + [_P] * 5)
 # the product engine's operator (ops/dmma_product.Operator.args): op,
 # op_rows, chunk_rows
 _ENGINE = [_P] + [_I] * 2
@@ -80,7 +81,9 @@ _RADIX2_ARGS = ([_P, _P, _LL, _LL] + [_I] * 6 + _ENGINE + _R2_TABLES
 #                       <engine>, <tables>, mel_floor, stream)
 _FRAMES_FLOAT_ARGS = ([_P, _P, _LL] + [_I] * 4 + _ENGINE + _R2_TABLES
                       + [ctypes.c_double, _P])
-# mfcc_stream_r2_{i16,f32}(<mfcc_stream_f32_* up to ncarry_p>, passes,
+# mfcc_stream_r2_{i16,f32}(carry, chunk, start, prev, out, ncarry, S, P, C,
+#                          F, hop, nfft, nfilters, ncep, carry_s, carry_p,
+#                          chunk_s, chunk_t, ncarry_s, ncarry_p, passes,
 #                          <engine>, <tables>, mel_floor, stream)
 _STREAM_R2_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_I]
                    + _ENGINE + _R2_TABLES + [ctypes.c_double, _P])
@@ -205,11 +208,17 @@ def library() -> types.SimpleNamespace:
 
 
 def launch(fn, device, *args) -> None:
-    """Call the C entry point ``fn`` on ``device`` (set for this call only,
-    the caller's restored after) and its current stream, which ``fn`` takes
-    as its last argument; raise on a non-zero cudaError_t."""
+    """Call the C entry point ``fn`` on ``device`` and its current stream,
+    which ``fn`` takes as its last argument; raise on a non-zero
+    cudaError_t.  Where ``device`` is not the current device it is made
+    current for this call only (the caller's restored after): entering
+    that context costs host time a serving step would pay on every step."""
     import torch
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")

@@ -16,13 +16,25 @@ the new carry as a second output.
   * ``stream_step_int``: carry int32, chunk int16 or int32 -> (S, F, ncep)
     int32, element-exact.
 
+These two keep the JAX functions' signature (``start`` = P - count and
+``prev`` with the reset merged by the caller).  The step-level entries
+``stream_step_float_state`` and ``stream_step_int_state`` take the stream
+state as ``StreamingMFCC`` holds it, (buffer, count, prev) and the reset
+flags, and return (feats, mask, new buffer, new count, new prev): the
+whole full-chunk step of ``mfcc_tpu.streaming``'s jitted fused step, the
+reset merge and the mask and state update included, in one launch of the
+same kernel.  The K1- and INT-tail JAX-signature entries launch that
+kernel with count = P - start and no reset, and drop the state outputs.
+
 A CUDA tensor launches the kernel (or the wrapper raises), a CPU tensor
 takes the plain version, ``stream_step_float_plain`` /
 ``stream_step_int_plain``: the same function as torch ops (emphasis with
 carry, ``[carry | emph]``, a per-row aligned read, ``extract_frames``, then
 ``fladder.ladder_tail_plain``, ``float_fused.radix2_tail_plain`` resp.
-``int_ops.mfcc_int_frames``).  ``LAUNCHES`` counts kernel launches per
-kernel: ``"K4-float"``, ``"K4-split"`` and ``"K4-INT"``.
+``int_ops.mfcc_int_frames``), and ``stream_step_float_state_plain`` /
+``stream_step_int_state_plain``, those inside ``state_step``'s torch
+bookkeeping.  ``LAUNCHES`` counts kernel launches per kernel:
+``"K4-float"``, ``"K4-split"`` and ``"K4-INT"``.
 
 Frame slots past a stream's valid count are computed from the zero-padded
 signal, by the kernel and the plain version alike; the caller masks them.
@@ -35,6 +47,8 @@ blocks, lane padding, narrow-lane fallback and the ``STREAM_CHUNK_T`` and
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -90,8 +104,11 @@ def _rows(buffer: torch.Tensor, chunk: torch.Tensor, transposed_state: bool,
 
 
 def _check_step(buffer, chunk, start, prev, cfg, transposed_state, layout,
-                carry_dtype, chunk_dtypes, what) -> tuple[int, int, int]:
-    """Shapes, dtypes and devices of a step's operands; returns (S, P, C)."""
+                carry_dtype, chunk_dtypes, what, reset=None,
+                lead: str = "start") -> tuple[int, int, int]:
+    """Shapes, dtypes and devices of a step's operands (``lead`` names the
+    int32 (S,) operand ``start``, or ``count`` for the step-level entries;
+    ``reset`` (S,) bool or None); returns (S, P, C)."""
     buf, x = _rows(buffer, chunk, transposed_state, layout)
     P = cfg.windowlen - 1
     if buffer.dim() != 2 or chunk.dim() != 2 or buf.shape[1] != P:
@@ -100,24 +117,26 @@ def _check_step(buffer, chunk, start, prev, cfg, transposed_state, layout,
                          f"transposed_state={transposed_state}, layout "
                          f"{layout!r}")
     S, C = x.shape
-    if buf.shape[0] != S or tuple(start.shape) != (S,) \
-            or tuple(prev.shape) != (S,) or C < 1:
+    vectors = [(lead, start, (torch.int32,)), ("prev", prev, (carry_dtype,))]
+    if reset is not None:
+        vectors.append(("reset", reset, (torch.bool,)))
+    if buf.shape[0] != S or C < 1 or any(tuple(t.shape) != (S,)
+                                         for _, t, _ in vectors):
         raise ValueError(f"{what}: {S} streams of {C} samples, carry "
-                         f"{tuple(buffer.shape)}, start {tuple(start.shape)},"
-                         f" prev {tuple(prev.shape)}")
+                         f"{tuple(buffer.shape)}, "
+                         + ", ".join(f"{n} {tuple(t.shape)}"
+                                     for n, t, _ in vectors))
+    dev = chunk.device
     for name, t, dtypes in (("carry", buffer, (carry_dtype,)),
-                            ("chunk", chunk, chunk_dtypes),
-                            ("start", start, (torch.int32,)),
-                            ("prev", prev, (carry_dtype,))):
+                            ("chunk", chunk, chunk_dtypes), *vectors):
         if t.dtype not in dtypes:
             raise TypeError(f"{what}: {name} must be "
                             f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
-        if t.device != chunk.device:
+        if t.device != dev:
             raise ValueError(f"{what}: {name} is on {t.device}, the chunk "
-                             f"on {chunk.device}")
-    if chunk.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on CUDA or CPU tensors, got "
-                         f"{chunk.device}")
+                             f"on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {dev}")
     return S, P, C
 
 
@@ -128,11 +147,6 @@ def _strides(buffer, chunk, ncarry, transposed_state, layout) -> tuple:
     xs = chunk.stride()[::-1] if layout == "positions" else chunk.stride()
     ns = ncarry.stride()[::-1] if transposed_state else ncarry.stride()
     return (*bs, *xs, *ns)
-
-
-def _launch(kernel: str, fn, device: torch.device, *args) -> None:
-    build.launch(fn, device, *args)
-    LAUNCHES[kernel] += 1
 
 
 def use_ladder(cfg: MFCCConfig, dft_passes: int) -> bool:
@@ -152,6 +166,73 @@ def _carry_out(signal: torch.Tensor, C: int, P: int, transposed_state: bool
     """The new carry E[C : C+P] in the caller's layout, a fresh tensor."""
     new = signal[:, C: C + P]
     return (new.T if transposed_state else new).contiguous()
+
+
+def _launch(kernel: str, fn, buffer, chunk, count, reset, prev, S, P, C,
+            cfg, ncep, dtype, transposed_state, layout, mid, tail):
+    """One launch of K4-float's or K4-INT's kernel (``fn``, counted under
+    ``kernel``) on CUDA operands that ``_check_step`` passed, ``reset`` or
+    None; ``mid`` the entry's integer arguments between hop and the
+    strides, ``tail`` those after them.  Allocates the outputs and returns
+    (feats, mask, new carry, new count, new prev)."""
+    dev = chunk.device
+    n_frames = frames_per_step(C, cfg)
+    out = torch.empty((S, n_frames, ncep), dtype=dtype, device=dev)
+    mask = torch.empty((S, n_frames), dtype=torch.bool, device=dev)
+    ncarry = _new_carry(buffer, transposed_state, S, P)
+    ncount = torch.empty((S,), dtype=torch.int32, device=dev)
+    nprev = torch.empty((S,), dtype=prev.dtype, device=dev)
+    count, prev = count.contiguous(), prev.contiguous()
+    build.launch(fn, dev, buffer.data_ptr(), chunk.data_ptr(),
+                 count.data_ptr(),
+                 0 if reset is None else reset.contiguous().data_ptr(),
+                 prev.data_ptr(), out.data_ptr(), mask.data_ptr(),
+                 ncarry.data_ptr(), ncount.data_ptr(), nprev.data_ptr(), S,
+                 P, C, n_frames, cfg.hop, *mid,
+                 *_strides(buffer, chunk, ncarry, transposed_state, layout),
+                 *tail)
+    LAUNCHES[kernel] += 1
+    return out, mask, ncarry, ncount, nprev
+
+
+def valid_frames(total: torch.Tensor, cfg: MFCCConfig) -> torch.Tensor:
+    """Frames completed by ``total`` buffered samples (floor division, as
+    in JAX)."""
+    return torch.clamp_min(
+        torch.div(total - cfg.windowlen, cfg.hop, rounding_mode="floor") + 1,
+        0)
+
+
+def state_step(step, buffer, chunk, count, prev, reset=None,
+               cfg: MFCCConfig = MFCCConfig(), *,
+               transposed_state: bool = False,
+               chunk_layout: str | None = None):
+    """A full-chunk step on the stream state around ``step``, a step of the
+    JAX signature (``stream_step_*`` or their plain versions), as torch
+    ops: the reset merged into count and prev (``reset`` None: no reset),
+    start = P - count, ``step``, then the mask of valid frame slots, the
+    new count and the new prev (the chunk's last raw sample) -- the torch
+    formulation of ``mfcc_tpu.streaming``'s fused step.  The plain version
+    of the step-level kernels, and the split-DFT step's bookkeeping.
+    Returns (feats, mask, new buffer, new count, new prev)."""
+    layout = _layout(chunk_layout)
+    if reset is not None:
+        count = torch.where(reset, 0, count)
+        prev = torch.where(reset, torch.zeros_like(prev), prev)
+    start = (cfg.windowlen - 1 - count).to(torch.int32)
+    feats, new_buffer = step(buffer, chunk, start, prev, cfg,
+                             transposed_state=transposed_state,
+                             chunk_layout=layout)
+    positions = layout == "positions"
+    C = chunk.shape[0 if positions else 1]
+    total = count + C
+    n_valid = valid_frames(total, cfg)
+    mask = (torch.arange(feats.shape[1], device=chunk.device)[None, :]
+            < n_valid[:, None])
+    new_count = (total - n_valid * cfg.hop).to(torch.int32)
+    last = chunk[-1, :] if positions else chunk[:, -1]
+    return (feats, mask, new_buffer, new_count,
+            last.to(prev.dtype).contiguous())
 
 
 # -- float step ----------------------------------------------------------------
@@ -184,6 +265,27 @@ def stream_step_float_plain(buffer, chunk, start, prev,
         feats = float_fused.radix2_tail_plain(frames, ops, cfg, passes,
                                               mel_floor)
     return feats, _carry_out(signal, C, P, transposed_state)
+
+
+def _float_launch(buffer, chunk, count, reset, prev, S, P, C, cfg,
+                  transposed_state, layout, mel_floor, operators):
+    """K4-float's kernel on checked CUDA operands (``_launch``)."""
+    dev = chunk.device
+    if operators is None:
+        ops = fladder.default_operators(cfg, dev)
+    else:
+        fladder.check_operators(operators, cfg, dev, "K4-float")
+        ops = operators
+    tables = (ops.window.data_ptr(), fladder.twiddles(cfg.nfft,
+                                                      dev).data_ptr(),
+              ops.mel.data_ptr(), ops.dct.data_ptr(), ops.band.data_ptr())
+    lib = build.library()
+    fn = (lib.mfcc_stream_f32_i16 if chunk.dtype == torch.int16
+          else lib.mfcc_stream_f32_f32)
+    return _launch("K4-float", fn, buffer, chunk, count, reset, prev, S, P,
+                   C, cfg, cfg.nceptrums, torch.float32, transposed_state,
+                   layout, (cfg.nfft, cfg.nfilters, cfg.nceptrums),
+                   (*tables, float(mel_floor)))
 
 
 def stream_step_float(buffer, chunk, start, prev,
@@ -219,35 +321,78 @@ def stream_step_float(buffer, chunk, start, prev,
             buffer, chunk, start, prev, cfg, transposed_state=transposed_state,
             mel_floor=mel_floor, chunk_layout=layout, dft_passes=passes,
             operators=operators)
+    if ladder:
+        out, _, ncarry, _, _ = _float_launch(
+            buffer, chunk, P - start, None, prev, S, P, C, cfg,
+            transposed_state, layout, mel_floor, operators)
+        return out, ncarry
+    if operators is not None:
+        float_fused.check_operators(operators, cfg, chunk.device, "K4-split")
     start, prev = start.contiguous(), prev.contiguous()   # (S,): cheap
     n_frames, ncep = frames_per_step(C, cfg), cfg.nceptrums
     out = torch.empty((S, n_frames, ncep), dtype=torch.float32,
                       device=chunk.device)
     ncarry = _new_carry(buffer, transposed_state, S, P)
+    args, _buf = float_fused.engine_args(operators, cfg, chunk.device, passes)
     lib = build.library()
-    head = (buffer.data_ptr(), chunk.data_ptr(), start.data_ptr(),
-            prev.data_ptr(), out.data_ptr(), ncarry.data_ptr(), S, P, C,
-            n_frames, cfg.hop, cfg.nfft, cfg.nfilters, ncep,
-            *_strides(buffer, chunk, ncarry, transposed_state, layout))
-    int16 = chunk.dtype == torch.int16
-    if ladder:
-        ops = operators or fladder.default_operators(cfg, chunk.device)
-        fladder.check_operators(ops, cfg, chunk.device, "K4-float")
-        fn = lib.mfcc_stream_f32_i16 if int16 else lib.mfcc_stream_f32_f32
-        tw = fladder.twiddles(cfg.nfft, chunk.device)
-        _launch("K4-float", fn, chunk.device, *head, ops.window.data_ptr(),
-                tw.data_ptr(), ops.mel.data_ptr(), ops.dct.data_ptr(),
-                ops.band.data_ptr(), float(mel_floor))
-    else:
-        if operators is not None:
-            float_fused.check_operators(operators, cfg, chunk.device,
-                                        "K4-split")
-        args, _buf = float_fused.engine_args(operators, cfg, chunk.device,
-                                             passes)
-        fn = lib.mfcc_stream_r2_i16 if int16 else lib.mfcc_stream_r2_f32
-        _launch("K4-split", fn, chunk.device, *head, passes, *args,
-                float(mel_floor))
+    fn = (lib.mfcc_stream_r2_i16 if chunk.dtype == torch.int16
+          else lib.mfcc_stream_r2_f32)
+    build.launch(fn, chunk.device, buffer.data_ptr(), chunk.data_ptr(),
+                 start.data_ptr(), prev.data_ptr(), out.data_ptr(),
+                 ncarry.data_ptr(), S, P, C, n_frames, cfg.hop, cfg.nfft,
+                 cfg.nfilters, ncep,
+                 *_strides(buffer, chunk, ncarry, transposed_state, layout),
+                 passes, *args, float(mel_floor))
+    LAUNCHES["K4-split"] += 1
     return out, ncarry
+
+
+def stream_step_float_state_plain(buffer, chunk, count, prev, reset=None,
+                                  cfg: MFCCConfig = MFCCConfig(), *,
+                                  transposed_state: bool = False,
+                                  mel_floor: float = 0.0,
+                                  chunk_layout: str | None = None,
+                                  operators=None):
+    """``stream_step_float_state`` as plain torch ops: ``state_step``
+    around ``stream_step_float_plain``."""
+    step = functools.partial(stream_step_float_plain, mel_floor=mel_floor,
+                             operators=operators)
+    return state_step(step, buffer, chunk, count, prev, reset, cfg,
+                      transposed_state=transposed_state,
+                      chunk_layout=chunk_layout)
+
+
+def stream_step_float_state(buffer, chunk, count, prev, reset=None,
+                            cfg: MFCCConfig = MFCCConfig(), *,
+                            transposed_state: bool = False,
+                            mel_floor: float = 0.0,
+                            chunk_layout: str | None = None,
+                            operators=None):
+    """One full-chunk float ``StreamingMFCC`` step on K1's tail, in one
+    launch of K4-float's kernel.
+
+    buffer, chunk and the layouts as in ``stream_step_float``; count (S,)
+    int32 buffered samples and prev (S,) f32, the state as
+    ``StreamingMFCC`` holds it; reset (S,) bool flags consumed before the
+    chunk, or None for no reset.  Returns (feats (S, F, ncep) f32, mask (S,
+    F) bool, new buffer in the buffer's layout, new count (S,) int32, new
+    prev (S,) f32).  A CUDA tensor launches the kernel or raises, with
+    nothing else on the card but the outputs' allocations; a CPU tensor
+    takes ``stream_step_float_state_plain``."""
+    layout = _layout(chunk_layout)
+    if not (stream_config_ok(cfg) and fladder.fladder_config_ok(cfg)):
+        raise ValueError(f"config outside K4-float's family: {cfg}")
+    S, P, C = _check_step(buffer, chunk, count, prev, cfg, transposed_state,
+                          layout, torch.float32,
+                          (torch.int16, torch.float32), "K4-float", reset,
+                          "count")
+    if chunk.device.type == "cpu":
+        return stream_step_float_state_plain(
+            buffer, chunk, count, prev, reset, cfg,
+            transposed_state=transposed_state, mel_floor=mel_floor,
+            chunk_layout=layout, operators=operators)
+    return _float_launch(buffer, chunk, count, reset, prev, S, P, C, cfg,
+                         transposed_state, layout, mel_floor, operators)
 
 
 # -- INT step ------------------------------------------------------------------
@@ -269,6 +414,26 @@ def stream_step_int_plain(buffer, chunk, start, prev,
     return feats, _carry_out(signal, C, P, transposed_state)
 
 
+def _int_launch(buffer, chunk, count, reset, prev, S, P, C, cfg,
+                transposed_state, layout):
+    """K4-INT's kernel on checked CUDA operands (``_launch``), with K3's
+    tables: curve, tw, dtw and the balanced filterbank's schedule."""
+    ops = int_fused.int_operators(cfg, chunk.device)
+    tail = int_fused.tail_args(cfg, ops)
+    lib = build.library()
+    fn = (lib.mfcc_stream_int_i16 if chunk.dtype == torch.int16
+          else lib.mfcc_stream_int_i32)
+    return _launch("K4-INT", fn, buffer, chunk, count, reset, prev, S, P, C,
+                   cfg, tail[1], torch.int32, transposed_state, layout, (),
+                   (*tail, ops.curve.data_ptr(), ops.tw.data_ptr(),
+                    ops.dtw.data_ptr(), ops.fbs.data_ptr()))
+
+
+def _check_int(cfg: MFCCConfig) -> None:
+    if not (stream_config_ok(cfg) and int_fused.int_config_ok(cfg)):
+        raise ValueError(f"config outside K4-INT's family: {cfg}")
+
+
 def stream_step_int(buffer, chunk, start, prev,
                     cfg: MFCCConfig = MFCCConfig(), *,
                     transposed_state: bool = False,
@@ -283,8 +448,7 @@ def stream_step_int(buffer, chunk, start, prev,
     launches the kernel or raises; a CPU tensor takes
     ``stream_step_int_plain``."""
     layout = _layout(chunk_layout)
-    if not (stream_config_ok(cfg) and int_fused.int_config_ok(cfg)):
-        raise ValueError(f"config outside K4-INT's family: {cfg}")
+    _check_int(cfg)
     S, P, C = _check_step(buffer, chunk, start, prev, cfg, transposed_state,
                           layout, torch.int32, (torch.int16, torch.int32),
                           "K4-INT")
@@ -292,19 +456,39 @@ def stream_step_int(buffer, chunk, start, prev,
         return stream_step_int_plain(
             buffer, chunk, start, prev, cfg,
             transposed_state=transposed_state, chunk_layout=layout)
-    start, prev = start.contiguous(), prev.contiguous()   # (S,): cheap
-    ops = int_fused.int_operators(cfg, chunk.device)
-    n_frames = frames_per_step(C, cfg)
-    tail = int_fused.tail_args(cfg, ops)
-    out = torch.empty((S, n_frames, tail[1]), dtype=torch.int32,
-                      device=chunk.device)
-    ncarry = _new_carry(buffer, transposed_state, S, P)
-    lib = build.library()
-    fn = (lib.mfcc_stream_int_i16 if chunk.dtype == torch.int16
-          else lib.mfcc_stream_int_i32)
-    _launch("K4-INT", fn, chunk.device, buffer.data_ptr(), chunk.data_ptr(),
-            start.data_ptr(), prev.data_ptr(), out.data_ptr(),
-            ncarry.data_ptr(), S, P, C, n_frames, cfg.hop,
-            *_strides(buffer, chunk, ncarry, transposed_state, layout),
-            *tail, *int_fused.table_ptrs(ops))
+    out, _, ncarry, _, _ = _int_launch(buffer, chunk, P - start, None, prev,
+                                       S, P, C, cfg, transposed_state, layout)
     return out, ncarry
+
+
+def stream_step_int_state_plain(buffer, chunk, count, prev, reset=None,
+                                cfg: MFCCConfig = MFCCConfig(), *,
+                                transposed_state: bool = False,
+                                chunk_layout: str | None = None):
+    """``stream_step_int_state`` as plain torch ops: ``state_step`` around
+    ``stream_step_int_plain``."""
+    return state_step(stream_step_int_plain, buffer, chunk, count, prev,
+                      reset, cfg, transposed_state=transposed_state,
+                      chunk_layout=chunk_layout)
+
+
+def stream_step_int_state(buffer, chunk, count, prev, reset=None,
+                          cfg: MFCCConfig = MFCCConfig(), *,
+                          transposed_state: bool = False,
+                          chunk_layout: str | None = None):
+    """One full-chunk INT ``StreamingMFCC`` step in one launch of K4-INT's
+    kernel: ``stream_step_float_state``'s operands and outputs with the
+    INT state (buffer and prev int32) and chunks int16 or int32 (taken as
+    they are).  A CUDA tensor launches the kernel or raises; a CPU tensor
+    takes ``stream_step_int_state_plain``."""
+    layout = _layout(chunk_layout)
+    _check_int(cfg)
+    S, P, C = _check_step(buffer, chunk, count, prev, cfg, transposed_state,
+                          layout, torch.int32, (torch.int16, torch.int32),
+                          "K4-INT", reset, "count")
+    if chunk.device.type == "cpu":
+        return stream_step_int_state_plain(
+            buffer, chunk, count, prev, reset, cfg,
+            transposed_state=transposed_state, chunk_layout=layout)
+    return _int_launch(buffer, chunk, count, reset, prev, S, P, C, cfg,
+                       transposed_state, layout)

@@ -4,7 +4,8 @@ K2's INT tail (``csrc/int_stages.cuh``: K2, K3, K4-INT, K9, K3-v1, K10) and
 K1's float tail (``csrc/fladder_stages.cuh``: K1, K6, K4-float, K7) give
 each frame to one warp of 32 lanes and keep its points in registers; between
 passes the warp exchanges them through the frame's shared row.  The batch
-kernels' warps walk the frames in a persistent grid (``persistent_walk``),
+kernels' warps walk the frames in a persistent grid (``persistent_walk``;
+the serving step's writes: ``step_walk``),
 K2's and K3-v1's ingest loads each frame from the samples
 (``int_audio_ingest_model``), and K3 and K10's epilogue sum the filterbank
 on the balanced schedule (``int_fb_balanced``).  This module states those schedules with the
@@ -424,6 +425,39 @@ def epilogue_walk(M: int, grid: int) -> list:
                 out.append((b, w, row))
                 m += step
     return out
+
+
+def step_walk(S: int, F: int, grid: int, P: int = INT_NFFT - 1) -> dict:
+    """The writes of the serving step K4's persistent kernels
+    (``stream_step.cu`` ``stream_f32_kernel``, ``stream_int_kernel``) over
+    S streams of F frame slots in ``grid`` blocks, by the kernels' loop
+    bounds and index formulas: warp w of block b takes flat slots G = b*8
+    + w, stepping by grid*8 while G < S*F; slot G is stream s = G // F,
+    slot g = G - s*F, and its warp writes the features of row G, carry
+    positions [g * share, min((g + 1) * share, P)) of stream s (share =
+    ceil(P / F)), mask entry G, and on slot 0 stream s's new count and new
+    prev.  Returns int64 arrays of the flat indices written, in the order
+    the warps take their slots: ``"feats"`` and ``"mask"`` G, ``"carry"``
+    s*P + position, ``"count"`` and ``"prev"`` s; and ``"warp"``, the
+    (block, warp) of each slot in ``"feats"``."""
+    step = grid * FRAMES_PER_BLOCK
+    M = S * F
+    firsts = np.arange(min(step, M))
+    G = np.concatenate([np.arange(f, M, step) for f in firsts]
+                       or [np.zeros(0, np.int64)]).astype(np.int64)
+    warp = np.concatenate([np.full(len(range(f, M, step)), f)
+                           for f in firsts] or [np.zeros(0, np.int64)])
+    s, g = G // F, G % F
+    share = -(-P // F)
+    lo = np.minimum(g * share, P)
+    n = np.minimum((g + 1) * share, P) - lo
+    starts = np.repeat(s * P + lo - np.cumsum(n) + n, n)
+    carry = starts + np.arange(int(n.sum()))
+    first = g == 0
+    return {"feats": G, "mask": G, "carry": carry, "count": s[first],
+            "prev": s[first],
+            "warp": np.stack([warp // FRAMES_PER_BLOCK,
+                              warp % FRAMES_PER_BLOCK], axis=1)}
 
 
 # -- float: the packed FFT, unpack, mel and DCT (fladder_stages.cuh) ----------

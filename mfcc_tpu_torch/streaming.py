@@ -21,10 +21,14 @@ Routing, as ``mfcc_tpu.streaming`` routes:
   * full-chunk steps (``lengths=None``) of a config in the fused family go
     to K4 (``ops/stream_fused.py``): the INT step for ``int_path=True``, the
     float step for ``method="dft"``, float32, ``precision="highest"`` and a
-    config in K1's family;
+    config in K1's family.  On the card such a step is one kernel launch
+    (``stream_step_{int,float}_state``: the reset merge, the features, the
+    new carry, the mask, the new count and prev), as the JAX package's
+    jitted fused step is one dispatch;
   * full-chunk steps under ``precision="fast"`` (``method="dft"``, float32,
     a zero Nyquist mel row) go to the split-DFT step at 3 passes
-    (``stream_step_float(dft_passes=3)``, K5's tail) for CUDA tensors, and
+    (``stream_step_float(dft_passes=3)``, K5's tail, inside
+    ``stream_fused.state_step``'s torch bookkeeping) for CUDA tensors, and
     to the "highest" chain for CPU tensors, as ``mfcc_tpu.streaming`` runs
     its chain off the TPU;
   * ``precision="f64ish"`` runs every step, flush steps included, through
@@ -88,14 +92,6 @@ def max_frames_per_chunk(chunk_size: int, cfg: MFCCConfig) -> int:
     return stream_fused.frames_per_step(chunk_size, cfg)
 
 
-def _valid_frames(total: torch.Tensor, cfg: MFCCConfig) -> torch.Tensor:
-    """Frames completed by ``total`` buffered samples (floor division, as
-    in JAX)."""
-    return torch.clamp_min(
-        torch.div(total - cfg.windowlen, cfg.hop, rounding_mode="floor") + 1,
-        0)
-
-
 def _chunk_step_batch(chunks, state: StreamState, reset, cfg: MFCCConfig,
                       emphasize, dtype, lengths=None):
     """One chunk step over (S, C) batched chunks: consumes per-stream reset
@@ -124,7 +120,7 @@ def _chunk_step_batch(chunks, state: StreamState, reset, cfg: MFCCConfig,
         last = torch.gather(chunks, 1, li[:, None])[:, 0]
         new_prev = torch.where(L > 0, last.to(prev.dtype), prev
                                ).to(state.prev.dtype)
-    n_valid = _valid_frames(total, cfg)
+    n_valid = stream_fused.valid_frames(total, cfg)
     mask = (torch.arange(F, device=chunks.device)[None, :]
             < n_valid[:, None])
     new_count = (total - n_valid * cfg.hop).to(torch.int32)
@@ -258,40 +254,38 @@ class StreamingMFCC:
             # the kernel takes the int16 wire dtype as it is; every other
             # path computes in the state dtype
             chunks = chunks.to(self.dtype)
-        S = chunks.shape[1 if self.transposed_chunks else 0]
-        reset = (torch.zeros((S,), dtype=torch.bool, device=self.device)
-                 if reset is None else self._as_tensor(reset, torch.bool))
+        if reset is not None:
+            reset = self._as_tensor(reset, torch.bool)
         if fused:
             return self._fused_step(chunks, state, reset)
+        if reset is None:
+            S = chunks.shape[1 if self.transposed_chunks else 0]
+            reset = torch.zeros((S,), dtype=torch.bool, device=self.device)
         if lengths is not None:
             lengths = self._as_tensor(lengths, torch.int32)
         return self._chain_step(chunks, state, reset, lengths)
 
     def _fused_step(self, chunks, state, reset):
-        cfg = self.cfg
-        count = torch.where(reset, 0, state.count)
-        prev = torch.where(reset, torch.zeros_like(state.prev), state.prev)
-        start = (cfg.windowlen - 1 - count).to(torch.int32)
-        layout = "positions" if self.transposed_chunks else "time"
-        if self.int_path:
-            feats, newbuf = stream_fused.stream_step_int(
-                state.buffer, chunks, start, prev, cfg,
-                transposed_state=self.transposed_state, chunk_layout=layout)
+        """A full-chunk step of the fused routes: one launch of K4-float's
+        or K4-INT's kernel that also merges the reset and updates the state
+        (``stream_step_*_state``; their plain versions on the CPU), or the
+        split-DFT step inside ``stream_fused.state_step``'s torch
+        bookkeeping."""
+        kw = dict(transposed_state=self.transposed_state,
+                  chunk_layout=("positions" if self.transposed_chunks
+                                else "time"))
+        args = (state.buffer, chunks, state.count, state.prev, reset,
+                self.cfg)
+        if self._route == "split":
+            step = functools.partial(stream_fused.stream_step_float,
+                                     mel_floor=self.mel_floor, dft_passes=3)
+            out = stream_fused.state_step(step, *args, **kw)
+        elif self.int_path:
+            out = stream_fused.stream_step_int_state(*args, **kw)
         else:
-            feats, newbuf = stream_fused.stream_step_float(
-                state.buffer, chunks, start, prev, cfg,
-                transposed_state=self.transposed_state,
-                mel_floor=self.mel_floor, chunk_layout=layout,
-                dft_passes=3 if self._route == "split" else None)
-        C = chunks.shape[0 if self.transposed_chunks else 1]
-        total = count + C
-        n_valid = _valid_frames(total, cfg)
-        mask = (torch.arange(feats.shape[1], device=chunks.device)[None, :]
-                < n_valid[:, None])
-        new_count = (total - n_valid * cfg.hop).to(torch.int32)
-        last = chunks[-1, :] if self.transposed_chunks else chunks[:, -1]
-        return feats, mask, StreamState(
-            newbuf, new_count, last.to(state.prev.dtype).contiguous())
+            out = stream_fused.stream_step_float_state(
+                *args, mel_floor=self.mel_floor, **kw)
+        return out[0], out[1], StreamState(*out[2:])
 
     def _chain_step(self, chunks, state, reset, lengths):
         if self.transposed_chunks:

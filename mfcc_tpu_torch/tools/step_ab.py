@@ -2,7 +2,7 @@
 K8 and the serving steps of several checkouts of the port on one CUDA card,
 one process per checkout, in the order given.
 
-    python3 mfcc_tpu_torch/tools/step_ab.py [--int] TREE [TREE ...]
+    python3 mfcc_tpu_torch/tools/step_ab.py [--int | --serve] TREE [TREE ...]
 
 Each TREE is a directory that holds a ``mfcc_tpu_torch`` package (a
 checkout, or ``git archive`` of one); give two trees in the order A B B A
@@ -36,9 +36,21 @@ float and INT (the mean of a chain of 16 steps with the state threaded
 through); each the median of 10 after warm-up, device time by CUDA
 events.  ``*_host_ms`` is the host's time to issue one step of the chain
 (no synchronization inside it): a step whose host time reaches its device
-time is held back by the host.  With ``--int`` each process times the
-INT batch kernels alone (K2, K9, K3, K10's epilogue, K3-v1), a quicker
-A/B of INT variants.  The first tree's outputs are kept in
+time is held back by the host.  A single call's CUDA-event time also holds
+the host's issue time between the first event and the launch; the K4
+kernels are also timed as the mean of 16 calls back to back behind a call
+already queued (``*_b2b_ms``), where the card waits for the host only if
+the host issues slower than the kernel runs.  In a tree with the
+step-level entries (``stream_step_{float,int}_state``, the whole
+full-chunk step in one launch) it also times those (``k4_*_state_ms``,
+with their host issue time, and ``k4_*_state_b2b_ms``) and breaks one
+step's host time down (``host_*_us``: the step, the entry, its checks, its
+five allocations, a ``torch.cuda.device`` context, ``current_stream``, the
+ctypes call without and with the launch; only in trees whose C entry
+takes this script's argument list).  With ``--int`` each process times the INT batch
+kernels alone (K2, K9, K3, K10's epilogue, K3-v1), a quicker
+A/B of INT variants; with ``--serve`` the serving steps alone.  The
+first tree's outputs are kept in
 ``mfcc_tpu_torch/_build/step_ab/`` of the tree that runs the script, for
 the later trees to compare with.
 """
@@ -116,21 +128,23 @@ def against_first(out: dict, name: str, got, first: bool, tol: float
 INT_KEYS = ("k2", "k9", "k3", "k10_epi", "k3v1")
 
 
-def child(tree: str, first: bool, int_only: bool = False) -> dict:
+def child(tree: str, first: bool, mode: str = "all") -> dict:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
-    from mfcc_tpu_torch import MFCCConfig, StreamingMFCC
+    from mfcc_tpu_torch import MFCCConfig
     from mfcc_tpu_torch.kernels import build
     from mfcc_tpu_torch.ops import (dense_fused, f64ish, fladder,
-                                    float_fused, framing, int_fused,
-                                    stream_fused)
+                                    float_fused, framing, int_fused)
 
     build.build()
     build.library()
     dev = torch.device("cuda", 0)
     cfg = MFCCConfig()
     out = {"tree": tree}
+    if mode == "serve":
+        return serving(out, dev, cfg)
+    int_only = mode == "int"
     audio = torch.from_numpy(make_audio(S_BATCH, T_BATCH, seed=0)
                              .astype(np.int16)).to(dev)
     if not int_only:
@@ -178,6 +192,38 @@ def child(tree: str, first: bool, int_only: bool = False) -> dict:
         against_first(out, name, fn(), first, tol)
         out[f"{name}_ms"] = time_ms(fn)[0]
     del audio
+    return serving(out, dev, cfg)
+
+
+def time_b2b(fn, n: int = 16) -> float:
+    """Device ms of one call: ``n`` calls back to back between two CUDA
+    events, the first recorded behind one more call so that the card is
+    busy while the timed calls are issued; the median over ITERS."""
+    import torch
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ITERS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        fn()
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def serving(out: dict, dev, cfg) -> dict:
+    """The K4 kernels and ``StreamingMFCC.step`` at S x C (see the notes
+    above), into ``out``."""
+    import numpy as np
+    import torch
+    from mfcc_tpu_torch import StreamingMFCC
+    from mfcc_tpu_torch.ops import stream_fused
     serve = torch.from_numpy(make_audio(S, (STEPS + 2) * C, seed=6)
                              .astype(np.int16)).to(dev)
     chunks = [serve[:, i * C:(i + 1) * C].contiguous()
@@ -193,9 +239,20 @@ def child(tree: str, first: bool, int_only: bool = False) -> dict:
         kern = (stream_fused.stream_step_int if int_path
                 else stream_fused.stream_step_float)
         out[f"k4_{kind}_ms"] = time_ms(lambda: kern(*args))[0]
+        out[f"k4_{kind}_b2b_ms"] = time_b2b(lambda: kern(*args))
         if not int_path:
             out["k4_split_ms"] = time_ms(lambda: kern(*args,
                                                       dft_passes=3))[0]
+        state_entry = getattr(stream_fused, f"stream_step_{kind}_state",
+                              None)
+        if state_entry is not None:         # trees with the step-level entry
+            sargs = (state.buffer, chunks[2], state.count, state.prev, None,
+                     cfg)
+            out[f"k4_{kind}_state_ms"], out[f"k4_{kind}_state_host_ms"] = \
+                time_ms(lambda: state_entry(*sargs))
+            out[f"k4_{kind}_state_b2b_ms"] = time_b2b(
+                lambda: state_entry(*sargs))
+            out.update(host_breakdown(kind, sm, state, chunks[2], sargs))
 
         def chain():
             st = state
@@ -207,13 +264,116 @@ def child(tree: str, first: bool, int_only: bool = False) -> dict:
     return out
 
 
+def host_us(fn, n: int = 20, reps: int = 30) -> float:
+    """Median host microseconds of one call of ``fn``: ``n`` calls back to
+    back, the card synchronized between the ``reps`` batches (so that no
+    launch waits for room in the launch queue)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / n)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def host_breakdown(kind: str, sm, state, chunk, sargs) -> dict:
+    """Where the host time of one full-chunk ``StreamingMFCC.step`` goes
+    (``host_{kind}_*_us``, each the median of ``host_us``): the whole step
+    and the step-level entry it calls; inside the entry the operand checks
+    (``stream_fused._check_step``), the five output allocations, entering
+    and leaving ``torch.cuda.device`` (which ``build.launch`` skips when
+    the device is current), ``torch.cuda.current_stream``, the ctypes call
+    with S = 0 (argument conversion and the C entry's checks, no launch),
+    and the ctypes call that launches (the kernel's own launch on top)."""
+    import torch
+    from mfcc_tpu_torch.kernels import build
+    from mfcc_tpu_torch.ops import fladder, int_fused
+    from mfcc_tpu_torch.ops import stream_fused as sf
+    cfg = sargs[-1]
+    buf, x, count, prev = sargs[:4]
+    dev = x.device
+    S, C = x.shape
+    P = cfg.windowlen - 1
+    F = sf.frames_per_step(C, cfg)
+    int_path = kind == "int"
+    entry = (sf.stream_step_int_state if int_path
+             else sf.stream_step_float_state)
+    sdt = torch.int32 if int_path else torch.float32
+    chunk_dtypes = ((torch.int16, torch.int32) if int_path
+                    else (torch.int16, torch.float32))
+    outs = [torch.empty((S, F, cfg.nceptrums), dtype=sdt, device=dev),
+            torch.empty((S, F), dtype=torch.bool, device=dev),
+            torch.empty((S, P), dtype=sdt, device=dev),
+            torch.empty((S,), dtype=torch.int32, device=dev),
+            torch.empty((S,), dtype=sdt, device=dev)]
+    lib = build.library()
+    if int_path:
+        fn = lib.mfcc_stream_int_i16
+        ops = int_fused.int_operators(cfg, dev)
+        mid = ()
+        rest = (*int_fused.tail_args(cfg, ops), ops.curve.data_ptr(),
+                ops.tw.data_ptr(), ops.dtw.data_ptr(), ops.fbs.data_ptr())
+    else:
+        fn = lib.mfcc_stream_f32_i16
+        ops = fladder.default_operators(cfg, dev)
+        mid = (cfg.nfft, cfg.nfilters, cfg.nceptrums)
+        rest = (ops.window.data_ptr(),
+                fladder.twiddles(cfg.nfft, dev).data_ptr(),
+                ops.mel.data_ptr(), ops.dct.data_ptr(), ops.band.data_ptr(),
+                0.0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def c_args(n):
+        return (buf.data_ptr(), x.data_ptr(), count.data_ptr(), 0,
+                prev.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                outs[2].data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(),
+                n, P, C, F, cfg.hop, *mid,
+                *sf._strides(buf, x, outs[2], False, "time"), *rest, stream)
+
+    if len(fn.argtypes) != len(c_args(0)):    # another tree's C entry
+        return {}
+
+    def ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    def alloc():
+        torch.empty((S, F, cfg.nceptrums), dtype=sdt, device=dev)
+        torch.empty((S, F), dtype=torch.bool, device=dev)
+        torch.empty((S, P), dtype=sdt, device=dev)
+        torch.empty((S,), dtype=torch.int32, device=dev)
+        torch.empty((S,), dtype=sdt, device=dev)
+
+    empty_args, launch_args = c_args(0), c_args(S)
+    k = f"host_{kind}"
+    return {
+        f"{k}_step_us": host_us(lambda: sm.step(chunk, state)),
+        f"{k}_entry_us": host_us(lambda: entry(*sargs)),
+        f"{k}_checks_us": host_us(lambda: sf._check_step(
+            buf, x, count, prev, cfg, False, "time", sdt, chunk_dtypes,
+            "K4", None, "count")),
+        f"{k}_alloc5_us": host_us(alloc),
+        f"{k}_device_ctx_us": host_us(ctx),
+        f"{k}_current_stream_us": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        f"{k}_ctypes_s0_us": host_us(lambda: fn(*empty_args)),
+        f"{k}_ctypes_launch_us": host_us(lambda: fn(*launch_args)),
+    }
+
+
 def main(argv: list[str]) -> int:
     if len(argv) >= 4 and argv[0] == "--child":
-        print(json.dumps(child(argv[1], argv[2] == "first",
-                               argv[3] == "int")), flush=True)
+        print(json.dumps(child(argv[1], argv[2] == "first", argv[3])),
+              flush=True)
         return 0
-    int_only = bool(argv) and argv[0] == "--int"
-    argv = argv[int_only:]
+    mode = {"--int": "int", "--serve": "serve"}.get(argv[0] if argv else "",
+                                                   "all")
+    argv = argv[mode != "all":]
     if not argv:
         raise SystemExit(__doc__)
     card = subprocess.run(
@@ -223,8 +383,7 @@ def main(argv: list[str]) -> int:
     rc = 0
     for i, tree in enumerate(map(os.path.abspath, argv)):
         res = subprocess.run([sys.executable, __file__, "--child", tree,
-                              "first" if i == 0 else "later",
-                              "int" if int_only else "all"],
+                              "first" if i == 0 else "later", mode],
                              capture_output=True, text=True, timeout=600)
         line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() \
             else ""

@@ -482,9 +482,164 @@ def test_stream_wrapper_checks_on_card(dev):
     # a refused launch (P does not fit nfft) raises with its cudaError_t
     lib = build.library()
     with pytest.raises(RuntimeError, match="cudaError_t"):
-        build.launch(lib.mfcc_stream_int_i16, dev, *([0] * 6), 4,
+        build.launch(lib.mfcc_stream_int_i16, dev, *([0] * 10), 4,
                              100, 600, 4, 170, *([1] * 6), 32, 32, 0, 11,
-                             15, *([0] * 5))
+                             15, *([0] * 4))
+
+
+# -- the step-level K4 entries: the whole full-chunk step in one launch -------
+
+STATE_WIDTHS = [1, 169, 170, 171, 600, 1024, 2048]
+
+
+def _k4_state_run(dev, int_path, S, C, cfg, steps=4, seed=0, count0=None):
+    """A multi-step run of the step-level K4 entry (``stream_step_*_state``:
+    the reset merged and the state updated in the kernel) and its plain
+    version on the same inputs, with a random reset pattern on every step
+    but the first (None there: no reset); chunks alternate int16 and the
+    state dtype (int32 outside int16 range, float values that are not
+    integers), the layouts rotate.  ``count0`` (S,): the first step's
+    counts, over a random carry, else an empty state.  INT features and,
+    for both, mask, carry, count and prev ``torch.equal``; float features
+    within TOL."""
+    rng = np.random.default_rng(seed)
+    P = cfg.nfft - 1
+    sdt = torch.int32 if int_path else torch.float32
+    kern = (stream_fused.stream_step_int_state if int_path
+            else stream_fused.stream_step_float_state)
+    plain = (stream_fused.stream_step_int_state_plain if int_path
+             else stream_fused.stream_step_float_state_plain)
+    key = "K4-INT" if int_path else "K4-float"
+    if count0 is None:
+        carry = torch.zeros(S, P, dtype=sdt, device=dev)
+        count = torch.zeros(S, dtype=torch.int32, device=dev)
+    else:
+        carry = torch.from_numpy(rng.integers(-3000, 3000, (S, P))).to(
+            dev, sdt)
+        count = torch.as_tensor(count0, dtype=torch.int32, device=dev)
+    prev = torch.from_numpy(rng.integers(-3000, 3000, S)).to(dev, sdt)
+    err = 0.0
+    for k in range(steps):
+        if k % 2 == 0:
+            x = rng.integers(-32768, 32768, (S, C)).astype(np.int16)
+        elif int_path:
+            x = rng.integers(-2 ** 31, 2 ** 31, (S, C)).astype(np.int32)
+        else:
+            x = (rng.integers(-25000, 25000, (S, C))
+                 + rng.random((S, C))).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        reset = (None if k == 0 else
+                 torch.from_numpy(rng.random(S) < 0.3).to(dev))
+        ts, layout = k % 2 == 1, ("time", "positions", "stream")[k % 3]
+        xin = x.T.contiguous() if layout == "positions" else x
+        cin = carry.T.contiguous() if ts else carry
+        want = dict(stream_fused.LAUNCHES)
+        want[key] += 1
+        got = kern(cin, xin, count, prev, reset, cfg, transposed_state=ts,
+                   chunk_layout=layout)
+        torch.cuda.synchronize()
+        assert stream_fused.LAUNCHES == want
+        ref = plain(cin, xin, count, prev, reset, cfg, transposed_state=ts,
+                    chunk_layout=layout)
+        f, fp = got[0], ref[0]
+        assert f.shape == fp.shape == (S, (C - 1) // cfg.hop + 1,
+                                       cfg.nceptrums)
+        for name, a, b in zip(("mask", "carry", "count", "prev"), got[1:],
+                              ref[1:]):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, name,
+                                                              layout, ts)
+        if int_path:
+            assert torch.equal(f, fp), (k, layout, ts)
+        else:
+            m = got[1]
+            assert torch.isfinite(f[m]).all()
+            if bool(m.any()):
+                err = max(err, (f[m] - fp[m]).abs().max().item())
+        carry = got[2].T if ts else got[2]
+        count, prev = got[3], got[4]
+    assert err <= TOL
+    return err
+
+
+@pytest.mark.parametrize("int_path", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("C", STATE_WIDTHS)
+def test_stream_state_kernel_matches_plain(dev, int_path, C):
+    _k4_state_run(dev, int_path, 130, C, MFCCConfig(), seed=C)
+
+
+@pytest.mark.parametrize("int_path", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("C", [1, 170, 171])
+def test_stream_state_floor_division_on_card(dev, int_path, C):
+    """Counts 0 .. 511 and 64 random ones: count + C - 512 lands in (-170,
+    0) and in every residue mod 170 (at C = 170 and 171), where C++'s
+    truncating division would give one frame too many; the kernel's mask
+    and count are its plain version's and the floor division's."""
+    rng = np.random.default_rng(C)
+    count0 = np.concatenate([np.arange(512), rng.integers(0, 512, 64)])
+    _k4_state_run(dev, int_path, len(count0), C, MFCCConfig(), steps=2,
+                  seed=C, count0=count0)
+    sm = StreamingMFCC(int_path=int_path)
+    st = sm.init(len(count0))
+    st = st._replace(count=torch.as_tensor(count0, dtype=torch.int32,
+                                           device=dev))
+    x = torch.zeros(len(count0), C, dtype=torch.int16, device=dev)
+    _, mask, new = sm.step(x, st)
+    total = count0 + C
+    n_valid = np.maximum((total - 512) // 170 + 1, 0)
+    assert np.array_equal(mask.sum(dim=1).cpu().numpy(), n_valid)
+    assert np.array_equal(new.count.cpu().numpy(), total - n_valid * 170)
+
+
+def test_streamed_frames_are_batch_bits_on_card(dev):
+    """int16 streams through full-chunk ``StreamingMFCC`` steps (one launch
+    of the step-level kernel each, resets none) give batch K1's float
+    frames bit for bit and K2's INT frames element for element."""
+    sig = _tonal(16, 1024 * 10, 13).astype(np.int16)
+    x = torch.from_numpy(sig).to(dev)
+    fe = MFCC()
+    for int_path in (True, False):
+        before = dict(stream_fused.LAUNCHES)
+        got, _ = StreamingMFCC(int_path=int_path).process(x, 1024)
+        before["K4-INT" if int_path else "K4-float"] += 10
+        assert stream_fused.LAUNCHES == before
+        want = (fe.int(x) if int_path else fe(x)).cpu().numpy()
+        assert np.array_equal(np.stack(got), want)
+
+
+def _device_ops(fn):
+    """The names of the operations ``fn`` runs on the card (kernels,
+    copies, fills), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("int_path", [True, False], ids=["int", "float"])
+def test_full_step_is_one_kernel_on_card(dev, int_path):
+    """One full-chunk ``StreamingMFCC.step`` on the card runs exactly one
+    operation there, K4's kernel, with or without a reset (outputs from
+    the caching allocator after warm-up); the K4 launch count moves by
+    one."""
+    S, C = 256, 1024
+    sm = StreamingMFCC(int_path=int_path)
+    x = torch.from_numpy(_tonal(S, C, 3).astype(np.int16)).to(dev)
+    reset = torch.zeros(S, dtype=torch.bool, device=dev)
+    reset[::5] = True
+    state = sm.init(S)
+    for r in (None, reset, None):                    # warm-up
+        _, _, state = sm.step(x, state, reset=r)
+    key = "K4-INT" if int_path else "K4-float"
+    for r in (None, reset):
+        n = stream_fused.LAUNCHES[key]
+        ops = _device_ops(lambda: sm.step(x, state, reset=r))
+        assert len(ops) == 1, ops
+        assert ("stream_int_kernel" if int_path
+                else "stream_f32_kernel") in ops[0], ops
+        assert stream_fused.LAUNCHES[key] == n + 1
 
 
 @pytest.mark.parametrize("passes", [3, 4])

@@ -425,3 +425,99 @@ def test_k3_ingest_folds_first_sample():
     body = text[text.index("int_frames_kernel("):]
     assert "const int b = bitrev(lane(), 5);" in body
     assert "re[r] = window(x[q], cv[b + q]);" in body
+
+
+# -- the serving step's persistent walk (stream_step.cu) ----------------------
+
+STEP_P = 511    # P = nfft - 1: the carry positions of a stream
+
+
+@pytest.mark.parametrize("F", [1, 2, 7, 13])
+@pytest.mark.parametrize("S", [1, 3, 130, 4096])
+def test_step_walk_writes_every_output_once(S, F):
+    """K4's persistent kernels (``warp_tails.step_walk``, the kernels' loop
+    bounds and index formulas) write every (stream, frame slot)'s features
+    and mask entry, every carry position of every stream, and every
+    stream's new count and prev exactly once; each warp takes its slots in
+    ascending order, and an 8-slot tile spans stream boundaries where F is
+    not a multiple of 8 (no warp idles while slots are left).  For the
+    grid the occupancy gives at 3 blocks an SM, a grid of 2 blocks, and a
+    grid larger than the tile count (idle blocks)."""
+    M = S * F
+    tiles = -(-M // wt.FRAMES_PER_BLOCK)
+    for grid in (wt.persistent_grid(tiles, 132, 3), 2, tiles + 3):
+        walk = wt.step_walk(S, F, grid, STEP_P)
+        for name, n in (("feats", M), ("mask", M), ("carry", S * STEP_P),
+                        ("count", S), ("prev", S)):
+            idx = walk[name]
+            assert idx.min(initial=0) >= 0 and idx.max(initial=0) < n, name
+            assert (np.bincount(idx, minlength=n) == 1).all(), (name, grid)
+        b, w = walk["warp"][:, 0], walk["warp"][:, 1]
+        assert (b < grid).all() and (w < wt.FRAMES_PER_BLOCK).all()
+        per_warp = {}
+        for key, G in zip(b * wt.FRAMES_PER_BLOCK + w, walk["feats"]):
+            per_warp.setdefault(int(key), []).append(int(G))
+        for seq in per_warp.values():
+            assert seq == sorted(seq)
+            assert seq[0] < grid * wt.FRAMES_PER_BLOCK
+        busy = min(M, grid * wt.FRAMES_PER_BLOCK)
+        assert len(per_warp) == busy           # no warp idles early
+        assert sorted(walk["feats"].tolist()) == list(range(M))
+    # the model against the persistent walk of the batch kernels
+    grid = wt.persistent_grid(tiles, 132, 3)
+    walk = wt.step_walk(S, F, grid, STEP_P)
+    want = [(b, w, G) for b, w, G, *_ in wt.persistent_walk(M, F, grid)]
+    got = sorted(zip(walk["warp"][:, 0].tolist(), walk["warp"][:, 1].tolist(),
+                     walk["feats"].tolist()))
+    assert got == sorted(want)
+
+
+def test_step_walk_is_the_kernels():
+    """``step_walk`` holds the kernels' formulas: both of stream_step.cu's
+    K4 kernels walk G from blockIdx.x * kFrames + the warp by gridDim.x *
+    kFrames over M = S*F slots in 32-bit indices (the launches refuse M >=
+    2^30) with (s, g) = (G / F, G - s*F), launch through
+    ``launch_persistent``, and write through ``step_outputs``: carry
+    positions [g * share, min(P, (g + 1) * share)) with share = ceil(P /
+    F), mask[G], and on slot 0 the count and prev; the valid count is an
+    explicit floor division."""
+    text = (Path(wt.__file__).resolve().parent.parent / "csrc"
+            / "stream_step.cu").read_text()
+    heads = re.findall(
+        r"for \(int G = static_cast<int>\(blockIdx\.x\) \* kFrames \+ "
+        r"threadIdx\.x / kLanes;\s*G < M; G \+= "
+        r"static_cast<int>\(gridDim\.x\) \* kFrames\)", text)
+    assert len(heads) == 2, heads
+    for kernel in ("stream_f32_kernel", "stream_int_kernel"):
+        body = text[text.index(kernel + "("):]
+        body = body[:body.index("\n}\n")]
+        assert "const int s = G / F;" in body
+        assert "const int g = G - s * F;" in body
+        assert "step_outputs(io, ncarry, xs, s, G, g, count," in body
+    assert text.count("if (S * F >= (1LL << 30)) return") == 2
+    for line in ("const int share = (P + F - 1) / F;",
+                 "const int p1 = min(P, (g + 1) * share);",
+                 "for (int p = g * share + (threadIdx.x & 31); p < p1; "
+                 "p += 32)",
+                 "const int n_valid = max(floor_div(total - (P + 1), hop) "
+                 "+ 1, 0);",
+                 "io.mask[G] = g < n_valid;",
+                 "if (g == 0) {",
+                 "return q - (q * b > a ? 1 : 0);"):
+        assert line in text, line
+    assert text.count("launch_persistent(stream_") == 1      # INT
+    assert "launch_persistent(\n      stream_f32_kernel<In>, kThreads," in text
+    assert ("tail_balanced(re, sm, c, out + static_cast<long long>(G) * "
+            "c.ncep);") in text
+
+
+def test_step_floor_div_model():
+    """The kernel's floor division (``floor_div``: truncating division less
+    one where the quotient times the divisor passes the dividend) is
+    floor division at the hops of the family, where C++'s truncating /
+    alone gives one frame too many for a dividend in (-hop, 0)."""
+    for b in (160, 170, 2):
+        for a in range(-1100, 1101):
+            q = int(a / b)                  # C++ truncates toward zero
+            q -= 1 if q * b > a else 0
+            assert q == a // b, (a, b)
