@@ -1,6 +1,6 @@
 """Drive the torch port's float and INT batch paths, its serving path, its
-fast and odd-hop float routes and its f64ish and split precisions on one
-CUDA card and check them.
+sharded paths, its fast and odd-hop float routes and its f64ish and split
+precisions on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -130,7 +130,31 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      K10's persistent epilogue on M = 1, 7, 9 and 4,000 rows and on rows
      with two leading axes;
      times every entry, its plain version, K2, and the float64
-     ``torch.matmul`` of the headline's DFT product (K8's library_ms).
+     ``torch.matmul`` of the headline's DFT product (K8's library_ms);
+  9. the sharded paths (``mfcc_tpu_torch/parallel``; run between phases 5
+     and 6): (a) world size 1 on NCCL in this process: ``mfcc_sharded_fn``
+     on the headline input, float, INT and float at hop 171, one K1 / K2
+     / K6 launch, cepstra bit-identical to ``MFCC()`` (``MFCC(MFCCConfig(
+     step=171))``) / ``torch.equal`` to ``.int``, the energy (an
+     all-reduce on the card) within 1e-6 relative of the unsharded mean
+     c0^2; (b) two gloo ranks sharing the card,
+     spawned by ``bootstrap.run_in_group`` after the kernels are built:
+     dp=2 batch, float, INT and float at hop 171, at the headline shape,
+     gathered equal to the unsharded module; the sp=2 halo on the
+     headline input padded by ``pad_for_halo``, INT through K3
+     ``torch.equal`` to ``MFCC().int``, its frames equal to the unsharded
+     signal's, float cepstra the chain's on the same frame rows bit for
+     bit (NaN in the same places: rows wholly in the zero padding),
+     within ``HALO_TOL`` of the unsharded chain on the n_frames rows and
+     within ``GATE`` of the oracle on 8 spread streams; dp=2 streaming at
+     S=4096 x C=1024, 4 steps, float and INT, equal to the unsharded
+     ``StreamingMFCC`` steps (mask, every carry, INT features; float
+     features within ``KERNEL_TOL``), one K4 launch a step and K4's kernel
+     alone on the card (``torch.profiler``); each rank's times, printed as
+     two processes contending for one card; (c)
+     ``dryrun_multichip(2)`` on the card.  The kernels line gains a
+     "parallel" list: each path, the kernels it launched and their
+     max-abs difference from the unsharded port.
 
 Times are CUDA events, median of 10 after warm-up.  Each main path
 (``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``,
@@ -139,9 +163,11 @@ Times are CUDA events, median of 10 after warm-up.  Each main path
 ``frames``, ``MFCC(MFCCConfig(step=171))(audio)``,
 ``StreamingMFCC(precision="fast").process``, ``MFCC(precision="f64ish")``
 and its ``frames``, ``StreamingMFCC(precision="f64ish").process``, and
-each entry of phase 8 on the headline input) is driven with every launch
-count set to 0 just before and read just after.  Any failed check raises, so the exit code is not 0.  Without a CUDA card it
-exits with an error before printing anything else.  The line before the
+each entry of phase 8 on the headline input, and each sharded path of
+phase 9 on each rank) is driven with every launch count set to 0 just
+before and read just after.  Any failed check raises, so the exit code is
+not 0.  Without a CUDA card it exits with an error before printing
+anything else.  The line before the
 last is a JSON summary of the kernels (with each one's bound: the larger
 of its bytes over the memory rate and its operations over the peak rate
 for their type); the last line is the JSON result.
@@ -163,6 +189,7 @@ import numpy as np
 import torch
 
 KERNEL_TOL = 5e-5   # kernel vs its plain version (both float64 inside)
+HALO_TOL = 5e-5     # the float sp halo vs the unsharded f32 chain
 GATE = 5e-4         # the float contract: max-abs vs the float64 oracle
 # K5 (split DFT) vs its plain version: both sum exact limb products in
 # float64, the f32 mel/log2/DCT sums differ in order; the JAX kernel's own
@@ -239,6 +266,24 @@ def compare_exact(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
     check(torch.equal(got, want), f"{what}: differs from the plain version "
           f"by up to {err}")
     return err
+
+
+def compare_exact_nan(got: torch.Tensor, want: torch.Tensor, what: str
+                      ) -> int:
+    """Float comparison bit for bit where ``want`` is a number, NaN exactly
+    where ``want`` is NaN (``torch.equal`` is false on any NaN); returns
+    the number of frame rows (the last axis being the cepstra) holding a
+    NaN."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+          f"{want.dtype}")
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{what}: NaN in other places")
+    fin = ~nan
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0
+    check(torch.equal(got[fin], want[fin]), f"{what}: differs by up to {err}"
+          " where the plain version is not NaN")
+    return int(nan.any(dim=-1).sum())
 
 
 def time_ms(fn) -> float:
@@ -1206,6 +1251,329 @@ def serving_phases(dev, card: str) -> list[dict]:
                   f"{secs:.2f} s wall")
         finally:
             srv.stop()
+    return entries
+
+
+# -- the parallel phase -------------------------------------------------------
+
+PARALLEL_KERNELS = ("K1", "K2", "K3", "K4-float", "K4-INT", "K6")
+
+
+def path_launches() -> dict:
+    """The launch counts of the kernels the sharded paths run."""
+    from mfcc_tpu_torch.ops import (fladder, float_fused, int_fused,
+                                    stream_fused)
+    return {"K1": fladder.LAUNCHES, "K2": int_fused.LAUNCHES["K2"],
+            "K3": int_fused.LAUNCHES["K3"],
+            "K4-float": stream_fused.LAUNCHES["K4-float"],
+            "K4-INT": stream_fused.LAUNCHES["K4-INT"],
+            "K6": float_fused.LAUNCHES["K6"]}
+
+
+def zero_path_counts() -> None:
+    from mfcc_tpu_torch.ops import (fladder, float_fused, int_fused,
+                                    stream_fused)
+    zero_counts(fladder, float_fused, int_fused, stream_fused)
+
+
+def check_launches(n: dict, want: dict, what: str) -> None:
+    full = {k: want.get(k, 0) for k in PARALLEL_KERNELS}
+    check(n == full, f"{what}: launches {n}, expected {full}")
+
+
+def host_ms(fn) -> float:
+    """Median wall ms of one call and a synchronize, after warm-up: the
+    time of a call whose collectives wait on the host (every rank calls
+    the same number of times)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ITERS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sharded_batch(mesh, audio, fe, int_path: bool) -> dict:
+    """``mfcc_sharded_fn`` (kernel route) at ``fe``'s config on the
+    headline batch against the unsharded module ``fe``: cepstra
+    bit-identical / ``torch.equal``, energy within 1e-6 relative of the
+    unsharded mean c0^2, one K2 launch (INT), one K1 (float, an even hop)
+    or one K6 (float, an odd hop) a rank and call."""
+    from mfcc_tpu_torch.parallel import gather, mfcc_sharded_fn, shard_streams
+    fn = mfcc_sharded_fn(mesh, fe.cfg, int_path=int_path)
+    x = shard_streams(audio, mesh)
+    zero_path_counts()
+    cep, energy = fn(x)
+    torch.cuda.synchronize()
+    n = path_launches()
+    full = gather(cep, mesh, fn.layout)
+    ms = host_ms(lambda: fn(x))
+    plain = host_ms((lambda: fe.int(audio)) if int_path else
+                    (lambda: fe(audio)))
+    want = fe.int(audio) if int_path else fe(audio)
+    kind = "INT" if int_path else f"float (hop {fe.cfg.hop})"
+    check(fn.selected_impl == "kernel/all-ranks", fn.selected_impl)
+    check_launches(n, {"K2" if int_path else "K6" if fe.cfg.hop % 2
+                       else "K1": 1}, f"sharded {kind}")
+    compare_exact(full, want, f"sharded {kind} vs the unsharded module")
+    e_want = float((want[..., 0].float() ** 2).mean())
+    rel = abs(float(energy) - e_want) / e_want
+    check(rel <= 1e-6, f"sharded {kind} energy {float(energy)} vs {e_want}")
+    return {"kernels": {k: v for k, v in n.items() if v}, "max_abs_err": 0,
+            "ms": ms, "unsharded_ms": plain, "energy_rel": rel,
+            "impl": fn.selected_impl}
+
+
+def sharded_streaming(mesh, dev, int_path: bool, steps: int = 4) -> dict:
+    """``streaming_sharded_fn`` over dp at the serving shape (S=4096 x
+    C=1024 int16, a reset of every third stream at step 2) against the
+    unsharded ``StreamingMFCC`` steps: mask and every carry ``torch.equal``,
+    features ``torch.equal`` (INT) or within KERNEL_TOL (float); each
+    rank's step one K4 launch (the counts, and ``torch.profiler``)."""
+    from mfcc_tpu_torch import MFCCConfig, StreamingMFCC
+    from mfcc_tpu_torch.parallel import (shard_rows, shard_state,
+                                         streaming_sharded_fn)
+    from mfcc_tpu_torch.parallel.mesh import axis_index, axis_size
+    kind = "INT" if int_path else "float"
+    sig = make_audio(S_SERVE, steps * C_SERVE, seed=8).astype(np.int16)
+    resets = np.zeros((steps, S_SERVE), bool)
+    resets[2, ::3] = True
+    step = streaming_sharded_fn(mesh, MFCCConfig(), int_path=int_path)
+    sm = StreamingMFCC(int_path=int_path)
+    state = shard_state(sm.init(S_SERVE), mesh)
+    chunks = [shard_rows(sig[:, k * C_SERVE:(k + 1) * C_SERVE], mesh)
+              for k in range(steps)]
+    zero_path_counts()
+    outs = []
+    for k in range(steps):
+        feats, mask, state = step(chunks[k], state,
+                                  shard_rows(resets[k], mesh))
+        outs.append((feats, mask, state))
+    torch.cuda.synchronize()
+    n = path_launches()
+    card_ops = device_ops(lambda: step(chunks[0], state))
+    dev_ms, issue_ms = time_dev_host(lambda: step(chunks[0], state))
+    d, dp = axis_index(mesh, "dp"), axis_size(mesh, "dp")
+    rows = slice(d * S_SERVE // dp, (d + 1) * S_SERVE // dp)
+    ref, err = sm.init(S_SERVE), 0 if int_path else 0.0
+    for k in range(steps):
+        chunk = torch.from_numpy(sig[:, k * C_SERVE:(k + 1) * C_SERVE]).to(dev)
+        rf, rm, ref = sm.step(chunk, ref, torch.from_numpy(resets[k]).to(dev))
+        feats, mask, st = outs[k]
+        where = f"sharded streaming {kind} step {k}"
+        compare_exact(mask, rm[rows], f"{where} mask")
+        for name, a, b in zip(st._fields, st, ref):
+            compare_exact(a, b[rows], f"{where} {name}")
+        if int_path:
+            compare_exact(feats, rf[rows], f"{where} features")
+        else:
+            e = compare(feats[mask], rf[rows][mask], f"{where} features")
+            check(e <= KERNEL_TOL, f"{where}: {e} > {KERNEL_TOL}")
+            err = max(err, e)
+    check(step.selected_impl == "fused-stream-kernel/dp", step.selected_impl)
+    check_launches(n, {f"K4-{kind}": steps}, f"sharded streaming {kind}")
+    check(len(card_ops) == 1 and "stream_" in card_ops[0],
+          f"a sharded {kind} step ran {card_ops[:8]} on the card, not K4's "
+          "kernel alone")
+    return {"kernels": {k: v for k, v in n.items() if v},
+            "max_abs_err": err, "ms": dev_ms, "issue_ms": issue_ms,
+            "card_ops": card_ops, "impl": step.selected_impl}
+
+
+def parallel_rank() -> dict:
+    """One rank of phase (b), two gloo ranks on one card: dp=2 batch, sp=2
+    halo and dp=2 streaming against the unsharded port; its readings."""
+    import torch.nn.functional as F
+    import torch.distributed as dist
+    from mfcc_tpu_torch import MFCC, MFCCConfig
+    from mfcc_tpu_torch.ops import float_ops, framing
+    from mfcc_tpu_torch.parallel import (gather, make_mesh, mfcc_halo_fn,
+                                         pad_for_halo, shard_streams)
+    from mfcc_tpu_torch.parallel import halo, mesh as meshlib
+    from mfcc_tpu_torch.ref import float_ref
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, fe = MFCCConfig(), MFCC()
+    sig = make_audio(S_MAIN, T_MAIN)
+    audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "staged": halo.staged(audio)}
+
+    dp2 = make_mesh(2, shape=(2, 1))
+    out["dp batch float"] = sharded_batch(dp2, audio, fe, False)
+    out["dp batch float hop 171"] = sharded_batch(
+        dp2, audio, MFCC(MFCCConfig(step=171)), False)
+    out["dp batch INT"] = sharded_batch(dp2, audio, fe, True)
+
+    # the sp halo on the headline audio, padded by pad_for_halo
+    sp2 = make_mesh(2, shape=(1, 2))
+    Tp = pad_for_halo(T_MAIN, sp2, cfg)
+    padded = F.pad(audio, (0, Tp - T_MAIN))
+    xs = shard_streams(padded, sp2)
+    ifn, ffn = mfcc_halo_fn(sp2, cfg, int_path=True), mfcc_halo_fn(sp2, cfg)
+    zero_path_counts()
+    iout = ifn(xs)
+    torch.cuda.synchronize()
+    n_int = path_launches()
+    zero_path_counts()
+    fout = ffn(xs)
+    torch.cuda.synchronize()
+    n_float = path_launches()
+    iout, fout_local = gather(iout, sp2), fout
+    fout = gather(fout_local, sp2)
+    emph = halo.emphasize(xs, sp2, cfg, False, torch.float32)
+    lead = emph[:, : cfg.nfft - cfg.hop].contiguous()
+    ex_ms = host_ms(lambda: halo.shift(lead, sp2, -1))
+    ims, fms = host_ms(lambda: ifn(xs)), host_ms(lambda: ffn(xs))
+    F_ = cfg.n_frames(Tp)
+    check(tuple(iout.shape) == (S_MAIN, Tp // cfg.hop, cfg.nceptrums),
+          f"halo shape {tuple(iout.shape)}")
+    check_launches(n_int, {"K3": 1}, "INT halo")
+    check_launches(n_float, {}, "float halo (the chain)")
+    compare_exact(iout[:, :F_], fe.int(padded), "INT halo vs MFCC().int")
+    # the exchange is exact: this rank's halo frames are the unsharded
+    # signal's frames on the same rows (zero-extended past the last
+    # shard), float and INT, and its float cepstra are the chain's on
+    # those rows bit for bit.  The last shard's last rows lie wholly in
+    # the zero padding: their cepstra are NaN (log2 0 = -inf through the
+    # DCT) in both, so the comparison holds NaN where the chain has NaN
+    j, rows = meshlib.axis_index(sp2, "sp"), Tp // 2 // cfg.hop
+
+    def unsharded_rows(emph):
+        emph = torch.cat([emph, emph.new_zeros(S_MAIN, cfg.nfft - cfg.hop)],
+                         dim=1)
+        return framing.extract_frames(emph, cfg.nfft, cfg.hop)[
+            :, j * rows:(j + 1) * rows].contiguous()
+
+    block = unsharded_rows(framing.preemphasis(padded.to(torch.float32)))
+    iblock = unsharded_rows(framing.preemphasis_int(padded.to(torch.int32)))
+    fr = halo.halo_frames(xs, sp2, cfg, int_path=False, dtype=torch.float32)
+    ifr = halo.halo_frames(xs, sp2, cfg, int_path=True, dtype=torch.int32)
+    compare_exact(fr, block, "float halo frames vs the unsharded frames")
+    compare_exact(ifr, iblock, "INT halo frames vs the unsharded frames")
+    nan_rows = compare_exact_nan(fout_local,
+                                 float_ops.mfcc_frames(block, cfg),
+                                 "float halo vs the chain on the same "
+                                 "frame rows")
+    err = compare(fout[:, :F_], float_ops.mfcc_batch(padded, cfg),
+                  "float halo vs the unsharded chain")
+    check(err <= HALO_TOL, f"float halo vs the unsharded chain: {err} > "
+          f"{HALO_TOL}")
+    spread = np.linspace(0, S_MAIN - 1, 8).astype(int)
+    psig = np.pad(sig, ((0, 0), (0, Tp - T_MAIN)))
+    oracle = np.stack([float_ref.mfcc_float(psig[i], cfg) for i in spread])
+    e_or = float(np.abs(fout[spread, :F_].cpu().numpy() - oracle).max())
+    check(e_or <= GATE, f"float halo vs the oracle: {e_or}")
+    out["sp halo INT"] = {"kernels": {"K3": 1}, "max_abs_err": 0,
+                          "ms": ims}
+    out["sp halo float"] = {"kernels": {}, "max_abs_err": 0,
+                            "chain_err": err, "nan_rows": nan_rows,
+                            "oracle_err": e_or, "ms": fms}
+    out["halo exchange ms"] = ex_ms
+
+    out["dp streaming float"] = sharded_streaming(dp2, dev, False)
+    out["dp streaming INT"] = sharded_streaming(dp2, dev, True)
+    return out
+
+
+def parallel_phases(dev, card: str) -> list[dict]:
+    """The sharded paths (``mfcc_tpu_torch/parallel``) on the card: (a)
+    world size 1 on NCCL in this process, (b) two gloo ranks sharing the
+    card, (c) ``dryrun_multichip(2)``; returns the "parallel" entries of
+    the kernels line (the kernels each path launched; no new kernel)."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from mfcc_tpu_torch import MFCC, MFCCConfig
+    from mfcc_tpu_torch.parallel import bootstrap, make_mesh
+    from mfcc_tpu_torch.parallel.dryrun import dryrun_multichip
+    entries = []
+
+    def entry(path, ranks, backend, res):
+        entries.append({"path": path, "ranks": ranks, "backend": backend,
+                        "kernels": res["kernels"],
+                        "max_abs_err": res["max_abs_err"], "ms": res["ms"]})
+
+    # (a) world size 1, NCCL, in this process
+    tmp = tempfile.mkdtemp(prefix="mfcc_group_")
+    bootstrap.init_group(0, 1, os.path.join(tmp, "store"), backend="nccl",
+                         device_type="cuda", timeout=300)
+    try:
+        mesh = make_mesh()
+        check(mesh.device_type == "cuda", f"mesh on {mesh.device_type}")
+        audio = torch.from_numpy(make_audio(S_MAIN, T_MAIN).astype(
+            np.int16)).to(dev)
+        odd = MFCCConfig(step=171)
+        for kind, fe, int_path in (("float", MFCC(), False),
+                                   ("INT", MFCC(), True),
+                                   ("float hop 171", MFCC(odd), False)):
+            res = sharded_batch(mesh, audio, fe, int_path)
+            made = "MFCC(MFCCConfig(step=171))" if fe.cfg == odd else "MFCC()"
+            print(f"parallel (a) NCCL world 1, mfcc_sharded_fn {kind} "
+                  f"({res['impl']}) on S={S_MAIN} x T={T_MAIN} int16: "
+                  f"launches {res['kernels']}, cepstra equal to "
+                  f"{made}{'.int' if int_path else ''}(audio), energy "
+                  f"{res['energy_rel']:.2e} relative off the unsharded "
+                  f"mean c0^2; {res['ms']:.4f} ms a call with the energy's "
+                  f"all-reduce beside {res['unsharded_ms']:.4f} ms for "
+                  f"{made} unsharded (wall, each call synchronized); "
+                  f"{card}")
+            entry(f"NCCL world 1 batch {kind}", 1, "nccl", res)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on the one card (the kernels are built: the
+    # ranks load mfcc_tpu_torch/_build and do not rebuild)
+    t0 = time.perf_counter()
+    ranks = bootstrap.run_in_group(parallel_rank, 2, backend="gloo",
+                                   device_type="cuda", timeout=600)
+    secs = time.perf_counter() - t0
+    check(all(r["staged"] for r in ranks), "gloo on CUDA tensors unstaged")
+    print(f"parallel (b) 2 gloo ranks on one card ({secs:.1f} s with the "
+          "spawn): the halo's send and receive of CUDA tensors staged "
+          "through pinned host memory (halo.shift; gloo takes the "
+          "all-reduce, all-gather and all-to-all on CUDA tensors); the "
+          "ranks contend for one H100, so these times are not a scaling "
+          f"figure; {card}")
+    for path in ("dp batch float", "dp batch float hop 171",
+                 "dp batch INT", "sp halo INT",
+                 "sp halo float", "dp streaming float", "dp streaming INT"):
+        res = [r[path] for r in ranks]
+        print(f"parallel (b) {path}: launches per rank "
+              f"{[r['kernels'] for r in res]}, max-abs vs unsharded "
+              f"{max(r['max_abs_err'] for r in res):.3e}"
+              + (f" on the same frame rows (the frames equal; NaN rows in "
+                 f"the zero padding per rank "
+                 f"{[r['nan_rows'] for r in res]}, NaN in the chain's "
+                 f"too), on the n_frames rows against the unsharded chain "
+                 f"{max(r['chain_err'] for r in res):.3e} (<= {HALO_TOL})"
+                 f", vs the oracle {max(r['oracle_err'] for r in res):.3e}"
+                 if "oracle_err" in res[0] else "")
+              + f"; ms per rank {[round(r['ms'], 4) for r in res]} (wall, "
+              "synchronized, with the collectives; streaming: CUDA events "
+              "around one call), contended"
+              + (f"; the whole batch unsharded on each rank "
+                 f"{[round(r['unsharded_ms'], 4) for r in res]}"
+                 if "unsharded_ms" in res[0] else ""))
+        entries.append({"path": f"2 ranks {path}", "ranks": 2,
+                        "backend": "gloo", "kernels": res[0]["kernels"],
+                        "max_abs_err": max(r["max_abs_err"] for r in res),
+                        "ms": [r["ms"] for r in res]})
+    print(f"parallel (b) sp halo exchange alone (one shift of nfft - hop "
+          f"emphasized samples a stream, staged): ms per rank "
+          f"{[round(r['halo exchange ms'], 4) for r in ranks]}, contended; "
+          f"{card}")
+
+    # (c) the dryrun of every sharded path on two ranks of the card
+    line = dryrun_multichip(2)
+    check(line.startswith("dryrun_multichip OK") and
+          "kernel-routed=kernel/all-ranks " in line, line)
     return entries
 
 
@@ -2429,6 +2797,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += serving_phases(dev, card)
     torch.cuda.empty_cache()
+    parallel = parallel_phases(dev, card)
+    torch.cuda.empty_cache()
     kernels += fast_phases(dev, card)
     torch.cuda.empty_cache()
     kernels += f64ish_phases(dev, card)
@@ -2436,7 +2806,7 @@ def main() -> int:
     kernels += legacy_phases(dev, card)
 
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,7 +34,18 @@ Ported so far:
     ``ops/dense_fused.py``; K9 (``int_fused.mfcc_int_v2``) on K2's
     kernel, K3-v1 (``mfcc_int_v1``) on K2's behind an int32 ingest, and K10
     (``mfcc_int_split2``), K2's function in two launches
-    (``csrc/int_split2.cu``).
+    (``csrc/int_split2.cu``);
+  * multi-rank sharding on ``torch.distributed`` (``parallel/``): dp over
+    streams and sp over time with an explicit halo exchange, each rank
+    running the kernels above on its block (sharded float through K1,
+    or K6 at an odd hop, INT through K2, the INT halo through K3,
+    streaming through K4); ``parallel.bootstrap.run_in_group`` starts the
+    ranks (on the card unless ``device_type="cpu"``; gloo on the CPU and
+    for ranks that share a card, NCCL one rank a card);
+  * the model family (``models/``: ``nn.Module`` feature extractors,
+    differentiable through the float chain), the debug taps
+    (``utils/debug.py``, ``MFCC.intermediates``), ``utils/vad.py``,
+    ``utils/liftering.py`` and ``compat/librosa_mfcc.py``.
 
 ``MFCC()``, ``StreamingMFCC()`` and ``FeatureServer()`` run on the CUDA
 card by default; ``device="cpu"`` runs the plain torch versions on the

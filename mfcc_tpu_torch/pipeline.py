@@ -45,6 +45,7 @@ from torch import nn
 from . import tables
 from .config import MFCCConfig
 from .ops import f64ish, fladder, float_fused, float_ops, int_fused, int_ops
+from .utils.debug import float_intermediates
 
 _STATE = ("window", "mel", "dct")    # the module's state_dict
 PRECISIONS = ("highest", "fast", "split", "f64ish")   # ported to the modules
@@ -302,3 +303,12 @@ class MFCC(nn.Module):
         if self._int_route == "fused":
             return int_fused.mfcc_int_fused_frames(x, self.cfg)
         return int_ops.mfcc_int_frames(x, self.cfg)
+
+    # -- debug / observability -------------------------------------------------
+
+    def intermediates(self, audio) -> dict:
+        """All stage outputs of the float path (the ``gen_collector`` debug
+        pattern, mfcc/core/mfcc.py:128-141, as a returned dict), on the
+        module's device; see ``utils.debug.float_intermediates``."""
+        return float_intermediates(self._as_input(audio), self.cfg,
+                                   dtype=self.dtype)

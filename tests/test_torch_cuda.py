@@ -1150,3 +1150,174 @@ def test_engine_refusal_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         sm.step(x[:, :1024].contiguous(), state)
     assert (dict(dense_fused.LAUNCHES), dict(float_fused.LAUNCHES)) == before
+
+
+# -- parallel/ on the card: world size 1 on NCCL, the models ----------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one NCCL rank on card 0 in this process, and its mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+    from mfcc_tpu_torch.parallel import bootstrap, make_mesh
+    store = tmp_path_factory.mktemp("group") / "store"
+    bootstrap.init_group(0, 1, str(store), timeout=120)    # NCCL, the card
+    assert dist.get_backend() == "nccl"
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("int_path", [False, True], ids=["float", "int"])
+def test_sharded_batch_nccl_world_one(dev, nccl_mesh, int_path):
+    """The kernel route at world size 1 on NCCL: one K1 / K2 launch, the
+    cepstra those of the unsharded module bit for bit, the energy (an
+    all-reduce on the card) within 1e-6 of the unsharded mean c0^2."""
+    from mfcc_tpu_torch.parallel import gather, mfcc_sharded_fn, shard_streams
+    cfg = MFCCConfig()
+    audio = torch.from_numpy(_tonal(8, 16000, seed=21).astype(
+        np.int16)).to(dev)
+    fn = mfcc_sharded_fn(nccl_mesh, cfg, int_path=int_path)
+    assert fn.selected_impl == "kernel/all-ranks"
+    counts = (fladder.LAUNCHES, dict(int_fused.LAUNCHES))
+    cep, energy = fn(shard_streams(audio, nccl_mesh))
+    torch.cuda.synchronize()
+    if int_path:
+        assert int_fused.LAUNCHES["K2"] == counts[1]["K2"] + 1
+        want = MFCC().int(audio)
+    else:
+        assert fladder.LAUNCHES == counts[0] + 1
+        want = MFCC()(audio)
+    assert torch.equal(gather(cep, nccl_mesh, fn.layout), want)
+    e_want = float((want[..., 0].float() ** 2).mean())
+    assert energy.device == dev
+    assert abs(float(energy) - e_want) <= 1e-6 * e_want
+
+
+@pytest.mark.parametrize("int_path", [False, True], ids=["float", "int"])
+def test_sharded_streaming_nccl_world_one(dev, nccl_mesh, int_path):
+    """Sharded streaming at world size 1: one K4 launch a full-chunk step,
+    the mask, features and every carry those of ``StreamingMFCC``; a flush
+    step takes the chain."""
+    from mfcc_tpu_torch.parallel import (shard_rows, shard_state,
+                                         streaming_sharded_fn)
+    S, C = 130, 1024
+    sig = _tonal(S, 5 * C, seed=22).astype(np.int16)
+    step = streaming_sharded_fn(nccl_mesh, MFCCConfig(), int_path=int_path)
+    assert step.selected_impl == "fused-stream-kernel/dp"
+    sm = StreamingMFCC(int_path=int_path)
+    state, ref = shard_state(sm.init(S), nccl_mesh), sm.init(S)
+    key = "K4-INT" if int_path else "K4-float"
+    for k in range(4):
+        chunk = torch.from_numpy(sig[:, k * C:(k + 1) * C]).to(dev)
+        reset = torch.from_numpy(np.arange(S) % 3 == k % 3).to(dev)
+        before = stream_fused.LAUNCHES[key]
+        feats, mask, state = step(shard_rows(chunk, nccl_mesh), state, reset)
+        assert stream_fused.LAUNCHES[key] == before + 1
+        rf, rm, ref = sm.step(chunk, ref, reset)
+        assert torch.equal(mask, rm) and torch.equal(feats[rm], rf[rm])
+        for a, b in zip(state, ref):
+            assert torch.equal(a, b)
+    tail = torch.from_numpy(sig[:, 4 * C:]).to(dev)
+    lengths = torch.full((S,), 300, dtype=torch.int32, device=dev)
+    feats, mask, state = step(tail, state, None, lengths)
+    rf, rm, ref = sm.step(tail, ref, None, lengths)
+    assert torch.equal(mask, rm) and torch.equal(feats[rm], rf[rm])
+
+
+def test_sharded_halo_nccl_world_one(dev, nccl_mesh):
+    """The INT halo launches K3 once and equals ``MFCC().int`` on the
+    padded signal; the float halo is the chain on the same frame rows (the
+    zero-extended signal's T/hop rows) bit for bit, NaN where the chain
+    is NaN (a row wholly in the zero padding: log2 0 = -inf through the
+    DCT; ``torch.equal`` is false on any NaN), and within GATE of the
+    oracle.  (Against the chain on the n_frames rows alone it reads up to
+    2e-4 on the card: cuBLAS sums a block of other rows in another order,
+    and log2 amplifies that in quiet mel bands.)"""
+    from mfcc_tpu_torch.parallel import (mfcc_halo_fn, pad_for_halo,
+                                         shard_streams)
+    cfg = MFCCConfig()
+    T = 16000
+    Tp = pad_for_halo(T, nccl_mesh, cfg)
+    audio = torch.from_numpy(np.pad(_tonal(4, T, seed=23), (
+        (0, 0), (0, Tp - T))).astype(np.int16)).to(dev)
+    x = shard_streams(audio, nccl_mesh)
+    before = int_fused.LAUNCHES["K3"]
+    out = mfcc_halo_fn(nccl_mesh, cfg, int_path=True)(x)
+    assert int_fused.LAUNCHES["K3"] == before + 1
+    F = cfg.n_frames(Tp)
+    assert out.shape == (4, Tp // cfg.hop, 32)
+    assert torch.equal(out[:, :F], MFCC().int(audio))
+    fout = mfcc_halo_fn(nccl_mesh, cfg)(x)
+    emph = framing.preemphasis(audio.to(torch.float32))
+    emph = torch.cat([emph, emph.new_zeros(4, cfg.nfft - cfg.hop)], dim=1)
+    frames = framing.extract_frames(emph, cfg.nfft, cfg.hop)
+    want = float_ops.mfcc_frames(frames[:, : Tp // cfg.hop].contiguous(),
+                                 cfg)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(fout), nan)
+    assert torch.equal(fout[~nan], want[~nan])
+    for s in range(4):
+        want = float_ref.mfcc_float(audio[s].cpu().numpy(), cfg)
+        assert np.abs(fout[s, :F].cpu().numpy() - want).max() <= GATE
+
+
+def test_sharded_auto_routing_on_card(dev, nccl_mesh):
+    """"auto" takes the kernels on the card (the JAX package's Mosaic
+    route on a TPU): an odd hop K6 once, bit for bit
+    ``MFCC(MFCCConfig(step=171))``; the chain for a config outside the
+    family."""
+    from mfcc_tpu_torch.parallel import (gather, mfcc_sharded_fn,
+                                         shard_streams, streaming_sharded_fn)
+    assert mfcc_sharded_fn(nccl_mesh).selected_impl == "kernel/all-ranks"
+    assert mfcc_sharded_fn(nccl_mesh, int_path=True).selected_impl == \
+        "kernel/all-ranks"
+    odd = MFCCConfig(step=171)
+    fn = mfcc_sharded_fn(nccl_mesh, odd)
+    assert fn.selected_impl == "kernel/all-ranks"
+    audio = torch.from_numpy(_tonal(8, 16000, seed=26).astype(
+        np.int16)).to(dev)
+    before = (fladder.LAUNCHES, float_fused.LAUNCHES["K6"])
+    cep, _ = fn(shard_streams(audio, nccl_mesh))
+    torch.cuda.synchronize()
+    assert (fladder.LAUNCHES, float_fused.LAUNCHES["K6"]) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(gather(cep, nccl_mesh, fn.layout), MFCC(odd)(audio))
+    assert mfcc_sharded_fn(nccl_mesh, MFCCConfig(
+        step=160, window_samples=400)).selected_impl == "chain/dp-sp"
+    assert mfcc_sharded_fn(nccl_mesh, use_kernels=False).selected_impl == \
+        "chain/dp-sp"
+    assert streaming_sharded_fn(nccl_mesh, use_kernels=False).selected_impl \
+        == "chain-step/dp"
+
+
+def test_int_features_model_on_card(dev):
+    """``IntMFCCFeatures()`` lands on the card and runs K2: equal to the
+    RTL oracle."""
+    from mfcc_tpu_torch.models import IntMFCCFeatures
+    sig = _tonal(3, 4000, seed=24).astype(np.int16)
+    model = IntMFCCFeatures()
+    assert model.mfcc.window.device.type == "cuda"
+    before = int_fused.LAUNCHES["K2"]
+    got = model(torch.from_numpy(sig).to(dev))
+    assert int_fused.LAUNCHES["K2"] == before + 1
+    for s in range(3):
+        assert np.array_equal(got[s].cpu().numpy(), int_ref.mfcc_int(
+            sig[s].astype(np.int64)))
+
+
+def test_float_models_on_card(dev):
+    """The float models on the card: within 1e-4 of the CPU's (two f32
+    DFT-matmul chains, cuBLAS's sums against the CPU's, the bound the CPU
+    tests hold the port and JAX to), and gradients to the audio, finite."""
+    from mfcc_tpu_torch.models import MFCCFeatures, LogMelSpectrogram
+    sig = _tonal(2, 4000, seed=25).astype(np.float32)
+    for cls in (MFCCFeatures, LogMelSpectrogram):
+        x = torch.from_numpy(sig).to(dev).requires_grad_(True)
+        out = cls(mel_floor=1e-6)(x)
+        want = cls(mel_floor=1e-6, device="cpu")(torch.from_numpy(sig))
+        assert (out.detach().cpu() - want).abs().max() <= 1e-4
+        (g,) = torch.autograd.grad(out.sum(), x)
+        assert torch.isfinite(g).all() and g.abs().max() > 0

@@ -239,7 +239,9 @@ def test_import_leaves_jax_out():
                 "mfcc_tpu_torch.ops.stream_fused, "
                 "mfcc_tpu_torch.ops.float_fused, "
                 "mfcc_tpu_torch.ops.f64ish, mfcc_tpu_torch.ops.dense_fused, "
-                "mfcc_tpu_torch.ops.warp_tails; "
+                "mfcc_tpu_torch.ops.warp_tails, mfcc_tpu_torch.parallel, "
+                "mfcc_tpu_torch.parallel.dryrun, mfcc_tpu_torch.models, "
+                "mfcc_tpu_torch.utils, mfcc_tpu_torch.compat; "
                 "bad = sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'mfcc_tpu.')) "
                 "or m == 'mfcc_tpu'); print(bad); sys.exit(1 if bad else 0)"],
