@@ -1,6 +1,7 @@
 """Drive the torch port's float and INT batch paths, its serving path, its
-sharded paths, its fast and odd-hop float routes and its f64ish and split
-precisions on one CUDA card and check them.
+sharded paths, its fast and odd-hop float routes, its f64ish and split
+precisions, and its command line and examples on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -154,7 +155,33 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      two processes contending for one card; (c)
      ``dryrun_multichip(2)`` on the card.  The kernels line gains a
      "parallel" list: each path, the kernels it launched and their
-     max-abs difference from the unsharded port.
+     max-abs difference from the unsharded port;
+ 10. the command line and examples (run last, in a temporary directory,
+     each command through ``mfcc_tpu_torch.cli.main`` in this process):
+     (a) ``convert`` of 1,024 synthetic int16 wavs of 4 s in one batch,
+     INT (one K2 launch, every file equal to ``MFCC().int`` on the same
+     rows, 8 spread files to ``int_ref``) and ``--float`` (one K1 launch,
+     within 1 of the rounded ``MFCC()``), with the wall seconds of reading,
+     computing and writing; (b) ``stream`` of 64 s with soft resets at two
+     sample positions off the chunk grid and a partial last chunk, INT and
+     ``--float`` (one K4 launch a full chunk, one K3 an INT flush; INT bytes
+     equal to ``--backend cpu``'s and to ``int_ref`` per reset epoch, float
+     within 1), ms a chunk; (c) ``mic`` with a fake capture command, equal
+     to ``int_ref``; (d) ``selftest`` with its card-against-plain checks;
+     (e) ``serve`` under load: the command in a thread, 1,024 loopback
+     clients of ``examples.server_loadtest.run_clients`` in a spawned
+     process for 8 s, INT and ``--float`` (``RLIMIT_NOFILE`` raised to its
+     hard limit first), 16 spread clients' frames a prefix of the oracle's
+     on the signal each sent, frames/s, real-time streams, latency and the
+     server's stats; (f) ``probe``, float and ``--int``, against the same
+     command under ``--backend cpu``; (g) ``python -m
+     mfcc_tpu_torch.examples.<name>`` for quickstart, int_walkthrough and
+     serving_demo in subprocesses, each rc 0; (h) ``MFCC(precision=p)`` for
+     "high", "default" and "bf16" on the headline input (finite, the limb
+     products equal to the CPU's within 1e-6, the chain near the CPU's
+     limb chain, the oracle distance printed, not gated, and the time).
+     The kernels line gains a "cli" list: each command, the kernels it
+     launched with their counts and its distance from its reference.
 
 Times are CUDA events, median of 10 after warm-up.  Each main path
 (``MFCC()(audio)``, ``MFCC().int(audio)``, ``MFCC().int_frames(frames)``,
@@ -163,9 +190,9 @@ Times are CUDA events, median of 10 after warm-up.  Each main path
 ``frames``, ``MFCC(MFCCConfig(step=171))(audio)``,
 ``StreamingMFCC(precision="fast").process``, ``MFCC(precision="f64ish")``
 and its ``frames``, ``StreamingMFCC(precision="f64ish").process``, and
-each entry of phase 8 on the headline input, and each sharded path of
-phase 9 on each rank) is driven with every launch count set to 0 just
-before and read just after.  Any failed check raises, so the exit code is
+each entry of phase 8 on the headline input, each sharded path of phase 9
+on each rank, and each command of phase 10) is driven with every launch
+count set to 0 just before and read just after.  Any failed check raises, so the exit code is
 not 0.  Without a CUDA card it exits with an error before printing
 anything else.  The line before the
 last is a JSON summary of the kernels (with each one's bound: the larger
@@ -2643,6 +2670,605 @@ def legacy_phases(dev, card: str) -> list[dict]:
     ]
 
 
+# -- phase 10: the command line and examples --------------------------------
+
+CLI_KERNELS = ("K1", "K2", "K3", "K4-float", "K4-INT", "K6")
+STREAM_RESETS = (300_001, 700_123)   # not chunk-aligned sample positions
+N_CLIENTS = 1024                     # serve: loopback clients under load
+# (h): the limb chain on the card may sit this share of its distance from
+# the f32 chain away from the same limb chain on the CPU
+LIMB_SHARE = 0.01
+SERVE_SECONDS = 8.0
+
+
+def cli_launches() -> dict:
+    """The launch counts of the kernels the command line can reach, those
+    that launched at all."""
+    return {k: v for k, v in path_launches().items() if v}
+
+
+def run_cli(argv, what: str) -> tuple[str, float]:
+    """``mfcc_tpu_torch.cli.main(argv)`` in this process, every launch count
+    set to 0 just before; its standard output and wall seconds.  Fails
+    unless it returns 0."""
+    from mfcc_tpu_torch import cli
+    buf = io.StringIO()
+    zero_path_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{what}: returned {rc}")
+    return buf.getvalue(), secs
+
+
+def cli_entry(command: str, launches: dict, err, reference: str,
+              **extra) -> dict:
+    """One entry of the kernels line's "cli" list."""
+    return dict(command=command, kernels=launches, max_abs_err=err,
+                reference=reference, **extra)
+
+
+@contextlib.contextmanager
+def convert_timers(times: dict):
+    """Time ``convert``'s reading (``io.wav.read_batch``) and computing
+    (``MFCC.forward`` / ``MFCC.int``, the card synchronized around them)
+    inside the command, in ``times``."""
+    from mfcc_tpu_torch import MFCC
+    from mfcc_tpu_torch.io import wav as wavmod
+    orig = (wavmod.read_batch, MFCC.forward, MFCC.int)
+
+    def timed(fn, key, sync):
+        def wrapper(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    wavmod.read_batch = timed(orig[0], "read", False)
+    MFCC.forward = timed(orig[1], "compute", True)
+    MFCC.int = timed(orig[2], "compute", True)
+    try:
+        yield
+    finally:
+        wavmod.read_batch, MFCC.forward, MFCC.int = orig
+
+
+def cli_convert(dev, tmp: str) -> list[dict]:
+    """(a) ``convert`` of S_MAIN wavs of 4 s in one batch: one K2 (INT) or
+    K1 (--float) launch; every file against ``MFCC()`` on the same rows, 8
+    spread files against ``int_ref``."""
+    import os
+    from scipy.io import wavfile
+    from mfcc_tpu_torch import MFCC, MFCCConfig
+    from mfcc_tpu_torch.ref import int_ref
+
+    cfg = MFCCConfig()
+    sig = make_audio(S_MAIN, T_MAIN, seed=10).astype(np.int16)
+    d = os.path.join(tmp, "wavs")
+    os.makedirs(d)
+    paths = [os.path.join(d, f"{i:04d}.wav") for i in range(S_MAIN)]
+    for p, s_ in zip(paths, sig):
+        wavfile.write(p, cfg.samplerate, s_)
+    fe = MFCC()
+    audio = torch.from_numpy(sig).to(dev)
+    nf = cfg.n_frames(T_MAIN)
+    spread = np.linspace(0, S_MAIN - 1, 8).astype(int)
+    entries = []
+    for as_float in (False, True):
+        kind = "--float" if as_float else "INT"
+        argv = ["convert", d, "--batch", str(S_MAIN)]
+        argv += ["--float"] if as_float else []
+        times = {}
+        with convert_timers(times):
+            out, secs = run_cli(argv, f"convert {kind}")
+        n = cli_launches()
+        want_n = {"K1": 1} if as_float else {"K2": 1}
+        check(n == want_n, f"convert {kind}: launches {n}, expected {want_n}")
+        check(out.count(f"({nf} frames)") == S_MAIN,
+              f"convert {kind}: {out.count(chr(10))} lines")
+        got = np.stack([np.fromfile(p[:-4] + ".mfcc", np.int16) for p in paths]
+                       ).reshape(S_MAIN, nf, cfg.nceptrums)
+        if as_float:
+            ref = np.clip(np.round(fe(audio).cpu().numpy()), -32768, 32767)
+            err = int(np.abs(got.astype(np.int64) - ref.astype(np.int64)).max())
+            check(err <= 1, f"convert --float: {err} int16 steps from "
+                  "round(MFCC())")
+            reference = "round(MFCC()(audio)) on the same rows, within 1"
+        else:
+            ref = fe.int(audio).cpu().numpy().astype(np.int16)
+            err = int(np.abs(got.astype(np.int64) - ref).max())
+            check(np.array_equal(got, ref), f"convert INT: files differ "
+                  f"from MFCC().int by up to {err}")
+            for i in spread:
+                check(np.array_equal(got[i], int_ref.mfcc_int(
+                    sig[i].astype(np.int64), cfg).astype(np.int16)),
+                      f"convert INT: file {i} vs int_ref")
+            reference = ("MFCC().int on the same rows, equal; 8 spread files "
+                         "equal to int_ref")
+        write = secs - times["read"] - times["compute"]
+        print(f"phase 10 (a) convert {kind}: {S_MAIN} wavs x {T_MAIN} samples "
+              f"in one batch, launches {n}; max-abs vs {reference}: {err}; "
+              f"wall {secs:.3f} s = read {times['read']:.3f} s + compute "
+              f"{times['compute']:.3f} s + write (with the copies to and "
+              f"from the card) {write:.3f} s")
+        entries.append(cli_entry(
+            "convert" + (" --float" if as_float else ""), n, err, reference,
+            wall_s=secs, read_s=times["read"], compute_s=times["compute"],
+            write_s=write))
+    return entries
+
+
+def stream_words(sig: np.ndarray) -> bytes:
+    """The sample words of ``sig`` with a soft reset before each sample of
+    STREAM_RESETS."""
+    from mfcc_tpu_torch.io import transport
+    cuts = (0,) + STREAM_RESETS + (len(sig),)
+    return np.concatenate([
+        transport.encode_stream(sig[a:b], reset_first=a > 0)
+        for a, b in zip(cuts, cuts[1:])]).astype("<u4").tobytes()
+
+
+def cli_stream(dev, tmp: str) -> list[dict]:
+    """(b) ``stream`` of one 64 s stream with two soft resets and a partial
+    last chunk, INT and --float: one K4 launch a full chunk, one K3 an INT
+    flush; INT bytes equal to ``--backend cpu``'s and to ``int_ref`` per
+    reset epoch, float within 1 of ``--backend cpu``'s."""
+    import os
+    from mfcc_tpu_torch import MFCCConfig
+    from mfcc_tpu_torch.io import transport
+    from mfcc_tpu_torch.ref import int_ref
+
+    C = 1024
+    cfg = MFCCConfig(nceptrums=16)
+    sig = make_audio(1, 64 * 16000, seed=11)[0].astype(np.int16)
+    src = os.path.join(tmp, "words.bin")
+    with open(src, "wb") as f:
+        f.write(stream_words(sig))
+    cuts = (0,) + STREAM_RESETS + (len(sig),)
+    epochs = [sig[a:b] for a, b in zip(cuts, cuts[1:])]
+    full = sum(len(e) // C for e in epochs)
+    flushes = sum(1 for e in epochs if len(e) % C)
+    n_chunks = full + flushes
+    entries = []
+    for as_float in (False, True):
+        kind = "--float" if as_float else "INT"
+        flag = ["--float"] if as_float else []
+        dst, cdst = os.path.join(tmp, "card.bin"), os.path.join(tmp, "cpu.bin")
+        _, secs = run_cli(["stream", src, dst, *flag], f"stream {kind}")
+        n = cli_launches()
+        want_n = ({"K4-float": full} if as_float
+                  else {"K4-INT": full, "K3": flushes})
+        check(n == want_n, f"stream {kind}: launches {n}, expected {want_n}")
+        _, cpu_secs = run_cli(["stream", src, cdst, *flag, "--backend",
+                               "cpu"], f"stream {kind} --backend cpu")
+        check(not cli_launches(), "stream --backend cpu launched a kernel")
+        got, _ = transport.decode_frames(open(dst, "rb").read(), 16)
+        want, _ = transport.decode_frames(open(cdst, "rb").read(), 16)
+        check(got.shape == want.shape, f"stream {kind}: {got.shape} vs "
+              f"{want.shape} frames")
+        err = int(np.abs(got.astype(np.int64) - want).max())
+        if as_float:
+            check(err <= 1, f"stream --float: {err} from --backend cpu")
+            reference = "the same command under --backend cpu, within 1"
+        else:
+            check(open(dst, "rb").read() == open(cdst, "rb").read(),
+                  "stream INT: bytes differ from --backend cpu")
+            oracle = np.concatenate([int_ref.mfcc_int(e.astype(np.int64), cfg)
+                                     for e in epochs]).astype(np.int16)
+            check(np.array_equal(got, oracle), "stream INT vs int_ref per "
+                  "reset epoch")
+            reference = ("the same command under --backend cpu byte for byte; "
+                         "int_ref per reset epoch")
+        ms = secs * 1e3 / n_chunks
+        print(f"phase 10 (b) stream {kind}: {len(sig)} samples, resets at "
+              f"{STREAM_RESETS}, {n_chunks} chunks of {C} ({full} full, "
+              f"{flushes} flushed), {len(got)} frames, launches {n}; max-abs "
+              f"vs {reference}: {err}; {ms:.4f} ms a chunk on the card "
+              f"(wall {secs:.3f} s, file to file) against the chunk's "
+              f"{1e3 * C / 16000:.0f} ms of audio; --backend cpu "
+              f"{cpu_secs * 1e3 / n_chunks:.4f} ms a chunk")
+        entries.append(cli_entry(
+            "stream" + (" --float" if as_float else ""), n, err, reference,
+            ms_per_chunk=ms, cpu_ms_per_chunk=cpu_secs * 1e3 / n_chunks))
+    return entries
+
+
+def cli_mic(dev, tmp: str) -> dict:
+    """(c) ``mic`` with a fake capture command (a script that cats raw
+    PCM): INT equal to ``int_ref``, the flushed last chunk included."""
+    import os
+    from mfcc_tpu_torch import MFCCConfig
+    from mfcc_tpu_torch.io import transport
+    from mfcc_tpu_torch.ref import int_ref
+
+    cfg = MFCCConfig(nceptrums=16)
+    sig = make_audio(1, 10 * 16000 + 123, seed=12)[0].astype(np.int16)
+    pcm, script = os.path.join(tmp, "mic.pcm"), os.path.join(tmp, "mic.sh")
+    with open(pcm, "wb") as f:
+        f.write(sig.astype("<i2").tobytes())
+    with open(script, "w") as f:
+        f.write(f"#!/bin/sh\ncat {pcm}\n")
+    os.chmod(script, 0o755)
+    dst = os.path.join(tmp, "mic.bin")
+    err_buf = io.StringIO()
+    with contextlib.redirect_stderr(err_buf):
+        _, secs = run_cli(["mic", dst, "--command", script], "mic")
+    n = cli_launches()
+    want_n = {"K4-INT": len(sig) // 1024, "K3": 1}
+    check(n == want_n, f"mic: launches {n}, expected {want_n}")
+    check(f"captured {len(sig)} samples" in err_buf.getvalue(),
+          f"mic: {err_buf.getvalue()!r}")
+    got, _ = transport.decode_frames(open(dst, "rb").read(), 16)
+    want = int_ref.mfcc_int(sig.astype(np.int64), cfg).astype(np.int16)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"mic: {got.shape} frames vs int_ref's {want.shape}")
+    print(f"phase 10 (c) mic --command (a fake device, {len(sig)} samples): "
+          f"{len(got)} frames equal to int_ref, the flushed last chunk "
+          f"included; launches {n}; wall {secs:.3f} s")
+    return cli_entry("mic --command", n, 0, "int_ref, equal")
+
+
+def cli_selftest(dev) -> dict:
+    """(d) ``selftest`` on the card: SELFTEST PASS, with its K1 and K2
+    checks against their plain versions on the CPU."""
+    out, secs = run_cli(["selftest"], "selftest")
+    n = cli_launches()
+    lines = out.strip().splitlines()
+    check(lines[-1] == "SELFTEST PASS", f"selftest: {lines[-1]!r}")
+    check(sum(1 for ln in lines if "kernel" in ln and "PASS" in ln) == 2,
+          f"selftest: the card's kernel checks missing: {lines}")
+    check(n == {"K1": 1, "K2": 1, "K4-INT": 12},
+          f"selftest: launches {n}")
+    for ln in lines:
+        print(f"phase 10 (d) selftest: {ln}")
+    print(f"phase 10 (d) selftest: launches {n}, wall {secs:.3f} s")
+    return cli_entry("selftest", n, 0, "its own checks: SELFTEST PASS")
+
+
+def raise_nofile(n_clients: int) -> int:
+    """Raise RLIMIT_NOFILE's soft limit to its hard limit; returns the
+    number of clients it holds (2 descriptors a client, one on each side of
+    the loopback, and 64 more), the largest power of two if fewer than
+    asked, and prints it beside the limit."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    new = hard if hard != resource.RLIM_INFINITY else max(soft, 1 << 20)
+    resource.setrlimit(resource.RLIMIT_NOFILE, (new, hard))
+    n = n_clients
+    while 2 * n + 64 > new:
+        n //= 2
+    print(f"phase 10 (e) RLIMIT_NOFILE soft {soft} -> {new} (hard {hard}): "
+          f"{n} clients" + ("" if n == n_clients else
+                            f", not {n_clients}: the limit holds no more"))
+    return n
+
+
+def cli_serve(dev) -> list[dict]:
+    """(e) ``serve`` under load: the command in a thread, driven by
+    ``examples.server_loadtest.run_clients`` in a spawned process:
+    N_CLIENTS loopback clients for SERVE_SECONDS, INT and --float; 16
+    spread clients' features against the oracle on the signal each sent
+    (the frames a client got are a prefix of it)."""
+    import multiprocessing as mp
+    from mfcc_tpu_torch import MFCCConfig
+    from mfcc_tpu_torch.examples import server_loadtest
+
+    C = 1024
+    cfg = MFCCConfig()
+    n_clients = raise_nofile(N_CLIENTS)
+    chunk_sig = server_loadtest.client_signal(C)
+    # the clients in a process of their own, so that the server's host loop
+    # has this process's interpreter to itself; started, and its imports
+    # done, before the server, so that the clients connect as soon as it
+    # serves and not seconds into its --duration
+    with mp.get_context("spawn").Pool(1) as pool:
+        pool.apply(server_loadtest.client_signal, (C,))
+        return [cli_serve_one(pool, as_float, n_clients, C, chunk_sig, cfg)
+                for as_float in (False, True)]
+
+
+def cli_serve_one(pool, as_float: bool, n_clients: int, C: int,
+                  chunk_sig: np.ndarray, cfg) -> dict:
+    """One ``serve`` run of (e), INT or --float, its clients driven by
+    ``pool``; returns its "cli" entry."""
+    from mfcc_tpu_torch.examples import server_loadtest
+    from mfcc_tpu_torch.io import transport
+    from mfcc_tpu_torch.ref import float_ref, int_ref
+    kind = "--float" if as_float else "INT"
+    buf = io.StringIO()
+    rc = {}
+    argv = ["serve", "--port", "0", "--streams", str(n_clients),
+            "--chunk", str(C), "--duration", str(SERVE_SECONDS + 10),
+            "--stats-every", "1"] + (["--float"] if as_float else [])
+
+    def serve():
+        from mfcc_tpu_torch import cli
+        try:
+            rc["rc"] = cli.main(argv)
+        except BaseException as e:     # raised in the main thread
+            rc["error"] = repr(e)
+
+    zero_path_counts()
+    with contextlib.redirect_stdout(buf):
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        port = None
+        deadline = time.time() + 120
+        while port is None and time.time() < deadline and th.is_alive():
+            m = re.search(r"^serving on [\d.]+:(\d+)$", buf.getvalue(),
+                          re.M)
+            port = int(m.group(1)) if m else None
+            time.sleep(0.05)
+        check(port is not None, f"serve {kind}: no port "
+              f"({buf.getvalue()!r}, {rc})")
+        t_port = time.perf_counter()
+        run = pool.apply(server_loadtest.run_clients, (
+            "127.0.0.1", port, n_clients, C, SERVE_SECONDS,
+            cfg.nceptrums))
+        t_run = time.perf_counter() - t_port
+        th.join(timeout=60)
+    lines = buf.getvalue().splitlines()
+    print(f"phase 10 (e) serve {kind}: " + " | ".join(
+        lines[:2] + lines[-3:]) + f" ({len(lines)} lines); the clients "
+        f"connected in {run['connect_s']:.3f} s, sent "
+        f"{sum(run['sent'])} bytes and got "
+        f"{sum(len(r) for r in run['received'])} back in "
+        f"{run['elapsed']:.3f} s under load, {t_run:.3f} s from the "
+        f"server's port to their last byte")
+    check(not th.is_alive() and rc.get("rc") == 0,
+          f"serve {kind}: {rc}, alive {th.is_alive()}")
+    n = cli_launches()
+    k4 = "K4-float" if as_float else "K4-INT"
+    check(n.get(k4, 0) >= 1, f"serve {kind}: launches {n}")
+    stats = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("slots_seen=")]
+    check(bool(stats), f"serve {kind}: no stats line")
+    summary = server_loadtest.summarize(run, n_clients, cfg.nceptrums)
+    # every client sends the same chunk over and over: one oracle on the
+    # longest stream, whose frames each client's stream shares
+    longest = np.resize(chunk_sig, max(run["sent"]) // 4)
+    if as_float:         # the server's mel floor of 1.0 before log2
+        import scipy.fft
+        _, taps = float_ref.mfcc_float(longest, cfg,
+                                       return_intermediates=True)
+        cep = scipy.fft.dct(np.log2(np.maximum(taps["mel"], 1.0)),
+                            type=2, norm="ortho", axis=-1)
+        oracle = np.clip(np.round(cep[:, :cfg.nceptrums]), -32768,
+                         32767).astype(np.int64)
+    else:
+        oracle = int_ref.mfcc_int(longest.astype(np.int64), cfg)
+    # a server behind its load still holds a client's last chunks when
+    # the command's duration ends: each client's frames are a prefix
+    err, got_frames, sent_frames = 0, 0, 0
+    for k in np.linspace(0, n_clients - 1, 16).astype(int):
+        cols, _ = transport.decode_frames(run["received"][k],
+                                          cfg.nceptrums)
+        nf = cfg.n_frames(run["sent"][k] // 4)
+        got_frames, sent_frames = got_frames + len(cols), sent_frames + nf
+        check(0 < len(cols) <= nf, f"serve {kind} client {k}: "
+              f"{len(cols)} frames, {nf} sent")
+        e = int(np.abs(cols.astype(np.int64)
+                       - oracle[:len(cols)]).max())
+        err = max(err, e)
+        check(e <= (1 if as_float else 0),
+              f"serve {kind} client {k}: {e} from the oracle")
+    reference = ("round(float_ref with the mel floor of 1) on the "
+                 "signal each sent, within 1" if as_float
+                 else "int_ref on the signal each sent, equal")
+    every = np.array([len(r) for r in run["received"]]) // (
+        2 + 2 * cfg.nceptrums)
+    print(f"phase 10 (e) serve {kind}: {n_clients} loopback clients, "
+          f"chunk {C}, {run['elapsed']:.3f} s under load: "
+          f"{summary['fps']:.1f} frames/s = {summary['rt_streams']:.1f} "
+          f"real-time streams ({100 * summary['rt_share']:.1f}% of the "
+          f"offered load; sender missed {summary['missed']} periods); "
+          f"latency p50 {summary['p50_ms']:.1f} ms p99 "
+          f"{summary['p99_ms']:.1f} ms; launches {n}; last stats line: "
+          f"{stats[-1]}; 16 spread clients got {got_frames} of the "
+          f"{sent_frames} frames they sent, vs {reference}: max-abs {err}; "
+          f"frames a client, over all {n_clients}: min {every.min()} median "
+          f"{np.median(every):.0f} max {every.max()}")
+    return cli_entry(
+        "serve" + (" --float" if as_float else ""), n, err, reference,
+        clients=n_clients, frames_per_s=summary["fps"],
+        realtime_streams=summary["rt_streams"],
+        p50_ms=summary["p50_ms"], p99_ms=summary["p99_ms"],
+        stats=stats[-1], spread_frames=[got_frames, sent_frames])
+
+
+def cli_probe(dev, tmp: str) -> list[dict]:
+    """(f) ``probe`` on a 4 s wav, float and --int, on the card against the
+    same command under ``--backend cpu``: INT stages equal; float stages
+    within GATE, the linear ones (up to the filterbank) relative to their
+    largest value.  The log stage is held as 2^log, relative to the largest
+    mel value: the mel bands of this input span 9.5 decades, and an f32
+    FFT's rounding in the quietest moves their log2 by up to 5.1e-4 from
+    the float64 taps on the CPU alone (1.0e-3 between the card's FFT and
+    the CPU's), more than GATE in the log domain; the DCT and cepstra are
+    held absolute."""
+    import os
+    from scipy.io import wavfile
+    wav = os.path.join(tmp, "probe.wav")
+    wavfile.write(wav, 16000, make_audio(1, T_MAIN, seed=13)[0]
+                  .astype(np.int16))
+    linear = ("emph", "frames", "window", "fft_re", "fft_im", "power",
+              "filterbank")
+    entries = []
+    for as_int in (False, True):
+        flag = ["--int"] if as_int else []
+        npz = wav[:-4] + ("_int" if as_int else "_float") + "_stages.npz"
+        run_cli(["probe", wav, *flag], "probe")
+        n = cli_launches()
+        with np.load(npz) as z:
+            card = {k: z[k] for k in z.files}
+        run_cli(["probe", wav, *flag, "--backend", "cpu"], "probe cpu")
+        with np.load(npz) as z:
+            cpu = {k: z[k] for k in z.files}
+        check(list(card) == list(cpu), f"probe keys {list(card)}")
+        err = 0.0
+        for k, w in cpu.items():
+            g = card[k]
+            check(g.shape == w.shape and g.dtype == w.dtype, f"probe {k}")
+            if as_int:
+                check(np.array_equal(g, w), f"probe --int {k} differs")
+                continue
+            if k == "log":      # held in the linear domain, as the mel
+                g, w = np.exp2(g.astype(np.float64)), np.exp2(w)
+            e = float(np.abs(g - w).max())
+            scale = (float(np.abs(w).max()) if k in linear or k == "log"
+                     else 1.0)
+            check(e <= GATE * scale, f"probe {k}: {e} > {GATE} x {scale}")
+            err = max(err, e / scale)
+        reference = ("the same command under --backend cpu, "
+                     + ("equal" if as_int else f"within {GATE}: the stages "
+                        "up to the filterbank and the log (as 2^log) "
+                        "relative to their largest value, the DCT and "
+                        "cepstra absolute"))
+        print(f"phase 10 (f) probe{' --int' if as_int else ''} on a 4 s wav: "
+              f"{len(card)} stages, launches {n} (the taps are torch ops); "
+              f"vs {reference}: {err:.3e}")
+        entries.append(cli_entry("probe" + (" --int" if as_int else ""), n,
+                                 err, reference))
+    return entries
+
+
+def cli_examples() -> list[dict]:
+    """(g) the examples as ``python -m mfcc_tpu_torch.examples.<name>``, in
+    subprocesses started together: each returns 0 (quickstart,
+    int_walkthrough with its card pipeline equal to the oracle,
+    serving_demo with every client bit-exact)."""
+    import os
+    names = ("quickstart", "int_walkthrough", "serving_demo")
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", f"mfcc_tpu_torch.examples.{name}"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    entries = []
+    for name in names:
+        try:
+            out, err = procs[name].communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            raise
+        check(procs[name].returncode == 0,
+              f"{name}: rc {procs[name].returncode}: {err[-2000:]}")
+        if name == "int_walkthrough":
+            check("cuda pipeline == oracle: True" in out, f"{name}: {out}")
+        if name == "serving_demo":
+            check("bit-exact" in out and "MISMATCH" not in out, out)
+        last = (out.strip().splitlines() or [""])[-1]
+        print(f"phase 10 (g) python -m mfcc_tpu_torch.examples.{name}: rc 0; "
+              f"last line: {last}")
+        entries.append(cli_entry(f"examples.{name}", None, None,
+                                 "its own output (another process: its "
+                                 "launches are not counted here)"))
+    print(f"phase 10 (g) the three examples: {time.perf_counter() - t0:.1f} s "
+          "wall, in parallel")
+    return entries
+
+
+def cli_precisions(dev) -> list[dict]:
+    """(h) ``MFCC(precision=p)`` for "high", "default" and "bf16" on the
+    headline input: finite; the limb products on the same operands within
+    1e-6 of their largest value of the CPU's; the whole chain on 8 spread
+    streams near the same limb chain on the CPU: within LIMB_SHARE of its
+    distance from the f32 chain, or within twice the f32 chain's own
+    distance between the card and the CPU plus KERNEL_TOL, whichever is
+    larger (a chain without the limbs sits at the first distance); the
+    oracle distance printed, not gated, and the time.
+
+    Not KERNEL_TOL: the f32 chain itself reads 4.2e-5 between the card and
+    the CPU (each product sums in another order), the 3-pass chain 6.1e-5,
+    and at 1 pass a power or log-mel value within that noise of a bf16
+    rounding boundary rounds the other way on the other device (1.95e-3,
+    measured on one H100)."""
+    from mfcc_tpu_torch import MFCC, MFCCConfig
+    from mfcc_tpu_torch.ops import float_ops
+    from mfcc_tpu_torch.ref import float_ref
+
+    cfg = MFCCConfig()
+    sig = make_audio(S_MAIN, T_MAIN)
+    audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    spread = np.linspace(0, S_MAIN - 1, 8).astype(int)
+    oracle = np.stack([float_ref.mfcc_float(sig[i], cfg) for i in spread])
+    host = torch.from_numpy(sig[spread])
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((4096, 512)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((512, 514)).astype(np.float32))
+    # the f32 chain's own distance between the card and the CPU on the
+    # same rows: the sum order of each product differs
+    f32_card = float_ops.mfcc_batch(audio, cfg)[spread].cpu()
+    f32_gap = float((f32_card - float_ops.mfcc_batch(host, cfg)).abs().max())
+    print(f"phase 10 (h) the f32 chain (\"highest\"), card vs CPU on the 8 "
+          f"spread streams: {f32_gap:.3e}")
+    entries = []
+    for p in ("high", "default", "bf16"):
+        passes = float_ops.LIMB_PASSES[p]
+        got_p = float_ops.limb_matmul(x.to(dev), w.to(dev), passes).cpu()
+        want_p = float_ops.limb_matmul(x, w, passes)
+        perr = float((got_p - want_p).abs().max() / want_p.abs().max())
+        fe = MFCC(precision=p)
+        zero_path_counts()
+        out = fe(audio)
+        torch.cuda.synchronize()
+        n = cli_launches()
+        cpu = float_ops.mfcc_batch(host, cfg, precision=p, limbs=passes)
+        err = float((out[spread].cpu() - cpu).abs().max())
+        gap = float((out[spread].cpu() - f32_card).abs().max())
+        limit = max(LIMB_SHARE * gap, 2 * f32_gap + KERNEL_TOL)
+        ora = float(np.abs(out[spread].cpu().numpy() - oracle).max())
+        ms = time_ms(lambda: fe(audio))
+        print(f"phase 10 (h) MFCC(precision={p!r}) on {tuple(audio.shape)} "
+              f"int16: {passes} bf16 pass(es) a product on the card; limb "
+              f"product card vs CPU {perr:.2e} of its largest value; the "
+              f"chain vs the same limb chain on the CPU (8 spread streams) "
+              f"{err:.3e} (limit {limit:.3e}), vs the f32 chain {gap:.3e}; "
+              f"oracle distance {ora:.3e} (not "
+              f"gated); {ms:.4f} ms a call")
+        check(not n, f"MFCC(precision={p!r}) launched {n}")
+        check(tuple(out.shape) == (S_MAIN, cfg.n_frames(T_MAIN),
+                                   cfg.nceptrums)
+              and bool(torch.isfinite(out).all()), f"{p}: shape or finite")
+        check(perr <= 1e-6, f"{p}: limb product card vs CPU {perr}")
+        check(err <= limit, f"{p}: {err} from the CPU limb chain, limit "
+              f"{limit}")
+        entries.append(cli_entry(f"MFCC(precision={p!r})", n, err,
+                                 "the same limb chain on the CPU",
+                                 oracle_err=ora, ms=ms, f32_gap=f32_gap,
+                                 limb_gap=gap))
+    return entries
+
+
+def cli_phases(dev, card: str) -> list[dict]:
+    """Phase 10: the command line and the examples, in a temporary
+    directory; returns the kernels line's "cli" list."""
+    import tempfile
+    t0 = time.perf_counter()
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        entries += cli_convert(dev, tmp)
+        entries += cli_stream(dev, tmp)
+        entries.append(cli_mic(dev, tmp))
+        entries.append(cli_selftest(dev))
+        entries += cli_serve(dev)
+        entries += cli_probe(dev, tmp)
+        entries += cli_examples()
+        entries += cli_precisions(dev)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s on {card}")
+    return entries
+
+
 ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
                   "stream_r2_kernel")
 # the tails' persistent batch kernels: K1 (and K6), K7 and K7-frames, K2 and
@@ -2804,9 +3430,12 @@ def main() -> int:
     kernels += f64ish_phases(dev, card)
     torch.cuda.empty_cache()
     kernels += legacy_phases(dev, card)
+    torch.cuda.empty_cache()
+    cli = cli_phases(dev, card)
 
     print(card)
-    print(json.dumps({"kernels": kernels, "parallel": parallel}))
+    print(json.dumps({"kernels": kernels, "parallel": parallel,
+                      "cli": cli}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

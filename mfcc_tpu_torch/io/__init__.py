@@ -1,5 +1,5 @@
-"""Host I/O: the wire protocols (``transport``) and their native codecs
-(``native``), copies of ``mfcc_tpu.io`` kept here so that the package never
-imports JAX.  ``wav`` and ``capture`` come with the CLI."""
+"""Host I/O: wav ingestion (``wav``), the wire protocols (``transport``),
+their native codecs (``native``) and live capture (``capture``), copies of
+``mfcc_tpu.io`` kept here so that the package never imports JAX."""
 
-from . import transport  # noqa: F401
+from . import wav, transport  # noqa: F401

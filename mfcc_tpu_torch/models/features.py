@@ -107,7 +107,7 @@ class MelSpectrogram(_FloatModel):
         power = float_ops.power_spectrum_frames(
             self._frames(audio), self.cfg, precision=self.precision,
             dtype=self.dtype, operators=self.operators())
-        return power @ self.mel
+        return float_ops.mel_product(power, self.mel, self.precision)
 
 
 class LogMelSpectrogram(_FloatModel):

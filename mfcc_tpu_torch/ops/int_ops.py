@@ -218,6 +218,40 @@ def log2fix_int(data: torch.Tensor, width: int = 16,
     return res & ((1 << width_output) - 1)
 
 
+def log2fixcalc_int(x: torch.Tensor, width: int, precision: int,
+                    allow_fraction_input: bool = False) -> torch.Tensor:
+    """Branch-free twin of the raw ``Log2FixCalc`` FSM (mfcc/core/log.py:8-102)
+    with its SHIFT-LEFT fraction-input mode (log.py:47-55), the counterpart
+    of ``mfcc_tpu.ops.int_ops.log2fixcalc_int``.
+
+    ``x`` is the already-shifted register value, >= 1.  In fraction mode,
+    inputs in [1, 2^precision) are normalized up, each left shift
+    subtracting 2^precision from the width-bit, wrapping result register
+    (negative exponents); without it they pass the SHIFT-RIGHT state
+    unnormalized, as the RTL does.  Returns the raw width-bit register value
+    (unsigned) as int32."""
+    assert precision <= 14, "z*z must stay exact in int32"
+    d = x.to(torch.int32)
+    # floor(log2(d)) via thresholds over the width-bit range
+    shifts = torch.zeros_like(d)
+    for j in range(1, width):
+        shifts = shifts + (d >= (1 << j)).to(torch.int32)
+    e = shifts - precision                 # net normalize exponent
+    if not allow_fraction_input:
+        e = torch.clamp_min(e, 0)
+    z = torch.where(e >= 0, d >> torch.clamp_min(e, 0),
+                    d << torch.clamp_min(-e, 0))
+    res = e * (1 << precision)             # a negative e wraps below
+    b = 1 << (precision - 1)
+    for _ in range(precision - 1):
+        c = z * z
+        hi = (c >> (2 * precision + 1)) & 1
+        res = res + hi * b
+        z = torch.where(hi == 1, c >> (precision + 1), c >> precision)
+        b >>= 1
+    return res & ((1 << width) - 1)
+
+
 # ---------------------------------------------------------------------------
 # DCT via 4N FFT (mfcc/core/dct_stream.py:29-37)
 # ---------------------------------------------------------------------------

@@ -54,12 +54,13 @@ def _dryrun_rank(device_type: str) -> str:
     # streaming: state over dp, one full-chunk step, float and bit-exact INT
     reset = shard_rows(np.zeros(S, bool), mesh)
     step = streaming_sharded_fn(mesh, cfg)
-    state = shard_state(init_state(S, cfg), mesh)
+    state = shard_state(init_state(S, cfg, device=mesh.device_type), mesh)
     feats, mask, state = step(shard_rows(audio[:, :680], mesh), state, reset)
     _check(feats.shape[0] == S // dp
            and bool(torch.isfinite(feats[mask]).all()), feats.shape)
     istep = streaming_sharded_fn(mesh, cfg, int_path=True)
-    istate = shard_state(init_state(S, cfg, torch.int32), mesh)
+    istate = shard_state(init_state(S, cfg, torch.int32,
+                                    device=mesh.device_type), mesh)
     ifeats, _, istate = istep(shard_rows(audio[:, :680].astype(np.int32),
                                          mesh), istate, reset)
     _check(ifeats.dtype == torch.int32 and ifeats.shape[0] == S // dp,

@@ -24,8 +24,12 @@ route.  Float path (``forward``, ``frames``):
     ``frames`` -> K7-frames (``f64ish.mfcc_f64ish_frames``) for a config in
     ``f64ish.f64ish_config_ok``, launched for CUDA tensors, their plain
     versions for CPU tensors; other configs -> the float64 chain;
-  * everything else, ``precision="split"`` included -> the ``float_ops``
-    chain, as in JAX.
+  * everything else, ``precision="split"``, ``"high"``, ``"default"`` and
+    ``"bf16"`` included -> the ``float_ops`` chain, as in JAX; the last
+    three run bf16-limb passes in the chain's products for CUDA tensors (3
+    for "high", 1 for the others: the TPU's bf16 passes, a fidelity route
+    that misses the 5e-4 contract) and full float32 for CPU tensors, which
+    is what the JAX package computes off its TPU.
 
 INT path (``int``, ``int_frames``): a config in the fused kernels' family
 (``ops.int_fused.int_config_ok``) -> K2 / K3 (launched for CUDA tensors;
@@ -48,7 +52,8 @@ from .ops import f64ish, fladder, float_fused, float_ops, int_fused, int_ops
 from .utils.debug import float_intermediates
 
 _STATE = ("window", "mel", "dct")    # the module's state_dict
-PRECISIONS = ("highest", "fast", "split", "f64ish")   # ported to the modules
+PRECISIONS = ("highest", "fast", "split", "f64ish", "high", "default",
+              "bf16")
 
 
 def resolve_device(device, what: str) -> torch.device:
@@ -70,12 +75,10 @@ def resolve_device(device, what: str) -> torch.device:
 
 
 def check_precision(precision: str) -> None:
-    """Raise ``NotImplementedError`` for a precision the modules do not
-    run (``"high"``, ``"default"`` and ``"bf16"`` wait for a decision)."""
+    """Raise ``ValueError`` for a precision the modules do not know."""
     if precision not in PRECISIONS:
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported to the torch package "
-            "(high, default and bf16 wait for a decision)")
+        raise ValueError(f"unknown precision {precision!r}; use one of "
+                         f"{PRECISIONS}")
 
 
 def _rederive(module: "MFCC", incompatible_keys) -> None:
@@ -99,9 +102,12 @@ class MFCC(nn.Module):
         ``"fast"``: the 3-pass split-DFT kernel K5 (the JAX package's fast
         mode, ~1e-3 against the float64 oracle on short inputs) where the
         JAX package runs it, the "highest" chain elsewhere; ``"f64ish"``:
-        the max(1e-5, 2 ulp) contract in FP64 (K7); or ``"split"``: the
-        chain with a split-bf16 DFT matmul.  ``"high"``, ``"default"`` and
-        ``"bf16"`` are not ported.
+        the max(1e-5, 2 ulp) contract in FP64 (K7); ``"split"``: the chain
+        with a split-bf16 DFT matmul; or ``"high"`` (3 bf16 passes a
+        product on the card), ``"default"`` and ``"bf16"`` (1 pass): the
+        chain, bf16 limbs on the card and full float32 on the CPU (fidelity
+        routes to the TPU's matmul precisions: 1 pass misses the 5e-4
+        contract by far).
 
         ``device`` is where the operators live and the work runs:
         ``None`` is the card (``"cuda"``, the current CUDA device), and
@@ -218,8 +224,8 @@ class MFCC(nn.Module):
 
     @property
     def _chain_precision(self) -> str:
-        """The chain's precision: "split" stays, "fast" runs "highest"."""
-        return "split" if self.precision == "split" else "highest"
+        """The chain's precision: "fast" runs "highest", the others stay."""
+        return "highest" if self.precision == "fast" else self.precision
 
     def _as_input(self, x) -> torch.Tensor:
         """A tensor must lie on the operators' device (as in any

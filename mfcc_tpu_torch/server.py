@@ -23,6 +23,17 @@ host memory, recording a CUDA event; the delivery thread waits on that
 event (not on the stream or the device) and sends.  The state chains from
 step to step on one stream, each step writing fresh state tensors.
 
+One reader thread accepts and receives for every connection (a
+selector over the listening socket and the clients'): there is no thread
+per connection, and a burst of connections is accepted in one pass.  The
+stepper wakes when a slot becomes gatherable (a full chunk, a reset, an
+EOF), not on every receive.  With a thread per connection and a wake per
+receive, a thousand real-time clients kept the stepper from the
+interpreter lock (every wake scans every slot) and the server delivered
+nothing; an accepting thread of its own took the interpreter lock once a
+connection.  An EOF'd connection is released by the delivery that drains
+its slot, not by a poll.
+
 Activity counters (rx words / tx frames per slot) are the analogue of the
 reference's BlinkerKeep RX/TX LEDs (wav2mfcc.py:38-47).
 """
@@ -32,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import queue
+import selectors
 import socket
 import socketserver
 import threading
@@ -57,15 +69,32 @@ class _Slot:
     lock: threading.Lock = field(default_factory=threading.Lock)
     pending: list = field(default_factory=list)   # [(samples, reset_first)]
     n_buffered: int = 0
-    send: object = None            # callable(bytes) or None when free
     rx_words: int = 0
     tx_frames: int = 0
     reset_pending: bool = False
     eof: bool = False              # client closed its write side: flush
+    conn: object = None            # the slot's _Conn, None when free
     in_flight: int = 0             # gathered chunks not yet delivered; a
     #   COUNTER, not a flag: the pipelined stepper can have two steps in
     #   flight for one slot, and a boolean would let the earlier delivery
     #   release the slot while the later step still owns it
+
+
+class _Conn:
+    """A client connection: its socket, slot, the bytes of an incomplete
+    word, and when its EOF arrived (None before)."""
+    __slots__ = ("sock", "idx", "tail", "eof_at", "_send_lock")
+
+    def __init__(self, sock: socket.socket):
+        self.sock, self.idx, self.tail, self.eof_at = sock, -1, b"", None
+        self._send_lock = threading.Lock()
+
+    def send(self, data: bytes) -> None:
+        with self._send_lock:
+            try:
+                self.sock.sendall(data)
+            except OSError:
+                pass
 
 
 class FeatureServer:
@@ -132,22 +161,23 @@ class FeatureServer:
         # dispatched-but-undelivered steps; put() blocking when full is the
         # backpressure that bounds device-side divergence from delivery
         self._outq = queue.Queue(maxsize=max(1, pipeline_depth))
+        # one selector for the listening socket and every client
+        # connection, served by the reader thread; the listen backlog holds
+        # a thousand clients that connect at once (socketserver's default
+        # of 5 resets them)
+        self._sel = selectors.DefaultSelector()
+        self._listener = socket.create_server((host, port), backlog=1024)
+        self._listener.setblocking(False)
+        self._sel.register(self._listener, selectors.EVENT_READ, None)
+        self._closing = []                 # EOF'd connections not released
+        self.address = self._listener.getsockname()[:2]
 
         srv = self
-
-        class Handler(socketserver.BaseRequestHandler):
-            def handle(self):
-                srv._handle_conn(self.request)
 
         class Server(socketserver.ThreadingTCPServer):
             allow_reuse_address = True
             daemon_threads = True
-            # the listen backlog: socketserver's default of 5 resets
-            # connections when many clients connect at once
             request_queue_size = 128
-
-        self._tcp = Server((host, port), Handler)
-        self.address = self._tcp.server_address
 
         self._status_tcp = None
         self.status_address = None
@@ -161,11 +191,11 @@ class FeatureServer:
 
     # -- connection side ------------------------------------------------------
 
-    def _alloc_slot(self, send):
+    def _alloc_slot(self, conn: "_Conn"):
         for i, s in enumerate(self._slots):
             with s.lock:
-                if s.send is None:
-                    s.send = send
+                if s.conn is None:
+                    s.conn, conn.idx = conn, i
                     s.pending.clear()
                     s.n_buffered = 0
                     s.rx_words = 0
@@ -176,80 +206,156 @@ class FeatureServer:
                     return i
         return -1
 
-    def _handle_conn(self, sock: socket.socket):
+    def _accept_all(self) -> None:
+        """Accept every connection waiting in the listen backlog (the
+        reader thread, when the listening socket is readable)."""
+        while True:
+            try:
+                sock, _ = self._listener.accept()
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                # the peer gave up in the backlog, or descriptors ran out:
+                # the rest wait for the next readiness
+                log.exception("accept failed")
+                return
+            self._accept_conn(sock)
+
+    def _accept_conn(self, sock: socket.socket):
+        """A new connection: take a slot and register the socket with the
+        reader thread's selector.  No thread per connection: one reader
+        thread receives for every connection, so that a thousand connections
+        do not contend with the stepper for the interpreter lock."""
+        sock.setblocking(True)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        send_lock = threading.Lock()
-
-        def send(data: bytes):
-            with send_lock:
-                try:
-                    sock.sendall(data)
-                except OSError:
-                    pass
-
-        idx = self._alloc_slot(send)
+        conn = _Conn(sock)
+        idx = self._alloc_slot(conn)
         if idx < 0:
             log.error("connection rejected: all %d slots busy",
                       self.max_streams)
             sock.close()
             return
         log.info("client connected -> slot %d", idx)
-        slot = self._slots[idx]
-        tail = b""
+        self._sel.register(sock, selectors.EVENT_READ, conn)
+
+    def _eof(self, conn: "_Conn") -> None:
+        """The client closed its write side (or the connection failed): the
+        stepper flushes the residual (< chunk) samples through a
+        length-limited step, then the slot is released (no silent
+        partial-chunk drop)."""
+        self._unregister(conn.sock)
+        slot = self._slots[conn.idx]
+        with slot.lock:
+            slot.eof = True
+        conn.eof_at = time.time()
+        self._closing.append(conn)
+        self._data.set()
+        self._release_if_drained(conn)
+
+    def _release_if_drained(self, conn: "_Conn", force: bool = False
+                            ) -> bool:
+        """Release an EOF'd connection's slot and close it once nothing is
+        buffered and no gathered chunk is still being computed or sent (or
+        when ``force``); True once released."""
+        slot = self._slots[conn.idx]
+        with slot.lock:
+            if slot.conn is not conn:
+                return True
+            if not force and (slot.n_buffered or slot.pending
+                              or slot.in_flight):
+                return False
+            slot.conn = None
+            slot.eof = False
+        log.info("client on slot %d disconnected (rx=%d words, tx=%d "
+                 "frames)", conn.idx, slot.rx_words, slot.tx_frames)
         try:
-            while not self._stop.is_set():
-                data = sock.recv(65536)
-                if not data:
-                    break
-                buf = tail + data
-                usable = len(buf) - (len(buf) % 4)
-                words = np.frombuffer(buf[:usable], dtype="<u4")
-                tail = buf[usable:]
-                if len(words) == 0:
-                    continue
-                samples, resets, trailing_reset = \
-                    transport.decode_stream(words)
-                if log.isEnabledFor(logging.DEBUG):
-                    log.debug("slot %d rx %d words: %s%s", idx, len(words),
-                              " ".join(f"{w:08x}" for w in words[:8]),
-                              " ..." if len(words) > 8 else "")
-                with slot.lock:
-                    slot.rx_words += len(words)
-                    # split at reset points so resets land on chunk starts;
-                    # a trailing reset word at the recv boundary becomes a
-                    # zero-length reset-first sentinel, preserving arrival
-                    # order after already-buffered samples (the reference
-                    # host sends the reset as its own 4-byte write,
-                    # software/main.c mfcc_softreset)
-                    for s_arr, reset_first in transport.split_resets(
-                            samples, resets, trailing_reset):
-                        slot.pending.append((s_arr, reset_first))
-                        slot.n_buffered += len(s_arr)
-                self._data.set()   # wake the stepper (event-driven ticks)
-            # client closed its write side: flush the residual (< chunk)
-            # samples through a length-limited step, then release the slot
-            # (no silent partial-chunk drop)
-            with slot.lock:
-                slot.eof = True
-            deadline = time.time() + 30.0
-            while time.time() < deadline and not self._stop.is_set():
-                with slot.lock:
-                    # drained means: nothing buffered AND no gathered chunk
-                    # still being computed/sent by the stepper
-                    if slot.n_buffered == 0 and not slot.pending \
-                            and slot.in_flight == 0:
-                        break
-                time.sleep(self._tick_s)
-        finally:
-            with slot.lock:
-                slot.send = None
-                slot.eof = False
-            log.info("client on slot %d disconnected (rx=%d words, "
-                     "tx=%d frames)", idx, slot.rx_words, slot.tx_frames)
+            conn.sock.close()
+        except OSError:
+            pass
+        return True
+
+    def _reap(self) -> None:
+        """Release the EOF'd connections that drained, and any left after
+        30 s (a stepper that cannot flush them must not hold their slots
+        for ever)."""
+        now = time.time()
+        self._closing = [
+            c for c in self._closing
+            if not self._release_if_drained(c, force=now - c.eof_at > 30.0)]
+
+    def _unregister(self, sock) -> None:
+        try:
+            self._sel.unregister(sock)
+        except (KeyError, ValueError, OSError):
+            pass
+
+    def _run_reader(self):
+        """Reader thread: accept the waiting connections, receive from
+        every readable one, and release the EOF'd ones that drained."""
+        while not self._stop.is_set():
             try:
-                sock.close()
-            except OSError:
-                pass
+                events = self._sel.select(timeout=0.25)
+            except (OSError, ValueError):
+                if self._stop.is_set():
+                    return
+                continue
+            for key, _ in events:
+                if key.data is None:           # the listening socket
+                    self._accept_all()
+                    continue
+                try:
+                    self._receive(key.data)
+                except Exception:
+                    # one connection's fault must not stop the others
+                    log.exception("reader: slot %d", key.data.idx)
+                    self._eof(key.data)
+            if self._closing:
+                self._reap()
+
+    def _receive(self, conn: "_Conn"):
+        """One recv on a readable connection: decode the sample words into
+        its slot, or mark its EOF (a reset connection ends like one)."""
+        try:
+            data = conn.sock.recv(65536)
+        except BlockingIOError:
+            return
+        except OSError:
+            data = b""
+        if not data:
+            self._eof(conn)
+            return
+        idx, slot = conn.idx, self._slots[conn.idx]
+        buf = conn.tail + data
+        usable = len(buf) - (len(buf) % 4)
+        words = np.frombuffer(buf[:usable], dtype="<u4")
+        conn.tail = buf[usable:]
+        if len(words) == 0:
+            return
+        samples, resets, trailing_reset = transport.decode_stream(words)
+        if log.isEnabledFor(logging.DEBUG):
+            log.debug("slot %d rx %d words: %s%s", idx, len(words),
+                      " ".join(f"{w:08x}" for w in words[:8]),
+                      " ..." if len(words) > 8 else "")
+        with slot.lock:
+            slot.rx_words += len(words)
+            before = slot.n_buffered
+            # split at reset points so resets land on chunk starts; a
+            # trailing reset word at the recv boundary becomes a zero-length
+            # reset-first sentinel, preserving arrival order after
+            # already-buffered samples (the reference host sends the reset
+            # as its own 4-byte write, software/main.c mfcc_softreset)
+            for s_arr, reset_first in transport.split_resets(
+                    samples, resets, trailing_reset):
+                slot.pending.append((s_arr, reset_first))
+                slot.n_buffered += len(s_arr)
+            gatherable = ((before < self.chunk <= slot.n_buffered)
+                          or bool(resets.any()) or trailing_reset)
+        if gatherable:
+            # wake the stepper when this slot becomes gatherable (a full
+            # chunk, or a reset that may bound a run), not on every recv: a
+            # wake scans every slot, and a wake per recv costs O(slots^2) a
+            # chunk period under load
+            self._data.set()
 
     # -- control/status plane -------------------------------------------------
 
@@ -280,7 +386,7 @@ class FeatureServer:
                     reply = json.dumps(self.stats())
                 elif cmd == "SLOTS":
                     reply = json.dumps([
-                        {"active": s.send is not None, "rx_words": s.rx_words,
+                        {"active": s.conn is not None, "rx_words": s.rx_words,
                          "tx_frames": s.tx_frames, "buffered": s.n_buffered,
                          "in_flight": s.in_flight} for s in self._slots])
                 elif cmd == "CONFIG":
@@ -332,10 +438,10 @@ class FeatureServer:
         active = np.zeros(S, dtype=bool)
         lengths = np.full(S, C, dtype=np.int32)
         for i, slot in enumerate(self._slots):
-            if slot.send is None:     # racy-but-benign fast skip (GIL read;
+            if slot.conn is None:     # racy-but-benign fast skip (GIL read;
                 continue              # _alloc_slot confirms under the lock)
             with slot.lock:
-                if slot.send is None:
+                if slot.conn is None:
                     continue
                 # a residual run is flushable once something bounds it: a
                 # full chunk, client EOF, or a reset word that arrived AFTER
@@ -447,10 +553,13 @@ class FeatureServer:
             self._outq.task_done()
 
     def _clear_busy(self, active):
-        for i, slot in enumerate(self._slots):
-            if active[i]:
-                with slot.lock:
-                    slot.in_flight -= 1
+        for i in np.flatnonzero(active):
+            slot = self._slots[i]
+            with slot.lock:
+                slot.in_flight -= 1
+                conn = slot.conn if slot.eof and not slot.in_flight else None
+            if conn is not None:          # an EOF'd slot's last delivery
+                self._release_if_drained(conn)
 
     def _device_ctx(self):
         return (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -513,10 +622,10 @@ class FeatureServer:
                 with self._stats_lock:
                     self._stats["frames_tx"] += len(cols)
                 with slot.lock:
-                    send = slot.send
+                    conn = slot.conn
                     slot.tx_frames += len(cols)
-                if send is not None:
-                    send(data)
+                if conn is not None:
+                    conn.send(data)
         self._clear_busy(active)
 
     def _run_stepper(self):
@@ -555,9 +664,9 @@ class FeatureServer:
         if warmup:
             self.warmup()
         self._threads = [
-            threading.Thread(target=self._tcp.serve_forever, daemon=True),
             threading.Thread(target=self._run_stepper, daemon=True),
             threading.Thread(target=self._run_delivery, daemon=True),
+            threading.Thread(target=self._run_reader, daemon=True),
         ]
         if self._status_tcp is not None:
             self._threads.append(threading.Thread(
@@ -573,14 +682,18 @@ class FeatureServer:
         # BaseServer.shutdown() blocks on an event that only serve_forever
         # sets -- calling it on a never-started server hangs forever
         if getattr(self, "_threads", None):
-            self._tcp.shutdown()
             if self._status_tcp is not None:
                 self._status_tcp.shutdown()
             for t in self._threads:
                 t.join(10.0)
-        self._tcp.server_close()
+        self._unregister(self._listener)
+        self._listener.close()
         if self._status_tcp is not None:
             self._status_tcp.server_close()
+        for slot in self._slots:
+            if slot.conn is not None:
+                self._release_if_drained(slot.conn, force=True)
+        self._sel.close()
 
     def activity(self):
         """Per-slot (rx_words, tx_frames) -- the RX/TX LED equivalent."""

@@ -38,7 +38,8 @@ Routing, as ``mfcc_tpu.streaming`` routes:
     used;
   * flush steps (``lengths`` given) and every other config take the chain:
     ``_chunk_step_batch`` and the features function (the INT frames kernel
-    K3, or the ``float_ops`` chain, with ``precision="split"`` as given).
+    K3, or the ``float_ops`` chain, with ``precision="split"``, ``"high"``,
+    ``"default"`` and ``"bf16"`` as given).
 
 The JAX package's barrel shifter (``_barrel_align``) is a TPU device: here
 the per-row alignment is one indexed read.  Nothing is compiled per chunk
@@ -76,8 +77,11 @@ class StreamState(NamedTuple):
 
 
 def init_state(n_streams: int, cfg: MFCCConfig = MFCCConfig(),
-               dtype: torch.dtype = torch.float32, device="cpu"
+               dtype: torch.dtype = torch.float32, device=None
                ) -> StreamState:
+    """A zero carry for ``n_streams`` streams on ``device``: ``None`` is the
+    card, and raises on a host without one, naming ``device="cpu"``."""
+    device = resolve_device(device, "init_state")
     return StreamState(
         buffer=torch.zeros((n_streams, cfg.windowlen - 1), dtype=dtype,
                            device=device),
@@ -149,9 +153,10 @@ class StreamingMFCC:
         serving mode), flush steps and the CPU the "highest" chain;
         ``"f64ish"``, every step on the chain with f64ish features (K7-frames
         on the card; the state is f32 and ``dtype`` and ``mel_floor`` are
-        ignored, as in JAX); or ``"split"``, every step on the chain with a
-        split-bf16 DFT matmul.  ``"high"``, ``"default"`` and ``"bf16"``
-        are not ported.
+        ignored, as in JAX); ``"split"``, every step on the chain with a
+        split-bf16 DFT matmul; or ``"high"``, ``"default"`` and ``"bf16"``,
+        every step on the chain at that precision (bf16 limbs on the card,
+        full float32 on the CPU; see ``ops.float_ops``).
 
         ``transposed_state=True`` stores the carry buffer (P, S);
         ``transposed_chunks=True`` makes ``step`` take chunks (C, S).  The
@@ -203,7 +208,7 @@ class StreamingMFCC:
                 # accurate
                 self._features = functools.partial(
                     float_ops.mfcc_frames, cfg=cfg, method=method,
-                    precision="split" if precision == "split" else "highest",
+                    precision="highest" if precision == "fast" else precision,
                     dtype=dtype, mel_floor=self.mel_floor)
             if fused_geometry and method == "dft" and dtype == torch.float32:
                 if precision == "highest" and fladder.fladder_config_ok(cfg):

@@ -1321,3 +1321,69 @@ def test_float_models_on_card(dev):
         assert (out.detach().cpu() - want).abs().max() <= 1e-4
         (g,) = torch.autograd.grad(out.sum(), x)
         assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+def test_cli_convert_and_stream_on_card(dev, tmp_path, capsys):
+    """The command line on the card: ``convert`` is one K2 launch a batch
+    with the CPU's bytes; ``stream`` one K4 launch a full chunk and one K3
+    a flushed INT chunk, with the CPU's bytes."""
+    from scipy.io import wavfile
+    from mfcc_tpu_torch import cli
+    from mfcc_tpu_torch.io import transport
+    sig = _tonal(3, 9000, seed=26).astype(np.int16)
+    for root in (tmp_path / "card", tmp_path / "cpu"):
+        root.mkdir()
+        for i in range(3):
+            wavfile.write(str(root / f"{i}.wav"), 16000, sig[i][: 9000 - i])
+    before = int_fused.LAUNCHES["K2"]
+    assert cli.main(["convert", str(tmp_path / "card")]) == 0
+    assert int_fused.LAUNCHES["K2"] == before + 1
+    assert cli.main(["convert", str(tmp_path / "cpu"), "--backend",
+                     "cpu"]) == 0
+    for i in range(3):
+        assert ((tmp_path / "card" / f"{i}.mfcc").read_bytes()
+                == (tmp_path / "cpu" / f"{i}.mfcc").read_bytes())
+    words = tmp_path / "w.bin"
+    words.write_bytes(transport.encode_stream(sig[0]).astype("<u4")
+                      .tobytes())
+    k4, k3 = stream_fused.LAUNCHES["K4-INT"], int_fused.LAUNCHES["K3"]
+    assert cli.main(["stream", str(words), str(tmp_path / "card.bin")]) == 0
+    assert stream_fused.LAUNCHES["K4-INT"] == k4 + 9000 // 1024
+    assert int_fused.LAUNCHES["K3"] == k3 + 1
+    assert cli.main(["stream", str(words), str(tmp_path / "cpu.bin"),
+                     "--backend", "cpu"]) == 0
+    assert ((tmp_path / "card.bin").read_bytes()
+            == (tmp_path / "cpu.bin").read_bytes())
+
+
+def test_cli_selftest_on_card(dev, capsys):
+    from mfcc_tpu_torch import cli
+    assert cli.main(["selftest"]) == 0
+    out = capsys.readouterr().out
+    assert "fused INT kernel (K2) bit-exact vs its plain version: PASS" in out
+    assert out.strip().splitlines()[-1] == "SELFTEST PASS"
+
+
+@pytest.mark.parametrize("precision", ["high", "default", "bf16"])
+def test_limb_precisions_on_card(dev, precision):
+    """``"high"``, ``"default"`` and ``"bf16"`` on CUDA tensors take the
+    limb passes: the card's products on the same operands within 1e-6 of
+    the CPU's; the chain finite and near the CPU's limb chain: within a
+    hundredth of its distance from the f32 chain, or twice the f32 chain's
+    own card-to-CPU distance plus TOL (each product sums in another order
+    on the card), whichever is larger."""
+    passes = float_ops.LIMB_PASSES[precision]
+    rng = np.random.default_rng(27)
+    x = torch.from_numpy(rng.standard_normal((256, 512)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((512, 514)).astype(np.float32))
+    want = float_ops.limb_matmul(x, w, passes)
+    got = float_ops.limb_matmul(x.to(dev), w.to(dev), passes).cpu()
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    sig = torch.from_numpy(_tonal(2, 8000, seed=28))
+    out = MFCC(precision=precision)(sig.to(dev)).cpu()
+    assert torch.isfinite(out).all()
+    cpu = float_ops.mfcc_batch(sig, precision=precision, limbs=passes)
+    f32 = float_ops.mfcc_batch(sig.to(dev)).cpu()
+    f32_gap = (f32 - float_ops.mfcc_batch(sig)).abs().max()
+    limit = max(0.01 * (out - f32).abs().max(), 2 * f32_gap + TOL)
+    assert (out - cpu).abs().max() <= limit

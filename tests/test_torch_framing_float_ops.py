@@ -154,15 +154,84 @@ def test_chain_against_oracle(sig2):
 
 @pytest.mark.parametrize("precision", ["high", "default", "bf16"])
 def test_unported_precision_raises(sig2, precision):
-    frames = torch.zeros(1, 512)
-    for call in (
-            lambda: float_ops.mfcc_batch(_t(sig2), precision=precision),
-            lambda: float_ops.mfcc_frames(frames, precision=precision),
-            lambda: float_ops.power_spectrum_frames(frames,
-                                                    precision=precision),
-            lambda: float_ops.log_mel_frames(frames, precision=precision)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    """``"high"``, ``"default"`` and ``"bf16"`` on CPU tensors are the f32
+    chain, as JAX's on its CPU (XLA's CPU dot ignores the precision enum):
+    the batch, frames, power and log-mel functions within the tolerances of
+    "highest" (the test keeps the id of the raise test it replaced)."""
+    frames = framing.extract_frames(framing.preemphasis(_t(sig2)), 512, 170)
+    jframes = np.asarray(jframing.extract_frames(
+        jframing.preemphasis(sig2), 512, 170))
+    cases = (
+        (lambda p: float_ops.mfcc_batch(_t(sig2), precision=p),
+         lambda p: jfloat.mfcc_batch(sig2, precision=p)),
+        (lambda p: float_ops.mfcc_batch(_t(sig2), method="segmented",
+                                        precision=p),
+         lambda p: jfloat.mfcc_batch(sig2, method="segmented", precision=p)),
+        (lambda p: float_ops.mfcc_frames(frames, precision=p),
+         lambda p: jfloat.mfcc_frames(jframes, precision=p)),
+        (lambda p: float_ops.log_mel_frames(frames, precision=p),
+         lambda p: jfloat.log_mel_frames(jframes, precision=p)))
+    for ours, theirs in cases:
+        got, want = ours(precision), np.asarray(theirs(precision))
+        assert got.shape == want.shape
+        assert np.abs(got.numpy() - want).max() <= TOL
+        assert torch.equal(got, ours("highest"))     # the f32 chain
+    got = float_ops.power_spectrum_frames(frames, precision=precision).numpy()
+    want = np.asarray(jfloat.power_spectrum_frames(jframes,
+                                                   precision=precision))
+    rel = np.abs(got - want) / np.abs(want).max(-1, keepdims=True)
+    assert rel.max() <= 1e-5
+
+
+@pytest.mark.parametrize("precision", ["high", "default", "bf16"])
+def test_limb_passes_on_the_cpu(sig2, precision):
+    """The card's formulation (``limbs=``) run on the CPU: it moves the
+    output off the f32 chain, so the limbs are applied, and 3 passes lie
+    closer to the float64 oracle than 1 pass (both distances printed, not
+    gated: 1 pass misses the float contract by far, as on the TPU)."""
+    passes = float_ops.LIMB_PASSES[precision]
+    assert passes == (3 if precision == "high" else 1)
+    plain = float_ops.mfcc_batch(_t(sig2), precision=precision)
+    assert torch.equal(plain, float_ops.mfcc_batch(_t(sig2)))
+    limbed = float_ops.mfcc_batch(_t(sig2), precision=precision,
+                                  limbs=passes)
+    assert not torch.equal(limbed, plain)
+    assert torch.equal(limbed, float_ops.mfcc_batch(
+        _t(sig2), precision="high", limbs=passes))
+    want = np.stack([float_ref.mfcc_float(s) for s in sig2])
+    d = {n: float(np.abs(float_ops.mfcc_batch(
+        _t(sig2), precision=precision, limbs=n).numpy() - want).max())
+        for n in (1, 3)}
+    print(f"{precision}: oracle distance 1 pass {d[1]:.3e}, "
+          f"3 passes {d[3]:.3e}")
+    assert d[3] < d[1] and np.isfinite(list(d.values())).all()
+    with pytest.raises(ValueError, match="limbs"):
+        float_ops.mfcc_batch(_t(sig2), precision="highest", limbs=1)
+    with pytest.raises(ValueError, match="0, 1 or 3"):
+        float_ops.mfcc_batch(_t(sig2), precision=precision, limbs=2)
+
+
+def test_limb_matmul_is_the_bf16_pass():
+    """One pass is the product of the bf16-rounded operands, summed in f32
+    (every product exact); three add the two cross terms of the residuals;
+    the matmul of bf16 tensors (output rounded to bf16) is not it."""
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((6, 40)).astype(np.float32))
+    w = _t(rng.standard_normal((40, 5)).astype(np.float32))
+    xh, wh = float_ops._bf16_trunc(x), float_ops._bf16_trunc(w)
+    assert torch.equal(xh, x.to(torch.bfloat16).to(torch.float32))
+    one = float_ops.limb_matmul(x, w, 1)
+    assert torch.equal(one, xh @ wh)
+    exact = xh.double() @ wh.double()
+    assert (one.double() - exact).abs().max() <= 1e-5 * exact.abs().max()
+    three = float_ops.limb_matmul(x, w, 3)
+    ref = x.double() @ w.double()
+    assert (three.double() - ref).abs().max() < \
+        (one.double() - ref).abs().max() / 50
+    bf = (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+    assert not torch.equal(bf, one)
+    d = x.double()
+    assert torch.equal(float_ops.limb_matmul(d, w.double(), 3), d @ w.double())
 
 
 def test_unknown_method_raises():

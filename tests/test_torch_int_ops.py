@@ -324,3 +324,46 @@ def test_config_int_properties_match_jax():
     with pytest.raises(ValueError, match="width=17"):
         int_ops.mfcc_int_frames(torch.zeros(1, 512, dtype=torch.int32),
                                 MFCCConfig(width=17))
+
+
+LOG2CALC_INPUTS = np.array([1, 2, 3, 100, 1024, 2047, 2048, 2049, 4096,
+                            123456, (1 << 26) | 12345, (1 << 27) - 1],
+                           np.int64)
+
+
+@pytest.mark.parametrize("frac", [False, True], ids=["plain", "fraction"])
+def test_log2fixcalc_matches_fsm_and_jax(frac):
+    """``log2fixcalc_int`` (the raw Log2FixCalc FSM's branch-free twin,
+    fraction-input mode included) equals the literal FSM simulation and
+    JAX's ``int_ops.log2fixcalc_int`` on the inputs of
+    ``tests/test_config_variants.py``, the wrap of the negative exponent
+    (inputs below 2^precision in fraction mode) included."""
+    width, precision = 27, 11
+    want = np.array([tref.log2fixcalc_seq(int(v), width, precision,
+                                          allow_fraction_input=frac)
+                     for v in LOG2CALC_INPUTS])
+    got = int_ops.log2fixcalc_int(torch.from_numpy(LOG2CALC_INPUTS),
+                                  width, precision,
+                                  allow_fraction_input=frac)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    jgot = np.asarray(jint.log2fixcalc_int(
+        jnp.asarray(LOG2CALC_INPUTS, jnp.int32), width, precision,
+        allow_fraction_input=frac))
+    assert np.array_equal(got.numpy(), jgot)
+    if frac:    # below 2^precision: a negative exponent, wrapped to 27 bits
+        assert (want[:6] > (1 << 26)).all()
+
+
+def test_log2fixcalc_agrees_with_log2fix():
+    """Fed ``data << precision`` (what Log2Fix does), the raw FSM's low 15
+    bits are ``log2fix_int``'s output; precision > 14 is refused."""
+    width, precision = 27, 11
+    data = np.array([0, 1, 5, 77, 65535], np.int64)
+    calc = int_ops.log2fixcalc_int(
+        torch.from_numpy(np.maximum(data, 1) << precision), width, precision)
+    fix = int_ops.log2fix_int(torch.from_numpy(data), 16, 15)
+    assert torch.equal(calc & 0x7FFF, fix)
+    assert np.array_equal(fix.numpy(), tref.log2fix_int(data, 16, 15))
+    with pytest.raises(AssertionError, match="int32"):
+        int_ops.log2fixcalc_int(torch.ones(3, dtype=torch.int32), 31, 15)

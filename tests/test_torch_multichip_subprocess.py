@@ -105,7 +105,8 @@ def _sharded_int(n, mesh, sig):
 def _streaming_int(n, mesh, sig):
     S, C = max(4, 2 * n), 700
     step = streaming_sharded_fn(mesh, CFG, int_path=True)
-    state = shard_state(streaming.init_state(S, CFG, torch.int32), mesh)
+    state = shard_state(streaming.init_state(S, CFG, torch.int32,
+                                             device="cpu"), mesh)
     outs = [[] for _ in range(S)]
     for lo, hi in [(0, 700), (700, 1192)]:
         chunk = np.zeros((S, C), np.int32)

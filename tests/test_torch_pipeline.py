@@ -143,9 +143,26 @@ def test_fast_frames_route_flag(sig2):
 
 
 @pytest.mark.parametrize("precision", ["high", "default", "bf16"])
-def test_unported_precision_raises(precision):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MFCC(precision=precision, device="cpu")
+def test_unported_precision_raises(sig2, precision):
+    """``MFCC(precision=p)`` for "high", "default" and "bf16" on the CPU:
+    the chain at full float32, what JAX's ``MFCC(precision=p)`` computes on
+    its CPU, within the tolerances of "highest" (the test keeps the id of
+    the raise test it replaced); the frames route too."""
+    fe = MFCC(precision=precision, device="cpu")
+    assert fe._route == fe._frames_route == "chain"
+    assert fe._chain_precision == precision
+    got = fe(torch.from_numpy(sig2)).numpy()
+    want = np.asarray(mfcc_tpu.MFCC(precision=precision)(sig2))
+    assert got.shape == want.shape == (2, 5, 32)
+    assert np.abs(got - want).max() <= TOL_JAX
+    assert np.abs(got - _oracle(sig2)).max() <= TOL_ORACLE
+    frames = framing.extract_frames(framing.preemphasis(
+        torch.from_numpy(sig2)), 512, 170)
+    jf = np.asarray(mfcc_tpu.MFCC(precision=precision).frames(
+        frames.numpy()))
+    assert np.abs(fe.frames(frames).numpy() - jf).max() <= TOL_JAX
+    with pytest.raises(ValueError, match="unknown precision"):
+        MFCC(precision="bf17", device="cpu")
 
 
 def test_default_device_is_the_card():
@@ -241,7 +258,14 @@ def test_import_leaves_jax_out():
                 "mfcc_tpu_torch.ops.f64ish, mfcc_tpu_torch.ops.dense_fused, "
                 "mfcc_tpu_torch.ops.warp_tails, mfcc_tpu_torch.parallel, "
                 "mfcc_tpu_torch.parallel.dryrun, mfcc_tpu_torch.models, "
-                "mfcc_tpu_torch.utils, mfcc_tpu_torch.compat; "
+                "mfcc_tpu_torch.utils, mfcc_tpu_torch.compat, "
+                "mfcc_tpu_torch.cli, mfcc_tpu_torch._entry, "
+                "mfcc_tpu_torch.io.wav, mfcc_tpu_torch.io.capture, "
+                "mfcc_tpu_torch.utils.viewer, mfcc_tpu_torch.examples, "
+                "mfcc_tpu_torch.examples.quickstart, "
+                "mfcc_tpu_torch.examples.int_walkthrough, "
+                "mfcc_tpu_torch.examples.serving_demo, "
+                "mfcc_tpu_torch.examples.server_loadtest; "
                 "bad = sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'mfcc_tpu.')) "
                 "or m == 'mfcc_tpu'); print(bad); sys.exit(1 if bad else 0)"],

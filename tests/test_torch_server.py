@@ -257,6 +257,95 @@ def test_server_dispatch_rolls_back_idle_slots():
         srv.stop()
 
 
+def test_connections_share_one_reader(audio_int16):
+    """64 clients at once take no thread each (one reader thread receives
+    for all), each gets its own oracle frames, and every slot is released
+    after its EOF flush; a slot frees for the next client."""
+    N = 64
+    srv = FeatureServer(CFG, max_streams=N, chunk=512, device="cpu").start()
+    try:
+        host, port = srv.address
+        threads_before = threading.active_count()
+        socks = [socket.create_connection((host, port), timeout=TIMEOUT)
+                 for _ in range(N)]
+        sigs = [np.roll(audio_int16, 7 * i).astype(np.int16)
+                for i in range(N)]
+        for sock, sig in zip(socks, sigs):
+            sock.sendall(transport.encode_stream(sig, reset_first=True)
+                         .astype("<u4").tobytes())
+        deadline = time.time() + TIMEOUT
+        while time.time() < deadline and sum(
+                1 for s_ in srv._slots if s_.conn is not None) < N:
+            time.sleep(0.01)
+        assert threading.active_count() <= threads_before + 2
+        for sock in socks:
+            sock.shutdown(socket.SHUT_WR)
+        for sock, sig in zip(socks, sigs):
+            got = _read_all(sock)            # until the server closes
+            assert np.array_equal(got, _oracle(sig))
+            sock.close()
+        deadline = time.time() + TIMEOUT
+        while time.time() < deadline and any(
+                s_.conn is not None for s_ in srv._slots):
+            time.sleep(0.01)
+        assert all(s_.conn is None for s_ in srv._slots)
+        assert not srv._closing or all(
+            srv._release_if_drained(c) for c in srv._closing)
+        cols = stream_samples(host, port, audio_int16, 32, timeout=TIMEOUT)
+        assert np.array_equal(cols, _oracle(audio_int16))
+    finally:
+        srv.stop()
+
+
+def test_backlog_burst_is_accepted_in_order(audio_int16):
+    """Connections made before ``start`` wait in the listen backlog; the
+    reader accepts the burst in arrival order, one slot each, and closes
+    the one that finds every slot taken."""
+    N = 4
+    srv = FeatureServer(CFG, max_streams=N, chunk=512, device="cpu")
+    try:
+        host, port = srv.address
+        socks = [socket.create_connection((host, port), timeout=TIMEOUT)
+                 for _ in range(N + 1)]
+        srv.start()
+        assert socks[N].recv(1) == b""       # rejected: closed unanswered
+        sigs = [np.roll(audio_int16, 11 * i).astype(np.int16)
+                for i in range(N)]
+        for sock, sig in zip(socks, sigs):
+            sock.sendall(transport.encode_stream(sig, reset_first=True)
+                         .astype("<u4").tobytes())
+            sock.shutdown(socket.SHUT_WR)
+        for sock, sig in zip(socks, sigs):
+            assert np.array_equal(_read_all(sock), _oracle(sig))
+    finally:
+        for sock in socks:
+            sock.close()
+        srv.stop()
+
+
+def test_reset_connection_is_released(audio_int16):
+    """A client that resets its connection (unread replies, SO_LINGER 0)
+    ends like an EOF: its slot is flushed and released, nothing raised."""
+    srv = FeatureServer(CFG, max_streams=1, chunk=512, device="cpu").start()
+    try:
+        host, port = srv.address
+        sock = socket.create_connection((host, port), timeout=TIMEOUT)
+        sock.sendall(transport.encode_stream(np.tile(audio_int16, 3))
+                     .astype("<u4").tobytes())
+        time.sleep(0.3)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                        b"\x01\x00\x00\x00\x00\x00\x00\x00")
+        sock.close()
+        deadline = time.time() + TIMEOUT
+        while time.time() < deadline and srv._slots[0].conn is not None:
+            time.sleep(0.01)
+        assert srv._slots[0].conn is None
+        cols = stream_samples(host, port, audio_int16, 32, timeout=TIMEOUT)
+        assert np.array_equal(cols, _oracle(audio_int16))
+    finally:
+        srv.stop()
+
+
 def test_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")

@@ -360,7 +360,8 @@ def test_streaming_sharded_matches_jax(mesh, jmesh, audio_int16, int_path):
     step = streaming_sharded_fn(mesh, CFG, int_path=int_path)
     assert step.selected_impl == "chain-step/dp"
     state = shard_state(streaming.init_state(
-        S, CFG, torch.int32 if int_path else torch.float32), mesh)
+        S, CFG, torch.int32 if int_path else torch.float32, device="cpu"),
+        mesh)
     outs = [[] for _ in range(S)]
     for chunk, n, (jf, jm) in zip(chunks, lengths, jouts):
         feats, mask, state = step(

@@ -66,7 +66,7 @@ def test_chunk_step_batch_matches_jax(int_path, C):
                 else (np.float32, torch.float32))
     jstate = jstreaming.init_state(S, JCFG, jnp.int32 if int_path
                                    else jnp.float32)
-    tstate = streaming.init_state(S, CFG, tdt)
+    tstate = streaming.init_state(S, CFG, tdt, device="cpu")
     emph = (functools.partial(framing.preemphasis_int, width=16) if int_path
             else framing.preemphasis)
     lengths_at = {1: [C, C // 2, -3], 3: [0, C + 5, 1]}
@@ -533,8 +533,21 @@ def test_fast_precision_raises_off_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("precision", ["high", "default", "bf16"])
 def test_unported_precision_raises(precision):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        StreamingMFCC(precision=precision, device="cpu")
+    """``StreamingMFCC(precision=p)`` for "high", "default" and "bf16" on
+    the CPU: every step on the chain at full float32, as JAX's streams on
+    its CPU: the chunked output within ``TOL_JAX`` of JAX's ``process`` and
+    of the batch chain (the test keeps the id of the raise test it
+    replaced)."""
+    sm = StreamingMFCC(precision=precision, device="cpu")
+    assert sm._route == "chain"
+    x = _signal(2, 1500, seed=21).astype(np.float32)
+    outs, _ = sm.process(x, 600)
+    jouts, _ = jstreaming.StreamingMFCC(precision=precision).process(x, 600)
+    batch = MFCC(precision=precision, device="cpu")(x).numpy()
+    for s in range(2):
+        assert outs[s].shape == jouts[s].shape == batch[s].shape == (6, 32)
+        assert np.abs(outs[s] - jouts[s]).max() <= TOL_JAX
+        assert np.abs(outs[s] - batch[s]).max() <= TOL_JAX
 
 
 def test_default_device_is_the_card():
@@ -544,6 +557,24 @@ def test_default_device_is_the_card():
         StreamingMFCC()
     with pytest.raises(RuntimeError, match='device="cpu"'):
         streaming.load_state("nowhere.npz")
+
+
+def test_init_state_default_device_is_the_card():
+    """``init_state`` lands on the card, as JAX's lands on the default
+    device: here (no card) it raises naming ``device="cpu"``, which
+    works."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match='init_state.*device="cpu"'):
+        streaming.init_state(2)
+    st = streaming.init_state(2, CFG, torch.int32, device="cpu")
+    assert all(t.device.type == "cpu" for t in st)
+    assert st.buffer.shape == (2, P) and st.buffer.dtype == torch.int32
+    assert st.count.dtype == torch.int32 and not st.count.any()
+    jst = jstreaming.init_state(2, JCFG, jnp.int32)
+    for f in StreamState._fields:
+        assert np.array_equal(getattr(st, f).numpy(),
+                              np.asarray(getattr(jst, f)))
 
 
 def test_input_on_another_device_raises():

@@ -13,6 +13,7 @@ within TOL_JAX = 1e-4 (tests/test_torch_pipeline.py).
 import filecmp
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -170,7 +171,25 @@ def test_utils_modules_are_the_counterparts():
 
 
 def test_compat_is_a_bit_identical_copy():
-    for name in ("__init__.py", "librosa_mfcc.py"):
-        assert filecmp.cmp(os.path.join(REPO, "mfcc_tpu", "compat", name),
-                           os.path.join(REPO, "mfcc_tpu_torch", "compat",
-                                        name), shallow=False), name
+    """``compat/`` and ``io/wav.py`` are the JAX package's files byte for
+    byte."""
+    for name in ("compat/__init__.py", "compat/librosa_mfcc.py",
+                 "io/wav.py"):
+        assert filecmp.cmp(os.path.join(REPO, "mfcc_tpu", name),
+                           os.path.join(REPO, "mfcc_tpu_torch", name),
+                           shallow=False), name
+
+
+@pytest.mark.parametrize("name", ["io/capture.py", "utils/viewer.py"])
+def test_capture_and_viewer_are_copies(name):
+    """``io/capture.py`` and ``utils/viewer.py`` are the JAX package's files
+    byte for byte, except that their docstrings cite the reference's
+    sources by their path in the reference repository, not in a checkout
+    on one machine."""
+    def read(pkg):
+        with open(os.path.join(REPO, pkg, name), "rb") as f:
+            return f.read()
+    want, got = read("mfcc_tpu"), read("mfcc_tpu_torch")
+    assert got == re.sub(rb"\(/\w+/reference/", b"(reference ", want, count=1)
+    code = lambda src: src.split(b'"""', 2)[2]      # after the docstring
+    assert code(got) == code(want) and len(code(got)) > 1000
