@@ -1,0 +1,9 @@
+"""The share of the window that ``FeatureServer``'s deliver took: the change of
+its ``stats()["deliver_s"]`` over the window, over the window."""
+
+
+def read(layer):
+    st = layer.get("server_stats")
+    if not st:
+        return None
+    return 100.0 * st["deliver_s"] / layer["window_s"]
