@@ -402,6 +402,20 @@ def cmd_selftest(args) -> int:
     return 0 if ok else 1
 
 
+def status_line(st: dict, activity: list) -> str:
+    """``serve``'s status line: the slots that have received, the steps
+    and frames, and the server's cumulative seconds -- the stepper's
+    gather, dispatch and backpressure, the delivery's split (``stats()``)."""
+    seen = sum(1 for rx, _ in activity if rx)
+    return (f"slots_seen={seen}/{len(activity)} steps={st['steps']} "
+            f"frames_tx={st['frames_tx']} gather={st['gather_s']:.1f}s "
+            f"compute={st['compute_s']:.1f}s "
+            f"backpressure={st['backpressure_s']:.1f}s "
+            f"deliver={st['deliver_s']:.1f}s "
+            f"(readback={st['readback_wait_s']:.1f}s "
+            f"encode={st['encode_s']:.1f}s send={st['send_s']:.1f}s)")
+
+
 def cmd_serve(args) -> int:
     """Run the FeatureServer as a long-lived TCP service -- the reference's
     device role (the FPGA behind the FT601 link, wav2mfcc.py:15-47) as a
@@ -437,13 +451,7 @@ def cmd_serve(args) -> int:
                             1.0 if args.duration else args.stats_every))
             st = srv.stats()
             if args.duration is None or st["steps"]:
-                act = srv.activity()
-                busy = sum(1 for rx, _ in act if rx)
-                print(f"slots_seen={busy}/{args.streams} "
-                      f"steps={st['steps']} frames_tx={st['frames_tx']} "
-                      f"gather={st['gather_s']:.1f}s "
-                      f"compute={st['compute_s']:.1f}s "
-                      f"deliver={st['deliver_s']:.1f}s", flush=True)
+                print(status_line(st, srv.activity()), flush=True)
     except KeyboardInterrupt:
         print("stopping", flush=True)
     srv.stop()

@@ -8,20 +8,40 @@ sends at the real-time rate (C/16000 s period).
 
     python -m mfcc_tpu_torch.examples.server_loadtest --streams 256 --seconds 8
     python -m mfcc_tpu_torch.examples.server_loadtest --streams 64 --backend cpu
+    python -m mfcc_tpu_torch.examples.server_loadtest --streams 112 \
+        --seconds 4 --trace-out trace/
 
 One sender thread paces all sockets; one selector-driven reader drains
 replies, so the harness itself scales to hundreds of connections.  The
 client side is ``run_clients``, which any server address can be driven
 with; it returns what each client sent and received.
+
+``--trace-out DIR`` turns on the server's span ring and starts
+``torch.profiler`` before the server exists (started later, it records
+none of the server threads' launches); DIR gets ``timeline.json`` (the
+profiler's trace with the server's spans, one clock: load it in Perfetto)
+and ``server.json`` (the spans alone), and the run prints the card's
+longest idle gaps in the load, each with the share of it that each server
+thread's phases cover.
 """
 
 import argparse
+import contextlib
+import json
+import os
 import selectors
 import socket
 import threading
 import time
 
 import numpy as np
+
+# spans the ring keeps with --trace-out: a chunk leaves ~5 (its recv, wait
+# in the slot, encode, send, path) and a step ~9, so 8 s of 1,024 streams
+TRACE_CAPACITY = 1 << 20
+SERVER_THREADS = ("stepper", "delivery", "reader")
+# the profiler's Chrome-trace categories of the card's own work
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def client_signal(chunk: int) -> np.ndarray:
@@ -180,6 +200,11 @@ def main(argv=None) -> int:
                     help="where the server step runs: 'cuda' (default) is "
                          "the card; 'cpu' the host")
     ap.add_argument("--tick", type=float, default=0.002)
+    ap.add_argument("--trace-out", metavar="DIR",
+                    help="record the server's spans and a torch.profiler "
+                         "trace; write both to DIR on one clock and print "
+                         "the card's longest idle gaps with the server "
+                         "spans that cover them")
     args = ap.parse_args(argv)
 
     from mfcc_tpu_torch.config import MFCCConfig
@@ -193,22 +218,138 @@ def main(argv=None) -> int:
           f"{'float' if args.float else 'int'} path, "
           f"device={args.backend} ... (the first start builds the kernels)",
           flush=True)
-    s = srv.FeatureServer(cfg, max_streams=N, chunk=C,
-                          int_path=not args.float, tick_s=args.tick,
-                          device=device).start()
-    try:
-        host, port = s.address
-        st0 = s.stats()                 # snapshot: occupancy over the load
-        run = run_clients(host, port, N, C, args.seconds, cfg.nceptrums,
-                          cfg.samplerate)
-        st = {k: v - st0[k] for k, v in s.stats().items()}
-    finally:
-        s.stop()
+    trace = args.trace_out is not None
+    with (_profiler(device) if trace else contextlib.nullcontext()) as prof:
+        s = srv.FeatureServer(cfg, max_streams=N, chunk=C,
+                              int_path=not args.float, tick_s=args.tick,
+                              device=device,
+                              trace_capacity=TRACE_CAPACITY if trace else 0
+                              ).start()
+        try:
+            host, port = s.address
+            # occupancy over the load and the clients' close that drains
+            # it, over the same stretch of wall time
+            st0, t0 = s.stats(), time.perf_counter()
+            t_load = time.time_ns()
+            run = run_clients(host, port, N, C, args.seconds, cfg.nceptrums,
+                              cfg.samplerate)
+            t_end = time.time_ns()
+            st = {k: v - st0[k] for k, v in s.stats().items()}
+            stats_s = time.perf_counter() - t0
+        finally:
+            s.stop()
     summary = summarize(run, N, cfg.nceptrums, cfg.samplerate, cfg.hop)
     print(f"streams={N} chunk={C} path={'float' if args.float else 'int'} "
           f"device={args.backend}")
-    print_summary(summary, st, run["elapsed"])
+    print_summary(summary, st, stats_s)
+    if trace:
+        write_trace(args.trace_out, prof, s, t_load, t_end)
     return 0
+
+
+def _profiler(device):
+    """``torch.profiler`` over the host ops of every thread (by default it
+    records only the thread that starts it) and the card's activity."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):      # a torch without the option
+        return profile(activities=acts)
+    return profile(activities=acts, experimental_config=config)
+
+
+def write_trace(out_dir: str, prof, server, t0_ns: int, t1_ns: int,
+                top: int = 10) -> None:
+    """Write ``timeline.json`` (the profiler's Chrome trace with the
+    server's spans on its clock) and ``server.json`` (the spans alone) to
+    ``out_dir``; print the card's idle share over the load [t0_ns, t1_ns]
+    (epoch ns) and its ``top`` longest idle gaps, each with the share of
+    it that each server thread's phases cover."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "timeline.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        timeline = json.load(f)
+    base = int(timeline.get("baseTimeNanoseconds", 0))
+    spans = server.trace_events(base)
+    with open(os.path.join(out_dir, "server.json"), "w") as f:
+        json.dump({"traceEvents": spans, "baseTimeNanoseconds": base}, f)
+    timeline["traceEvents"] += spans
+    with open(path, "w") as f:
+        json.dump(timeline, f)
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in timeline["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    lo, hi = (t0_ns - base) / 1e3, (t1_ns - base) / 1e3
+    print(f"trace: {len(spans)} server events and the profiler's in "
+          f"{path}")
+    if not device:
+        print("device: no device activity recorded")
+        return
+    idle, gaps = idle_gaps(device, spans, lo, hi, top)
+    print(f"device: idle {idle * 100:.2f}% of the load "
+          f"({(hi - lo) / 1e6:.3f} s); longest idle gaps, each with the "
+          f"share of it that each server thread's phases cover:")
+    for start, dur, cover in gaps:
+        where = "; ".join(
+            f"{t} " + ", ".join(f"{name} {share * 100:.0f}%"
+                                for name, share in phases[:3])
+            for t, phases in cover.items()) or "no server span"
+        print(f"  {dur / 1e3:.3f} ms at +{(start - lo) / 1e6:.4f} s: {where}")
+
+
+def idle_gaps(device: list, spans: list, lo: float, hi: float,
+              top: int = 10) -> tuple:
+    """The card's idle share of [lo, hi] and its ``top`` longest idle
+    gaps there, from ``device`` ((start, end) of each device activity) and
+    the server's ``spans`` (``trace_events``), all in µs on one clock.  A
+    gap is (start, length, {thread: [(phase, share of the gap its spans
+    cover), ...] most first}), each server thread's phases named by its
+    innermost spans (a dispatch by its parts); what no span covers is the
+    thread between phases, or waiting for the interpreter lock at their
+    edges."""
+    busy = []
+    for a, b in sorted(device):
+        a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    edges = [lo] + [x for ab in busy for x in ab] + [hi]
+    gaps = sorted(((edges[i], edges[i + 1])
+                   for i in range(0, len(edges), 2)
+                   if edges[i + 1] > edges[i]), key=lambda g: g[0] - g[1])
+    idle = sum(b - a for a, b in gaps) / (hi - lo)
+    names = {e["tid"]: e["args"]["name"] for e in spans if e["ph"] == "M"}
+    xs = [e for e in spans if e["ph"] == "X"]
+    parents = {e["args"]["parent"] for e in xs if "parent" in e["args"]}
+    threads = {}
+    for t in SERVER_THREADS:
+        mine = [e for e in xs if names.get(e["tid"]) == f"FeatureServer {t}"
+                and e["args"]["id"] not in parents]
+        if mine:
+            ts = np.array([e["ts"] for e in mine])
+            phase, which = np.unique([e["name"] for e in mine],
+                                     return_inverse=True)
+            threads[t] = (phase, which, ts,
+                          ts + np.array([e["dur"] for e in mine]))
+    out = []
+    for a, b in gaps[:top]:
+        cover = {}
+        for t, (phase, which, ts, te) in threads.items():
+            ov = np.clip(np.minimum(te, b) - np.maximum(ts, a), 0, None)
+            by = np.bincount(which, weights=ov, minlength=len(phase))
+            order = [k for k in np.argsort(-by, kind="stable") if by[k] > 0]
+            if order:
+                cover[t] = [(str(phase[k]), float(by[k] / (b - a)))
+                            for k in order]
+        out.append((a, b - a, cover))
+    return idle, out
 
 
 def summarize(run: dict, n_streams: int, ncep: int,
@@ -230,20 +371,30 @@ def summarize(run: dict, n_streams: int, ncep: int,
 
 
 def print_summary(summary: dict, st: dict, elapsed: float) -> None:
-    """The JAX example's summary lines; ``st`` is the server's stats over
-    the load window."""
-    busy = st["gather_s"] + st["compute_s"] + st["deliver_s"]
+    """The JAX example's summary lines, and the occupancy of the server's
+    threads; ``st`` is the change of the server's stats over ``elapsed``
+    wall seconds."""
+    def pct(key):
+        return f"{st[key] / elapsed * 100:.1f}%"
+
     print(f"sustained: {summary['fps']:,.0f} frames/s "
           f"({summary['rt_share'] * 100:.1f}% of the offered "
           f"real-time load; sender missed {summary['missed']} periods)")
     print(f"latency: p50={summary['p50_ms']:.1f} ms "
           f"p99={summary['p99_ms']:.1f} ms (chunk period "
           f"{summary['period_ms']:.0f} ms)")
-    print(f"stepper: {st['steps']} steps, occupancy "
-          f"{busy/elapsed*100:.1f}% (gather {st['gather_s']/elapsed*100:.1f}%"
-          f" + dispatch {st['compute_s']/elapsed*100:.1f}%"
-          f" + deliver {st['deliver_s']/elapsed*100:.1f}%), "
+    print(f"stepper: {st['steps']} steps, gather {pct('gather_s')} + "
+          f"dispatch {pct('compute_s')} + backpressure "
+          f"{pct('backpressure_s')} + wait {pct('wait_s')}, "
           f"{st['idle_ticks']} idle ticks")
+    print(f"delivery: deliver {pct('deliver_s')} (readback wait "
+          f"{pct('readback_wait_s')} + encode {pct('encode_s')} + send "
+          f"{pct('send_s')}), a step "
+          f"{st['outq_wait_s'] / max(st['steps'], 1) * 1e3:.2f} ms in the "
+          f"queue")
+    print(f"reader: {st['recvs']} recvs, {pct('reader_s')} outside select; "
+          f"cpu: stepper {pct('stepper_cpu_s')}, delivery "
+          f"{pct('delivery_cpu_s')}, reader {pct('reader_cpu_s')} of a core")
 
 
 if __name__ == "__main__":

@@ -36,12 +36,24 @@ its slot, not by a poll.
 
 Activity counters (rx words / tx frames per slot) are the analogue of the
 reference's BlinkerKeep RX/TX LEDs (wav2mfcc.py:38-47).
+
+Each thread's time is split by always-on counters (``stats()``): the
+stepper's into gather, dispatch, backpressure and wait; the delivery's into
+readback wait, encode, send and release; the reader's work apart from its
+wait in ``select``; and each thread's CPU time.  With ``trace_capacity``
+above 0 the server also keeps a bounded ring of spans -- each phase of each
+thread and each chunk's path from its slot to its send -- exported on the
+epoch clock of ``torch.profiler``'s events (``trace_events``, the status
+plane's ``TRACE``), so that both load as one timeline.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import logging
+import os
 import queue
 import selectors
 import socket
@@ -49,6 +61,7 @@ import socketserver
 import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,12 +80,16 @@ log = logging.getLogger("mfcc_tpu_torch.server")
 @dataclass
 class _Slot:
     lock: threading.Lock = field(default_factory=threading.Lock)
-    pending: list = field(default_factory=list)   # [(samples, reset_first)]
+    # [(samples, reset_first, arrival ns)]: the perf_counter_ns() of the
+    # recv that brought the segment travels with it
+    pending: list = field(default_factory=list)
     n_buffered: int = 0
     rx_words: int = 0
     tx_frames: int = 0
     reset_pending: bool = False
     eof: bool = False              # client closed its write side: flush
+    eof_ns: int = 0                # perf_counter_ns() of that EOF
+    seq: int = 0                   # chunks gathered since the connection
     conn: object = None            # the slot's _Conn, None when free
     in_flight: int = 0             # gathered chunks not yet delivered; a
     #   COUNTER, not a flag: the pipelined stepper can have two steps in
@@ -97,6 +114,50 @@ class _Conn:
                 pass
 
 
+class _Step(NamedTuple):
+    """What travels with a dispatched step to its delivery: its id, the
+    perf_counter_ns() at the end of its dispatch (its time in the queue
+    runs from there), and, with the span ring on, (slot, seq, whole ns,
+    taken ns) of each chunk it carries, in slot order (None otherwise)."""
+    id: int
+    t_put: int
+    chunks: list | None
+
+
+class _Spans:
+    """The span ring: a bounded deque of span records stamped with
+    ``time.perf_counter_ns()``, and one anchor pair that puts them on the
+    epoch clock of ``torch.profiler``'s events.
+
+    A record is ``(id, name, start_ns, end_ns, thread, step, slot, seq,
+    parent)``: ``thread`` is "stepper", "delivery" or "reader", or the
+    track of a span that crosses threads ("outq" for a step's wait in the
+    queue, "chunk" for a chunk's path and its wait in its slot); -1 where
+    a field does not apply, ``parent`` 0 for none."""
+
+    def __init__(self, capacity: int):
+        self.records = collections.deque(maxlen=capacity)
+        self._ids = itertools.count(1)
+        p0 = time.perf_counter_ns()
+        epoch = time.time_ns()
+        p1 = time.perf_counter_ns()
+        self.offset_ns = epoch - (p0 + p1) // 2   # epoch ns - perf ns
+        self.threads = {}                        # thread -> native id
+
+    def new_id(self) -> int:
+        return next(self._ids)
+
+    def add(self, name, t0, t1, thread, step=-1, slot=-1, seq=-1,
+            parent=0, sid=0) -> None:
+        self.records.append((sid or next(self._ids), name, t0, t1, thread,
+                             step, slot, seq, parent))
+
+
+# the tracks of the spans that cross threads, clear of any thread id: a
+# slot's chunks at _TRACKS + slot, the queue's lanes below _TRACKS
+_TRACKS = 1 << 30
+
+
 class FeatureServer:
     """Batched multi-client streaming MFCC server."""
 
@@ -107,7 +168,8 @@ class FeatureServer:
                  device=None, mel_floor: float | None = None,
                  pipeline_depth: int = 2,
                  transposed_chunks: bool = False,
-                 status_port: int | None = None):
+                 status_port: int | None = None,
+                 trace_capacity: int = 0):
         """``device``: where the batched step runs; ``None`` is the card
         (``"cuda"``) and raises on a host without one; ``device="cpu"``
         runs the plain torch versions on the host (small dev servers,
@@ -135,7 +197,12 @@ class FeatureServer:
         FT601WishboneBridge (mfcc/io/ft601.py:214-330), which maps register
         reads/writes onto the same USB3 link.  The registers are the
         observability counters the server already keeps; see
-        _handle_status_conn for the line protocol."""
+        _handle_status_conn for the line protocol.
+
+        ``trace_capacity``: when above 0, keep the last that many spans
+        (each thread's phases, each chunk's path) in memory for
+        ``trace_events``; 0 (default) records none and allocates
+        nothing."""
         self.cfg = cfg
         self.chunk = chunk
         self.int_path = int_path
@@ -153,11 +220,20 @@ class FeatureServer:
         self._stop = threading.Event()
         self._data = threading.Event()     # set when a slot buffers data
         self._tick_s = tick_s
-        # stepper-loop occupancy instrumentation: cumulative wall seconds
-        # inside gather / dispatch / delivery
-        self._stats = {"steps": 0, "idle_ticks": 0, "gather_s": 0.0,
-                       "compute_s": 0.0, "deliver_s": 0.0, "frames_tx": 0}
-        self._stats_lock = threading.Lock()
+        # occupancy counters, cumulative (seconds of wall or CPU time,
+        # counts; see stats()): each thread writes only its own dict, so
+        # none takes a lock that the others would queue on
+        self._stepper_counts = {"idle_ticks": 0, "chunks": 0, **dict.fromkeys(
+            ("gather_s", "compute_s", "backpressure_s", "wait_s",
+             "slot_wait_s", "stepper_cpu_s"), 0.0)}
+        self._delivery_counts = {"steps": 0, "frames_tx": 0, **dict.fromkeys(
+            ("deliver_s", "outq_wait_s", "readback_wait_s", "encode_s",
+             "send_s", "delivery_cpu_s"), 0.0)}
+        self._reader_counts = {"recvs": 0, "reader_s": 0.0,
+                               "reader_cpu_s": 0.0}
+        self._spans = _Spans(trace_capacity) if trace_capacity > 0 else None
+        self._next_step = 0                # the stepper's step ids
+        self._delivering = None            # the _Step the delivery is on
         # dispatched-but-undelivered steps; put() blocking when full is the
         # backpressure that bounds device-side divergence from delivery
         self._outq = queue.Queue(maxsize=max(1, pipeline_depth))
@@ -202,6 +278,7 @@ class FeatureServer:
                     s.tx_frames = 0
                     s.reset_pending = True   # fresh stream = reset carry
                     s.eof = False
+                    s.seq = 0
                     s.in_flight = 0
                     return i
         return -1
@@ -247,6 +324,7 @@ class FeatureServer:
         slot = self._slots[conn.idx]
         with slot.lock:
             slot.eof = True
+            slot.eof_ns = time.perf_counter_ns()
         conn.eof_at = time.time()
         self._closing.append(conn)
         self._data.set()
@@ -291,7 +369,10 @@ class FeatureServer:
 
     def _run_reader(self):
         """Reader thread: accept the waiting connections, receive from
-        every readable one, and release the EOF'd ones that drained."""
+        every readable one, and release the EOF'd ones that drained.  Its
+        time outside ``select`` is ``reader_s``."""
+        self._name_thread("reader")
+        cpu0 = time.thread_time()
         while not self._stop.is_set():
             try:
                 events = self._sel.select(timeout=0.25)
@@ -299,10 +380,13 @@ class FeatureServer:
                 if self._stop.is_set():
                     return
                 continue
+            t0 = time.perf_counter_ns()
+            recvs = 0
             for key, _ in events:
                 if key.data is None:           # the listening socket
                     self._accept_all()
                     continue
+                recvs += 1
                 try:
                     self._receive(key.data)
                 except Exception:
@@ -311,10 +395,19 @@ class FeatureServer:
                     self._eof(key.data)
             if self._closing:
                 self._reap()
+            t1 = time.perf_counter_ns()
+            cpu1 = time.thread_time()
+            st = self._reader_counts
+            st["reader_s"] += (t1 - t0) / 1e9
+            st["recvs"] += recvs
+            st["reader_cpu_s"] += cpu1 - cpu0
+            cpu0 = cpu1
 
     def _receive(self, conn: "_Conn"):
         """One recv on a readable connection: decode the sample words into
-        its slot, or mark its EOF (a reset connection ends like one)."""
+        its slot, or mark its EOF (a reset connection ends like one).  The
+        recv's start stamps the segments it brings."""
+        t0 = time.perf_counter_ns()
         try:
             data = conn.sock.recv(65536)
         except BlockingIOError:
@@ -346,10 +439,13 @@ class FeatureServer:
             # as its own 4-byte write, software/main.c mfcc_softreset)
             for s_arr, reset_first in transport.split_resets(
                     samples, resets, trailing_reset):
-                slot.pending.append((s_arr, reset_first))
+                slot.pending.append((s_arr, reset_first, t0))
                 slot.n_buffered += len(s_arr)
             gatherable = ((before < self.chunk <= slot.n_buffered)
                           or bool(resets.any()) or trailing_reset)
+        if self._spans is not None:
+            self._spans.add("recv", t0, time.perf_counter_ns(), "reader",
+                            slot=idx)
         if gatherable:
             # wake the stepper when this slot becomes gatherable (a full
             # chunk, or a reset that may bound a run), not on every recv: a
@@ -368,9 +464,12 @@ class FeatureServer:
         server's live observability state:
 
           PING              -> PONG                     (link probe)
-          STATS             -> stepper occupancy counters (stats())
+          STATS             -> the threads' occupancy counters (stats())
           SLOTS             -> per-slot {active, rx_words, tx_frames,
                                buffered, in_flight}     (the RX/TX LEDs)
+          TRACE             -> the span ring as a Chrome trace,
+                               {"traceEvents": trace_events()} (empty
+                               with trace_capacity 0)
           CONFIG            -> frame geometry + serving parameters
           LOGLEVEL [LEVEL]  -> read, or set (DEBUG|INFO|WARNING|ERROR),
                                the server log level    (the control write)
@@ -384,6 +483,8 @@ class FeatureServer:
                     reply = "PONG"
                 elif cmd == "STATS":
                     reply = json.dumps(self.stats())
+                elif cmd == "TRACE":
+                    reply = json.dumps({"traceEvents": self.trace_events()})
                 elif cmd == "SLOTS":
                     reply = json.dumps([
                         {"active": s.conn is not None, "rx_words": s.rx_words,
@@ -425,8 +526,14 @@ class FeatureServer:
 
     def _gather(self):
         """Collect one chunk per ready slot -> (chunks, resets, active,
-        lengths).  An EOF'd slot with a residual partial run is flushed as a
-        zero-padded chunk with an explicit sample length."""
+        lengths, taken).  An EOF'd slot with a residual partial run is
+        flushed as a zero-padded chunk with an explicit sample length.
+
+        ``taken`` is (the chunks taken, their waits in their slots summed in
+        ns, and with the span ring on their (slot, seq, whole ns, taken ns)
+        in slot order, else None).  A chunk is whole at the recv that
+        completed it, a flush run at the reset word or EOF that bounds
+        it."""
         C = self.chunk
         S = self.max_streams
         # int16 is the wire dtype AND the INT kernel's native ingest: half
@@ -437,6 +544,8 @@ class FeatureServer:
         resets = np.zeros(S, dtype=bool)
         active = np.zeros(S, dtype=bool)
         lengths = np.full(S, C, dtype=np.int32)
+        n_taken = wait_ns = 0
+        taken = [] if self._spans is not None else None
         for i, slot in enumerate(self._slots):
             if slot.conn is None:     # racy-but-benign fast skip (GIL read;
                 continue              # _alloc_slot confirms under the lock)
@@ -448,7 +557,7 @@ class FeatureServer:
                 # buffered samples (e.g. a file boundary -- the run's frames
                 # must be emitted without waiting for more input)
                 bounded = any(r and j > 0
-                              for j, (_, r) in enumerate(slot.pending))
+                              for j, (_, r, _) in enumerate(slot.pending))
                 if slot.n_buffered < C and not slot.eof and not bounded:
                     continue
                 # A chunk holds samples of ONE reset epoch.  In hardware,
@@ -458,37 +567,40 @@ class FeatureServer:
                 # word arrives mid-fill, the pre-reset run is FLUSHED as a
                 # length-limited chunk (its completable frames are emitted),
                 # and the reset epoch starts on the next gather.
-                got = 0
+                got = whole = 0
                 reset_first = slot.reset_pending
                 slot.reset_pending = False
                 row = chunks[:, i] if self.transposed_chunks else chunks[i]
                 while got < C and slot.pending:
-                    s_arr, seg_reset = slot.pending[0]
+                    s_arr, seg_reset, t_seg = slot.pending[0]
                     if seg_reset:
                         if got:           # flush the pre-reset run first
                             break
                         reset_first = True
-                        slot.pending[0] = (s_arr, False)
+                        slot.pending[0] = (s_arr, False, t_seg)
                         continue
                     take = min(C - got, len(s_arr))
                     row[got: got + take] = s_arr[:take]
                     got += take
+                    whole = t_seg
                     if take == len(s_arr):
                         slot.pending.pop(0)
                     else:
-                        slot.pending[0] = (s_arr[take:], False)
+                        slot.pending[0] = (s_arr[take:], False, t_seg)
                 if got < C:
                     if got and (slot.pending or slot.eof):
                         # run bounded by a reset word (pending head) or by
                         # EOF: flush as a length-limited chunk (padding is
                         # masked out, carry keeps only real samples)
                         lengths[i] = got
+                        whole = (slot.pending[0][2] if slot.pending
+                                 else slot.eof_ns)
                     else:
                         # not enough data yet: put the run back intact
                         if got:
                             slot.pending.insert(
                                 0, (row[:got].copy()
-                                    .astype(chunks.dtype), False))
+                                    .astype(chunks.dtype), False, whole))
                             row[:got] = 0
                         slot.reset_pending = reset_first
                         continue
@@ -496,7 +608,14 @@ class FeatureServer:
                 resets[i] = reset_first
                 active[i] = True
                 slot.in_flight += 1
-        return chunks, resets, active, lengths
+                seq = slot.seq
+                slot.seq += 1
+            now = time.perf_counter_ns()
+            n_taken += 1
+            wait_ns += now - whole
+            if taken is not None:
+                taken.append((i, seq, whole, now))
+        return chunks, resets, active, lengths, (n_taken, wait_ns, taken)
 
     def _step_once(self) -> bool:
         """One stepper tick: gather + dispatch (async device work + async
@@ -505,35 +624,59 @@ class FeatureServer:
         computes step k+2 while step k+1's results cross the wire and step
         k's frames are on the sockets.  The state chains step-to-step on
         the device, so the host never waits on it.  A slot's in_flight
-        count holds from gather until ITS delivery."""
-        t0 = time.perf_counter()
-        chunks, resets, active, lengths = self._gather()
-        t1 = time.perf_counter()
-        dispatched = None
-        if active.any():
+        count holds from gather until ITS delivery.  The tick's gather,
+        dispatch and blocked put are ``gather_s``, ``compute_s`` and
+        ``backpressure_s``."""
+        spans = self._spans
+        t0 = time.perf_counter_ns()
+        chunks, resets, active, lengths, (n, wait_ns, taken) = self._gather()
+        t1 = time.perf_counter_ns()
+        dispatched, step, sid = None, -1, 0
+        if n:
+            step = self._next_step
+            self._next_step += 1
+            if spans is not None:
+                sid = spans.new_id()
             try:
-                dispatched = self._dispatch(chunks, resets, active, lengths)
+                dispatched = self._dispatch(
+                    chunks, resets, active, lengths,
+                    None if spans is None else (step, sid))
             except Exception:
                 log.exception("stepper: batched dispatch failed")
                 self._clear_busy(active)
-        t2 = time.perf_counter()
-        with self._stats_lock:
-            self._stats["gather_s"] += t1 - t0
-            self._stats["compute_s"] += t2 - t1
-            if dispatched is None:
-                self._stats["idle_ticks"] += 1
+        t2 = time.perf_counter_ns()
         if dispatched is not None:
+            item = (*dispatched, _Step(step, t2, taken))
             while not self._stop.is_set():     # blocking put = backpressure
                 try:
-                    self._outq.put(dispatched, timeout=0.25)
+                    self._outq.put(item, timeout=0.25)
                     break
                 except queue.Full:
                     continue
+        t3 = time.perf_counter_ns()
+        st = self._stepper_counts
+        st["gather_s"] += (t1 - t0) / 1e9
+        st["compute_s"] += (t2 - t1) / 1e9
+        st["backpressure_s"] += (t3 - t2) / 1e9
+        st["chunks"] += n
+        st["slot_wait_s"] += wait_ns / 1e9
+        if dispatched is None:
+            st["idle_ticks"] += 1
+        if spans is not None:
+            spans.add("gather", t0, t1, "stepper", step)
+            if n:
+                spans.add("dispatch", t1, t2, "stepper", step, sid=sid)
+            if dispatched is not None:
+                spans.add("backpressure", t2, t3, "stepper", step)
         return dispatched is not None
 
     def _run_delivery(self):
         """Delivery thread: blocking host readback + per-slot sends, fully
-        overlapped with the stepper's gather/dispatch of later steps."""
+        overlapped with the stepper's gather/dispatch of later steps.  A
+        step's time from its dispatch to this thread taking it is
+        ``outq_wait_s``; its delivery is ``deliver_s``."""
+        self._name_thread("delivery")
+        cpu0 = time.thread_time()
         while True:
             try:
                 item = self._outq.get(timeout=self._tick_s)
@@ -541,15 +684,24 @@ class FeatureServer:
                 if self._stop.is_set():
                     return
                 continue
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
+            *args, step = item
+            self._delivering = step
             try:
-                self._deliver(*item)
+                self._deliver(*args)
             except Exception:
                 log.exception("delivery: failed")
-                self._clear_busy(item[2])
-            with self._stats_lock:
-                self._stats["deliver_s"] += time.perf_counter() - t0
-                self._stats["steps"] += 1
+                self._clear_busy(args[2])
+            t1 = time.perf_counter_ns()
+            cpu1 = time.thread_time()
+            st = self._delivery_counts
+            st["deliver_s"] += (t1 - t0) / 1e9
+            st["outq_wait_s"] += (t0 - step.t_put) / 1e9
+            st["steps"] += 1
+            st["delivery_cpu_s"] += cpu1 - cpu0
+            cpu0 = cpu1
+            if self._spans is not None:
+                self._spans.add("outq_wait", step.t_put, t0, "outq", step.id)
             self._outq.task_done()
 
     def _clear_busy(self, active):
@@ -575,24 +727,32 @@ class FeatureServer:
         host.copy_(t, non_blocking=True)
         return host
 
-    def _dispatch(self, chunks, resets, active, lengths):
+    def _dispatch(self, chunks, resets, active, lengths, span=None):
         """Enqueue the batched step, the inactive-slot state rollback, the
         int16 wire conversion and the copies to the host on the device
         (asynchronously); returns (wire, mask, active, event), the event
-        recorded after the copies (None on the CPU)."""
+        recorded after the copies (None on the CPU).  ``span``: (step id,
+        id of the dispatch span) when the span ring is on, to record the
+        three parts under it."""
         # all-full-chunk ticks (the steady serving state) take the fused
         # kernel; only ticks containing a flush (EOF / pre-reset run) pay
         # the length-masked chain step
         lens = None if (lengths == self.chunk).all() else lengths
         with self._device_ctx():
+            if span is not None:
+                t0 = time.perf_counter_ns()
             feats, mask, new_state = self._sm.step(chunks, self._state,
                                                    resets, lengths=lens)
+            if span is not None:
+                t1 = time.perf_counter_ns()
             # roll back the state of inactive slots (they were fed zeros);
             # each field is a fresh tensor, nothing is updated in place
             act = torch.as_tensor(active, device=self.device)
             self._state = StreamState(*(
                 torch.where(act.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
                 for n, o in zip(new_state, self._state)))
+            if span is not None:
+                t2 = time.perf_counter_ns()
             # wire format on the device: int16 is 2x (INT) to 4x (float)
             # less to copy back than the features
             if feats.is_floating_point():
@@ -603,32 +763,85 @@ class FeatureServer:
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record()
+        if span is not None:
+            t3 = time.perf_counter_ns()
+            step, parent = span
+            for name, a, b in (("dispatch.step", t0, t1),
+                               ("dispatch.rollback", t1, t2),
+                               ("dispatch.wire", t2, t3)):
+                self._spans.add(name, a, b, "stepper", step, parent=parent)
         return wire, mask, active, event
 
     def _deliver(self, wire, mask, active, event):
         """Wait for a dispatched step's copies (its event), then the
-        per-slot sends and the busy release."""
+        per-slot sends and the busy release: ``readback_wait_s``, then
+        ``encode_s`` (the host view, the mask, ``encode_frames``, the
+        counters) and ``send_s`` (the ``sendall``s) interleaved, slot by
+        slot.  With the span ring on, each chunk's path ends at its send;
+        the step is ``self._delivering``."""
+        spans = self._spans
+        step = self._delivering if spans is not None else None
+        t0 = time.perf_counter_ns()
         if event is not None:
             event.synchronize()
+        t1 = t = time.perf_counter_ns()
         wire, mask = wire.numpy(), mask.numpy()
+        st = self._delivery_counts
+        send_ns = k = 0
         for i, slot in enumerate(self._slots):
             if not active[i]:
                 continue
             cols = wire[i][mask[i]]
+            ts = te = None
             if len(cols):
                 data = transport.encode_frames(cols)
                 # count BEFORE the send: an observer who has received the
                 # frames must see them counted
-                with self._stats_lock:
-                    self._stats["frames_tx"] += len(cols)
+                st["frames_tx"] += len(cols)
                 with slot.lock:
                     conn = slot.conn
                     slot.tx_frames += len(cols)
                 if conn is not None:
+                    ts = time.perf_counter_ns()
                     conn.send(data)
+                    te = time.perf_counter_ns()
+                    send_ns += te - ts
+            if step is not None:
+                t = self._chunk_spans(step, k, t, ts, te)
+                k += 1
+        t2 = time.perf_counter_ns()
         self._clear_busy(active)
+        st["readback_wait_s"] += (t1 - t0) / 1e9
+        st["encode_s"] += (t2 - t1 - send_ns) / 1e9
+        st["send_s"] += send_ns / 1e9
+        if step is not None:
+            spans.add("readback_wait", t0, t1, "delivery", step.id)
+
+    def _chunk_spans(self, step: _Step, k: int, t: int, ts, te) -> int:
+        """Record the k-th chunk of ``step``: its wait in its slot, its
+        encode from ``t`` and its send [ts, te] (None when nothing was
+        sent), under one ``chunk`` span from whole to sent; returns where
+        the next chunk's encode starts."""
+        spans = self._spans
+        slot, seq, whole, taken = step.chunks[k]
+        end = te if te is not None else time.perf_counter_ns()
+        cid = spans.new_id()
+        spans.add("slot_wait", whole, taken, "chunk", step.id, slot, seq,
+                  parent=cid)
+        spans.add("encode", t, ts if ts is not None else end, "delivery",
+                  step.id, slot, seq, parent=cid)
+        if ts is not None:
+            spans.add("send", ts, te, "delivery", step.id, slot, seq,
+                      parent=cid)
+        spans.add("chunk", whole, end, "chunk", step.id, slot, seq,
+                  sid=cid)
+        return end
 
     def _run_stepper(self):
+        """Stepper thread: ticks, and between idle ticks the wait for a
+        gatherable slot (``wait_s``)."""
+        self._name_thread("stepper")
+        cpu0 = time.thread_time()
         while not self._stop.is_set():
             try:
                 self._data.clear()
@@ -637,11 +850,28 @@ class FeatureServer:
                 # a failing tick must not kill the serving loop
                 log.exception("stepper: tick failed")
                 stepped = False
+            waited = 0
             if not stepped:
                 # wait for data instead of polling the slot scan; the
                 # timeout bounds EOF-flush latency (a not-yet-ready slot
                 # becomes flushable with no new bytes arriving)
+                t0 = time.perf_counter_ns()
                 self._data.wait(self._tick_s)
+                t1 = time.perf_counter_ns()
+                waited = t1 - t0
+                if self._spans is not None:
+                    self._spans.add("wait", t0, t1, "stepper")
+            cpu1 = time.thread_time()
+            st = self._stepper_counts
+            st["wait_s"] += waited / 1e9
+            st["stepper_cpu_s"] += cpu1 - cpu0
+            cpu0 = cpu1
+
+    def _name_thread(self, name: str) -> None:
+        """Note the calling thread's native id under ``name`` (the span
+        ring's thread tracks, the profiler's thread ids)."""
+        if self._spans is not None:
+            self._spans.threads[name] = threading.get_native_id()
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -700,10 +930,70 @@ class FeatureServer:
         return [(s.rx_words, s.tx_frames) for s in self._slots]
 
     def stats(self):
-        """Stepper-loop occupancy counters: steps, idle_ticks, cumulative
-        seconds in the per-slot gather scan vs the batched compute+send,
-        and total frames sent (the serial-bottleneck observables)."""
-        return dict(self._stats)
+        """The occupancy counters, a flat dict of numbers, each cumulative
+        since the server was made and written by one thread only.
+
+        Counts: ``steps`` (delivered), ``idle_ticks`` (stepper ticks that
+        gathered nothing), ``frames_tx``, ``chunks`` (chunks and flush runs
+        gathered), ``recvs``.  Wall seconds of the stepper, which together
+        partition its time: ``gather_s``, ``compute_s`` (the dispatch),
+        ``backpressure_s`` (blocked on a full queue of dispatched steps),
+        ``wait_s`` (waiting for a gatherable slot).  Of the delivery:
+        ``deliver_s``, which is ``readback_wait_s`` (the step's event) +
+        ``encode_s`` + ``send_s`` + the release; ``outq_wait_s``, summed
+        over delivered steps from dispatch to delivery.  Of the reader:
+        ``reader_s`` (all but ``select``).  Of the chunks: ``slot_wait_s``,
+        summed from whole in the slot to gathered.  CPU seconds of each
+        thread: ``stepper_cpu_s``, ``delivery_cpu_s``, ``reader_cpu_s``
+        (wall minus CPU in a phase is time waiting for the interpreter lock
+        or in a system call)."""
+        # each dict copied whole while the interpreter lock is held
+        return {**self._stepper_counts, **self._delivery_counts,
+                **self._reader_counts}
+
+    def trace_events(self, base_ns: int = 0) -> list:
+        """The span ring as Chrome-trace events: an ``"X"`` event a span,
+        ``ts`` and ``dur`` in µs, ``ts`` on the epoch clock of
+        ``torch.profiler``'s events less ``base_ns`` (pass a profiler
+        export's ``baseTimeNanoseconds`` to share its timeline), ids in
+        ``args``; the server's threads on their native ids beside the
+        profiler's rows for them; the steps' waits in the queue on lanes
+        that never overlap, each slot's chunks on a track of its own (a
+        chunk overlaps the next when its reply took over a chunk period);
+        each track named by an ``"M"`` event.  Empty with
+        ``trace_capacity`` 0."""
+        spans = self._spans
+        if spans is None:
+            return []
+        recs = list(spans.records)        # one bytecode: no append between
+        off = spans.offset_ns - base_ns
+        pid = os.getpid()
+        # a step waits from its dispatch to its delivery; the next
+        # maxsize + 1 steps cannot all be waiting at once (FIFO)
+        lanes = self._outq.maxsize + 1
+        tracks = {}                        # tid -> track name
+        events = []
+        for sid, name, t0, t1, thread, step, slot, seq, parent in recs:
+            if thread == "chunk":
+                tid, track = _TRACKS + slot, f"chunks of slot {slot}"
+            elif thread == "outq":
+                lane = step % lanes
+                tid, track = _TRACKS - 1 - lane, f"queue lane {lane}"
+            else:
+                tid, track = spans.threads.get(thread, 0), thread
+            tracks[tid] = track
+            args = {"id": sid}
+            for key, v in (("step", step), ("slot", slot), ("seq", seq)):
+                if v >= 0:
+                    args[key] = v
+            if parent:
+                args["parent"] = parent
+            events.append({"name": name, "cat": "server", "ph": "X",
+                           "ts": (t0 + off) / 1e3, "dur": (t1 - t0) / 1e3,
+                           "pid": pid, "tid": tid, "args": args})
+        return [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                 "args": {"name": f"FeatureServer {track}"}}
+                for tid, track in sorted(tracks.items())] + events
 
 
 # -- client helpers ------------------------------------------------------------
