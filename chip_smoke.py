@@ -822,9 +822,8 @@ def int_phases(dev, card: str) -> list[dict]:
     print(f"K3-v1 on int32 / K2 on int16 in this call: {v1_ms / k2_ms:.4f}")
 
     ops = int_fused.int_operators(cfg, dev)
-    tables = sum(t.nbytes for t in ops[:5])
-    # K3 reads the balanced schedule in place of fbw and band
-    k3_tables = sum(t.nbytes for t in (ops.curve, ops.tw, ops.dtw, ops.fbs))
+    # the kernels read the balanced schedule, not fbw and band
+    tables = sum(t.nbytes for t in (ops.curve, ops.tw, ops.dtw, ops.fbs))
     out_bytes = frames_n * cfg.nceptrums * 4
     band = ops.band.cpu()
     k2_ops = (4 * S_MAIN * T_MAIN          # pre-emphasis: >> 5, +, -, sext
@@ -832,12 +831,12 @@ def int_phases(dev, card: str) -> list[dict]:
     k3_ops = frames_n * int_ops_per_frame(cfg, band)
     frames_bytes = frames_n * cfg.nfft * 4
     k2_bound = bound(audio.nbytes + out_bytes + tables, k2_ops, INT32_OPS)
-    k3_bound = bound(frames_bytes + out_bytes + k3_tables, k3_ops, INT32_OPS)
+    k3_bound = bound(frames_bytes + out_bytes + tables, k3_ops, INT32_OPS)
     # K3-v1 does K2's work, emphasis and window included, on int32 input
     v1_bound = bound(audio32.nbytes + out_bytes + tables, k2_ops, INT32_OPS)
     print(f"K2 bound: {audio.nbytes + out_bytes + tables} bytes, "
           f"{k2_ops:.4e} int32 operations -> {k2_bound[0]:.4f} ms "
-          f"({k2_bound[1]}); K3 bound: {frames_bytes + out_bytes + k3_tables} "
+          f"({k2_bound[1]}); K3 bound: {frames_bytes + out_bytes + tables} "
           f"bytes, {k3_ops:.4e} -> {k3_bound[0]:.4f} ms ({k3_bound[1]}); "
           f"K3-v1 bound: {audio32.nbytes + out_bytes + tables} bytes, "
           f"{k2_ops:.4e} -> {v1_bound[0]:.4f} ms ({v1_bound[1]})")
@@ -2640,13 +2639,15 @@ def legacy_phases(dev, card: str) -> list[dict]:
               f"{frames_n / it[name] * 1e3:.4e} frames/s (S={S_MAIN} x "
               f"T={T_MAIN}, {frames_n} frames, median of {ITERS}; {card})")
     ops = int_fused.int_operators(cfg, dev)
-    tables = sum(t.nbytes for t in ops[:5])
+    # K9 reads K2's tables (the balanced schedule), the front its first two
+    tables = sum(t.nbytes for t in (ops.curve, ops.tw, ops.dtw, ops.fbs))
     iband = ops.band.cpu()
     per_frame = int_ops_per_frame(cfg, iband)
     front_ops, epi_ops = int_ops_split(cfg, iband)
     k9_b = bound(audio.nbytes + out_bytes + tables,
                  4 * S_MAIN * T_MAIN + frames_n * per_frame, INT32_OPS)
-    front_b = bound(audio.nbytes + hpower.nbytes + tables,
+    front_b = bound(audio.nbytes + hpower.nbytes + ops.curve.nbytes
+                    + ops.tw.nbytes,
                     4 * S_MAIN * T_MAIN + frames_n * front_ops, INT32_OPS)
     # the epilogue reads the DCT twiddles and the balanced schedule
     epi_b = bound(hpower.nbytes + out_bytes + ops.dtw.nbytes + ops.fbs.nbytes,
@@ -3284,9 +3285,10 @@ INT_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
             ("K10-front", "int_split2", "int_front_kernel"),
             ("K10-epi", "int_split2", "int_epi_kernel"),
             ("K4-INT", "stream_step", "stream_int_kernelIsE"))
-# K2's static SASS instructions as PERF.md records them: K2's kernel also
-# runs K9, so a change to the count is a change to both
-K2_SASS = 4312
+# K2's static SASS instructions as PERF.md records them (on the balanced
+# filterbank): K2's kernel also runs K9, so a change to the count is a
+# change to both
+K2_SASS = 4320
 _TYPES = {"s": "i16", "i": "i32", "f": "f32"}
 
 

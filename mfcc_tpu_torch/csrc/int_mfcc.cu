@@ -1,5 +1,5 @@
-// Fused bit-exact INT MFCC for Hopper (sm_90a): three entries on one kernel
-// body, two of them one kernel behind two ingests.
+// Fused bit-exact INT MFCC for Hopper (sm_90a): three entries on two
+// kernels, one of them behind two ingests.
 //
 //  K2, mfcc_int_i16:  (S, T) int16 audio -> (S, F, ncep) int32 cepstra.
 //      Replaces the TPU kernel mfcc_tpu/ops/pallas_int.py:_int_kernel_v3
@@ -15,20 +15,18 @@
 //  K3, mfcc_int_frames_i32:  (M, 512) int32 pre-emphasized frames ->
 //      (M, ncep) int32.  Replaces pallas_int.py:_int_kernel (entry
 //      mfcc_int_pallas_frames, which windows in XLA before the kernel;
-//      here the window runs in the kernel: the same function).  Its tail
-//      sums the filterbank on the balanced schedule (int_stages.cuh
-//      post_power_balanced), K2's and K3-v1's a lane per filter.
-//  Tail (int_stages.cuh): 512-point bit-exact radix-2 DIT (3-multiply
-//  butterfly, bias round, >> 14, >> 1, wrap16), power mod 2^32 >> 2, the
-//  integer mel filterbank mod 2^64 keeping bits [shift, shift+16), Turner
-//  log2 (Q4.11), DCT-II via a 4*nfilters-point INT FFT.  Every output is
-//  element-exact with the RTL oracle ref/int_ref.mfcc_int.
+//      here the window runs in the kernel: the same function).
+//  Tail (int_stages.cuh tail_balanced, every entry's): 512-point bit-exact
+//  radix-2 DIT (3-multiply butterfly, bias round, >> 14, >> 1, wrap16),
+//  power mod 2^32 >> 2, the integer mel filterbank mod 2^64 on the
+//  balanced schedule keeping bits [shift, shift+16), Turner log2 (Q4.11),
+//  DCT-II via a 4*nfilters-point INT FFT.  Every output is element-exact
+//  with the RTL oracle ref/int_ref.mfcc_int.
 //
 // Design (int_stages.cuh): a persistent grid (persistent.cuh) of blocks of
-// 8 warps, 4 an SM (K3-v1 and K3 3); a block loads its twiddle, band and
-// filterbank tables (K3: the balanced schedule) into shared memory once,
-// then each warp takes frames in a grid-stride loop, one frame at a time.
-// K2's and K3-v1's warp reads
+// 8 warps; a block loads its twiddles, the window curve and the balanced
+// filterbank's schedule into shared memory once, then each warp takes frames in a
+// grid-stride loop, one frame at a time.  K2's and K3-v1's warp reads
 // its frame's 512 samples and the one before its start (0 at t = 0)
 // straight from the input -- overlapped framing is addressing, and no
 // pre-emphasis carry crosses frames -- and K3's its frame row, each lane
@@ -37,14 +35,14 @@
 // consecutive samples across the lanes).  From
 // there the warp runs its frame alone: the 512-point ladder in registers,
 // 16 points a lane, two exchanges through its shared row under
-// __syncwarp; the power in registers; the filterbank a lane per filter
-// over its band (K3: 16 scheduled terms a lane, then a lane per filter
-// sums its segments) and log2 a lane per filter; the DCT ladder's nonzero
-// half in registers and shuffles; lane c stores cepstrum c.  No barrier
-// after the tables', and what is provably zero is skipped (the first
-// stage's imaginary inputs, the DCT's lower half, stage 8's bins >= 256);
-// one butterfly per thread per stage through shared memory, with a barrier
-// each (18 a tile of 8 frames), takes ~3.9 ms.
+// __syncwarp; the power in registers; the filterbank as 16 scheduled terms
+// a lane (the bank's ~430 nonzero terms cut into 32 runs of 14), then a
+// lane per filter sums its segments' slots and takes log2; the DCT
+// ladder's nonzero half in registers and shuffles; lane c stores cepstrum
+// c.  No barrier after the tables', and what is provably zero is skipped
+// (the first stage's imaginary inputs, the DCT's lower half, stage 8's
+// bins >= 256); one butterfly per thread per stage through shared memory,
+// with a barrier each (18 a tile of 8 frames), takes ~3.9 ms.
 // The TPU kernels' structure is not carried: their sigma/evenodd8 row
 // order and _regroup_perm, (8, lanes) sublane blocks, pltpu.roll
 // reversals, 128-lane frame tiles, NBMAX_INT super-blocks with an SMEM
@@ -63,19 +61,16 @@
 // filterbank and log2 5k), ~2.1e10 per call, ~0.64 ms at the issue limit
 // of 128 lanes per clock per SM (132 SMs, 1.98 GHz).  Instruction issue
 // bounds it, not memory (tools/sass_mix.py; 42% IMAD, the moves, adds and
-// shifts the compiler maps onto the FMA pipe): K2's walk is ~2.5k SASS
-// instructions a frame with its filterbank loop once, and that loop runs
-// the widest band's 37 bins (for an average of 13), ~3.4k issued, ~1.2
-// ms at one warp instruction a clock per scheduler, where the function
-// needs ~1.7k a lane; K3's walk with its 16 scheduled filterbank terms a
-// lane inline is ~2.3k.
+// shifts the compiler maps onto the FMA pipe): with their 16 scheduled
+// filterbank terms a lane inline, K2's walk is 2,489 SASS instructions a
+// frame and K3's 2,337, where the function needs ~1.7k a lane; K2 at
+// 1.12 ms issues ~3.3 warp instructions a clock per SM of the 4 its
+// schedulers can (at 1.98 GHz).
 //
 // Offsets are 64-bit: S*T passes 2^31 at S=4096 x 60 s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "int_stages.cuh"
 #include "persistent.cuh"
@@ -87,38 +82,39 @@ using namespace int_stages;
 // Both kernels are persistent (persistent.cuh): a block loads its tables
 // once, then each warp takes frames G in a grid-stride loop, loading the
 // frame's windowed samples straight into the ladder's first layout.  The
-// launch bounds hold K2 to 64 registers, 4 blocks an SM (without them the
-// compiler pipelines the loop at 173 registers, one block fits, and K2
-// runs ~40% slower); at 64 nvcc -Xptxas=-v reports 68 bytes spilled (K3,
-// before its balanced filterbank, 156).  K3-v1's int32 instantiation
-// spills the same 68 at 4 blocks and none at 3 (80 registers), where it
-// runs ~5% faster against K2 in the same process (tools/step_ab.py), so it
-// takes 3, and so does K3.
-constexpr int kResident = 4;
+// launch bounds set the blocks an SM (without them the compiler pipelines
+// the loop at 124-173 registers, one block fits, and the kernel runs ~40%
+// slower).  K3 takes 3 blocks: its window curve is read from shared memory
+// through a volatile pointer, which spills nothing there.
 constexpr int kFramesResident = 3;
 
-template <typename In>
-constexpr int kAudioResident = std::is_same_v<In, int16_t> ? kResident : 3;
+// K2 (int16) and K3-v1 (int32) take 4 blocks an SM: nvcc -Xptxas=-v
+// reports 64 registers and 8 bytes spilled for each, and both run 0.8-1.0%
+// faster than at 3 (80 registers, no spill); the curve from global memory
+// spills 72 bytes at 4.
+constexpr int kAudioResident = 4;
 
 // In: int16_t (K2) or int32_t (K3-v1), the ingest's sample type.
 template <typename In>
-__global__ void __launch_bounds__(kThreads, kAudioResident<In>)
+__global__ void __launch_bounds__(kThreads, kAudioResident)
 int_audio_kernel(const In* __restrict__ audio, int* __restrict__ out,
                  long long T, int F, int hop, long long frames,
                  const int* __restrict__ curve, const int2* __restrict__ tw,
-                 Tail c) {
-  __shared__ Smem sm;
+                 const uint2* __restrict__ sched, Tail c) {
+  __shared__ FbLadderSmem sm;
   load_ladder_tables(sm, tw);
-  load_tail_tables(sm, c);
+  load_fb_tables(sm.fb, sched, c);
+  for (int i = threadIdx.x; i < kNfft; i += blockDim.x) sm.curve[i] = curve[i];
   __syncthreads();
+  const volatile int* cv = sm.curve;   // read each frame, as in K3
   for (long long G = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
        G < frames; G += static_cast<long long>(gridDim.x) * kFrames) {
     const long long s = G / F;
     const int g = static_cast<int>(G - s * F);
     int re[kPts];
     load_audio_frame(audio + s * T + static_cast<long long>(g) * hop, g == 0,
-                     curve, re);
-    tail(re, sm, c, out + G * c.ncep);
+                     cv, re);
+    tail_balanced(re, sm, c, out + G * c.ncep);
   }
 }
 
@@ -156,10 +152,10 @@ template <typename In>
 int launch_audio(const In* audio, int* out, long long S, long long T, int F,
                  int hop, int nfilters, int ncep, int fb_shift,
                  int log_precision, int log_width, const int* curve,
-                 const int* tw, const int* dtw, const long long* fbw,
-                 const int* band, void* stream) {
-  const Tail c = make_tail(fbw, band, dtw, nfilters, ncep, fb_shift,
-                           log_precision, log_width);
+                 const int* tw, const int* dtw, const int* sched,
+                 void* stream) {
+  const Tail c = make_tail(dtw, nfilters, ncep, fb_shift, log_precision,
+                           log_width);
   if (!tail_ok(c) || F < 1 || hop < 1 || S < 0 ||
       T < static_cast<long long>(F - 1) * hop + kNfft)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -168,7 +164,8 @@ int launch_audio(const In* audio, int* out, long long S, long long T, int F,
   return launch_persistent(int_audio_kernel<In>, kThreads,
                            (frames + kFrames - 1) / kFrames, 0, stream, audio,
                            out, T, F, hop, frames, curve,
-                           reinterpret_cast<const int2*>(tw), c);
+                           reinterpret_cast<const int2*>(tw),
+                           reinterpret_cast<const uint2*>(sched), c);
 }
 
 }  // namespace
@@ -177,9 +174,7 @@ int launch_audio(const In* audio, int* out, long long S, long long T, int F,
 // Every pointer is a device pointer.  curve holds the 512 int32 window
 // values (tables.int_window_curve(512, 8)); tw the 256 interleaved int32
 // (re, im) twiddles of tables.twiddle_table(512, 16) and dtw the 2*nfilters
-// of twiddle_table(4*nfilters, 16); fbw the (256, nfilters) int64
-// filterbank matrix, row-major; band nfilters int32 pairs [lo, hi) outside
-// which a column of fbw is zero; sched the balanced filterbank's schedule
+// of twiddle_table(4*nfilters, 16); sched the balanced filterbank's schedule
 // (int_stages.cuh, ops/int_fused.py fb_schedule: kFbSteps * 32 uint2
 // entries, then 32 uint32 gather words).  audio is (S, T) and contiguous;
 // out is (S, F, ncep), resp. (M, ncep), int32.  Launches on `stream`, on the
@@ -189,10 +184,9 @@ extern "C" int mfcc_int_i16(const int16_t* audio, int* out, long long S,
                             long long T, int F, int hop, int nfilters,
                             int ncep, int fb_shift, int log_precision,
                             int log_width, const int* curve, const int* tw,
-                            const int* dtw, const long long* fbw,
-                            const int* band, void* stream) {
+                            const int* dtw, const int* sched, void* stream) {
   return launch_audio(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
-                      log_precision, log_width, curve, tw, dtw, fbw, band,
+                      log_precision, log_width, curve, tw, dtw, sched,
                       stream);
 }
 
@@ -201,10 +195,9 @@ extern "C" int mfcc_int_i32(const int* audio, int* out, long long S,
                             long long T, int F, int hop, int nfilters,
                             int ncep, int fb_shift, int log_precision,
                             int log_width, const int* curve, const int* tw,
-                            const int* dtw, const long long* fbw,
-                            const int* band, void* stream) {
+                            const int* dtw, const int* sched, void* stream) {
   return launch_audio(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
-                      log_precision, log_width, curve, tw, dtw, fbw, band,
+                      log_precision, log_width, curve, tw, dtw, sched,
                       stream);
 }
 
@@ -214,8 +207,8 @@ extern "C" int mfcc_int_frames_i32(const int* frames, int* out, long long M,
                                    const int* curve, const int* tw,
                                    const int* dtw, const int* sched,
                                    void* stream) {
-  const Tail c = make_tail(nullptr, nullptr, dtw, nfilters, ncep, fb_shift,
-                           log_precision, log_width);
+  const Tail c = make_tail(dtw, nfilters, ncep, fb_shift, log_precision,
+                           log_width);
   if (!tail_ok(c) || M < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   return launch_persistent(int_frames_kernel, kThreads,

@@ -11,9 +11,9 @@
 //      Replaces tools/ab_int_r5.py:epi_kernel (the second pallas_call).
 //
 // Both run the device functions of int_stages.cuh that K2 runs (ingest,
-// ladder_power; then the filterbank, log2 and DCT, the filterbank on the
-// balanced schedule, whose sum mod 2^64 is K2's bit for bit), on the same
-// values, so the pair is element-exact with K2 and with the RTL oracle
+// ladder_power; then post_power_balanced: the filterbank on the balanced
+// schedule, log2 and DCT), on the same values, so the pair is
+// element-exact with K2 and with the RTL oracle
 // ref/int_ref.mfcc_int.  The TPU arm wrote (N, nbins, L) lane-major power
 // blocks; here a power row is one frame's 256 bins, as the next launch
 // reads them.
@@ -58,7 +58,7 @@ __global__ void __launch_bounds__(kThreads)
 int_front_kernel(const int16_t* __restrict__ audio, int* __restrict__ power,
                  long long T, int F, int hop, long long tiles_per_stream,
                  const int* __restrict__ curve, const int2* __restrict__ tw) {
-  __shared__ Smem sm;
+  __shared__ FbLadderSmem sm;   // its rows and twiddles
   const long long s = blockIdx.x / tiles_per_stream;
   const int f = static_cast<int>(threadIdx.x) / kLanes;
   const int g = static_cast<int>(blockIdx.x % tiles_per_stream) * kFrames + f;
@@ -135,8 +135,8 @@ extern "C" int mfcc_int_epi(const int* power, int* out, long long M,
                             int nfilters, int ncep, int fb_shift,
                             int log_precision, int log_width, const int* dtw,
                             const int* sched, void* stream) {
-  const Tail c = make_tail(nullptr, nullptr, dtw, nfilters, ncep, fb_shift,
-                           log_precision, log_width);
+  const Tail c = make_tail(dtw, nfilters, ncep, fb_shift, log_precision,
+                           log_width);
   if (!tail_ok(c) || M < 0 || reinterpret_cast<uintptr_t>(power) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;

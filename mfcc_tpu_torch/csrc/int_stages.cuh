@@ -18,9 +18,9 @@
 // Design: one warp owns one frame, a block of 8 warps 8 frames at a time.
 // Each kernel's warp loads its frame's windowed samples straight into the
 // ladder's first layout, a lane's register r being sample bitrev(16 lane +
-// r) (32 consecutive samples across the lanes), and calls tail(); the
-// block's one barrier is the one after its tables.  From there each warp
-// runs alone, with __syncwarp only:
+// r) (32 consecutive samples across the lanes), and calls tail_balanced();
+// the block's one barrier is the one after its tables.  From there each
+// warp runs alone, with __syncwarp only:
 //  * the 512-point radix-2 DIT ladder in registers, 16 points a lane: lane
 //    l holds points 16l + r for stages 0-3 (spans 1-8, the first with its
 //    zero imaginary inputs folded by the compiler), exchanges through its
@@ -30,12 +30,9 @@
 //    into one word (every ladder value is a wrap16 output) and is free of
 //    bank conflicts but for one lane pair of the second;
 //  * the power of bins l + 32k in registers, stored to the row in natural
-//    order; the filterbank one lane per filter (two lanes per filter at 16
-//    filters, their uint64 sums joined by a shuffle, exact mod 2^64) over
-//    its band, the weights read by band offset from a block table; log2 in
-//    the same lane (K2, K9, K3-v1, K4-INT); or, in K3 and K10's epilogue,
-//    the balanced filterbank: the bank's nonzero (filter, bin) terms split
-//    evenly over the 32 lanes by a schedule built on the host (below);
+//    order; the balanced filterbank: the bank's nonzero (filter, bin) terms
+//    split evenly over the 32 lanes by a schedule built on the host
+//    (below), then log2 a lane per filter;
 //  * the 4*nfilters-point DCT ladder in registers: its lower half is zero
 //    through every stage but the last (bit-reversed storage puts the
 //    scattered log-mel row's odd points in the upper half), so the upper
@@ -43,12 +40,9 @@
 //    shuffles, and lane c takes the last stage's real output c: cepstrum
 //    c, stored by lane c (one coalesced store a frame).
 // The butterfly is the RTL's datapath, unchanged; only data movement and
-// schedule are the kernel's.  What bounds it now is instruction issue,
-// ~3.4k SASS instructions a warp issues per frame in K2 (int_mfcc.cu).
-// Left for later: fewer instructions per butterfly and per exchange.  The
-// lane-per-filter loop runs the widest band's length (37 bins at 32
-// filters, for an average of 13); the balanced filterbank runs kFbSteps =
-// 16 entries a lane whatever the widths.
+// schedule are the kernel's.  What bounds it now is instruction issue
+// (int_mfcc.cu).  Left for later: fewer instructions per butterfly and per
+// exchange.
 
 #pragma once
 
@@ -73,15 +67,9 @@ constexpr int kLanes = 32;
 constexpr int kPts = kNfft / kLanes;    // ladder points per lane
 constexpr int kBinsPerLane = kNbins / kLanes;
 constexpr unsigned kFull = 0xffffffffu;
-// Filterbank weights kept in shared memory, by band offset (rows t <
-// kFbTable / nfilters: 48 at 32 filters, 96 at 16; the widest bands of the
-// reference configs are 37 and 70 bins)
-constexpr int kFbTable = 1536;
 
 // Constants of the stages after the 512-point FFT (device pointers).
 struct Tail {
-  const long long* fbw;  // (nbins, nfilters) int64 filterbank matrix W
-  const int2* band;      // nfilters [lo, hi): W[:, j] is zero outside
   const int2* dtw;       // 2 * nfilters (re, im) twiddles of the DCT FFT
   int nfilters;          // 16 or 32; the DCT FFT has 4 * nfilters points
   int ncep;              // cepstra kept, <= nfilters
@@ -201,45 +189,15 @@ __device__ __forceinline__ void unpack(int v, int& re, int& im) {
 constexpr int kThreads = 256;
 constexpr int kFrames = kThreads / kLanes;   // frames per block, one a warp
 
-// The block's shared memory: one padded row per frame (the exchanges at
-// pad(i) = i + i/16, which spreads them over the banks, then the power),
-// the ladder's twiddles by stage
-// (stage s at (2^s - 1) + j: tables.twiddle_table(512, 16)[j << (8 - s)],
-// so that the lanes of a stage read consecutive entries) and the DCT's,
-// both as butterfly() takes them, the band limits and the banded
-// filterbank weights fbt[t * nfilters + j] = W[lo_j + t, j] (0 past the
-// band).
-struct Smem {
-  int row[kFrames * kRow];
-  int4 stw[kNfft - 1];
-  int4 dtw[2 * kMaxFilters];
-  int2 band[kMaxFilters];
-  unsigned long long fbt[kFbTable];
-};
-
 // The ladder's twiddle table from the 256 twiddles of twiddle_table(512,
-// 16) in global memory; the caller's barrier follows.
+// 16) in global memory, as butterfly() takes them: stage s at (2^s - 1) +
+// j, twiddle_table(512, 16)[j << (8 - s)], so that the lanes of a stage
+// read consecutive entries.  The caller's barrier follows.
 template <typename S>
 __device__ __forceinline__ void load_ladder_tables(S& sm, const int2* tw) {
   for (int i = threadIdx.x; i < kNfft - 1; i += blockDim.x) {
     const int s = 31 - __clz(i + 1);
     sm.stw[i] = twiddle(tw[(i + 1 - (1 << s)) << (kLog2Nfft - 1 - s)]);
-  }
-}
-
-// The post-power tables: DCT twiddles, band limits, banded weights; the
-// caller's barrier follows.
-__device__ __forceinline__ void load_tail_tables(Smem& sm, const Tail& c) {
-  const int nf = c.nfilters;
-  for (int i = threadIdx.x; i < 2 * nf; i += blockDim.x)
-    sm.dtw[i] = twiddle(c.dtw[i]);
-  for (int i = threadIdx.x; i < nf; i += blockDim.x) sm.band[i] = c.band[i];
-  for (int e = threadIdx.x; e < kFbTable; e += blockDim.x) {
-    const int t = e / nf;
-    const int j = e - t * nf;
-    const int2 bd = c.band[j];
-    sm.fbt[e] = bd.x + t < bd.y
-        ? static_cast<unsigned long long>(c.fbw[(bd.x + t) * nf + j]) : 0ull;
   }
 }
 
@@ -270,16 +228,21 @@ __device__ __forceinline__ int emphasize(int x, int prev) {
 // The ladder's first layout of the frame whose first sample is x[0], int16
 // or int32: pre-emphasis (the sample before it is x[-1], or 0 when `first`,
 // the signal's start) and the window, lane l's register r holding sample
-// first_sample(r).
-template <typename In>
+// first_sample(r) = bitrev(lane, 5) + 32 * rev4(r): one base a lane and
+// constant offsets.  curve: int (global memory) or volatile int (shared
+// memory, read anew each frame).
+template <typename In, typename Curve>
 __device__ __forceinline__ void load_audio_frame(const In* x, bool first,
-                                                 const int* curve,
+                                                 const Curve* curve,
                                                  int (&re)[kPts]) {
+  const int b = bitrev(lane(), 5);
+  x += b;
+  curve += b;
 #pragma unroll
   for (int r = 0; r < kPts; ++r) {
-    const int p = first_sample(r);
-    const int prev = first && p == 0 ? 0 : x[p - 1];
-    re[r] = window(emphasize<In>(x[p], prev), curve[p]);
+    const int q = 32 * rev4(r);
+    const int prev = r == 0 && first && b == 0 ? 0 : x[q - 1];
+    re[r] = window(emphasize<In>(x[q], prev), curve[q]);
   }
 }
 
@@ -364,7 +327,8 @@ __device__ __forceinline__ void shfl_butterfly(int& vr, int& vi, int span,
 }
 
 // The stages after the filterbank for the warp's frame: lane l holds the
-// uint64 filterbank sum (mod 2^64) of filter l / lpf in acc; the 16-bit
+// uint64 filterbank sum (mod 2^64) of filter l / lpf in acc (lpf, lanes a
+// filter, is 1 on the balanced filterbank); the 16-bit
 // field at fb_shift, log2, and the DCT-II as a 4*nfilters-point INT FFT of
 // the scattered log-mel row (buf[2k+1] = buf[4n-1-2k] = logmel[k],
 // mfcc/core/dct_stream.py:29-34).  Lane c < ncep stores cepstrum c at
@@ -407,48 +371,11 @@ __device__ __forceinline__ void log_dct(unsigned long long acc, int lpf,
   if (l < c.ncep) out[l] = y0r;
 }
 
-// The stages after the power for the warp's frame, whose power sits in
-// pw[k], k < 256: the integer mel filterbank mod 2^64 over each filter's
-// band, then log_dct.  Needs load_tail_tables and a barrier after it.
-__device__ __forceinline__ void post_power(const int* pw, const Smem& sm,
-                                           const Tail& c, int* out) {
-  const int l = lane();
-  const int nf = c.nfilters;
-  const int lpf = kLanes / nf;          // lanes per filter: 1 or 2
-  const int j = l / lpf;
-  const int2 bd = sm.band[j];
-  const int cap = kFbTable / nf;
-  unsigned long long acc = 0;
-  for (int t = l - j * lpf; t < bd.y - bd.x; t += lpf) {
-    const unsigned long long w = t < cap
-        ? sm.fbt[t * nf + j]
-        : static_cast<unsigned long long>(c.fbw[(bd.x + t) * nf + j]);
-    acc += static_cast<unsigned long long>(static_cast<uint32_t>(pw[bd.x + t])) * w;
-  }
-  if (lpf == 2) acc += __shfl_xor_sync(kFull, acc, 1);
-  log_dct(acc, lpf, sm.dtw, c, out);
-}
-
-// The warp's frame through the ladder, the power and post_power, from its
-// windowed samples in the ladder's first layout (re[r] = sample
-// first_sample(r)), lane c storing cepstrum c at out[c].  Needs the tables
-// and a barrier after them; ends with the warp's row free for its next
-// frame.
-__device__ __forceinline__ void tail(int (&re)[kPts], Smem& sm, const Tail& c,
-                                     int* out) {
-  int* row = sm.row + (threadIdx.x / kLanes) * kRow;
-  int pw[kBinsPerLane];
-  ladder_power(re, row, sm.stw, pw);
-  store_power(row, pw);
-  post_power(row, sm, c, out);
-  __syncwarp();
-}
-
-// -- The balanced filterbank (K3 and K10's epilogue) ------------------------
+// -- The balanced filterbank (K2, K3, K4-INT, K10's epilogue) ---------------
 //
-// The lane-per-filter loop above runs the widest band's length while most
-// lanes idle (37 bins at 32 filters for an average of 13; 70 at 16 filters,
-// two lanes a filter).  Here the bank's nonzero (filter, bin) terms, in
+// A lane per filter over its band would run the widest band's length while
+// most lanes idle (37 bins at 32 filters for an average of 13; 70 at 16
+// filters, two lanes a filter).  Here the bank's nonzero (filter, bin) terms, in
 // filter order and ascending bins, are cut into 32 runs of L = ceil(terms /
 // 32) (14 at both 32 and 16 filters of the 512-point family), lane l
 // taking run l, so a lane's run covers consecutive filters.  The schedule is
@@ -481,8 +408,10 @@ struct FbTables {
   int4 dtw[2 * kMaxFilters];
 };
 
-// K10's epilogue's shared memory: the warps' rows (power, then slots) and
-// the tables; K3's adds the ladder's twiddles and the window curve.
+// K10's epilogue's shared memory: the warps' rows (the exchanges at pad(i)
+// = i + i/16, which spreads them over the banks; then the power and the
+// slots) and the tables.  K2's, K3's and K4-INT's add the ladder's
+// twiddles and the window curve (K10's front uses its rows and twiddles).
 struct FbSmem {
   int row[kFrames * kRow];
   FbTables fb;
@@ -508,8 +437,8 @@ __device__ __forceinline__ void load_fb_tables(FbTables& fb, const uint2* sched,
   for (int i = threadIdx.x; i < kLanes; i += blockDim.x) fb.gather[i] = gather[i];
 }
 
-// post_power on the balanced filterbank: the warp's power in row[k], k <
-// 256, its slots in the same row past it (the ladder's exchanges are done
+// The stages after the power on the balanced filterbank, then log_dct: the
+// warp's power in row[k], k < 256, its slots in the same row past it (the ladder's exchanges are done
 // with both by now).  Needs load_fb_tables and a barrier after it.
 __device__ __forceinline__ void post_power_balanced(int* row, const FbTables& fb,
                                                     const Tail& c, int* out) {
@@ -533,9 +462,11 @@ __device__ __forceinline__ void post_power_balanced(int* row, const FbTables& fb
   log_dct(acc, 1, fb.dtw, c, out);
 }
 
-// tail() on the balanced filterbank (K3).  Needs load_ladder_tables,
-// load_fb_tables and a barrier after them; ends with the warp's row free
-// for its next frame.
+// The warp's frame through the ladder, the power and post_power_balanced,
+// from its windowed samples in the ladder's first layout (re[r] = sample
+// first_sample(r)), lane c storing cepstrum c at out[c] (K2, K3, K4-INT).
+// Needs load_ladder_tables, load_fb_tables and a barrier after them; ends
+// with the warp's row free for its next frame.
 __device__ __forceinline__ void tail_balanced(int (&re)[kPts], FbLadderSmem& sm,
                                               const Tail& c, int* out) {
   int* row = sm.row + (threadIdx.x / kLanes) * kRow;
@@ -553,11 +484,9 @@ inline bool tail_ok(const Tail& c) {
          c.log_width >= 1 && c.log_width <= 31;
 }
 
-inline Tail make_tail(const long long* fbw, const int* band, const int* dtw,
-                      int nfilters, int ncep, int fb_shift, int log_precision,
-                      int log_width) {
-  return Tail{fbw, reinterpret_cast<const int2*>(band),
-              reinterpret_cast<const int2*>(dtw), nfilters, ncep, fb_shift,
+inline Tail make_tail(const int* dtw, int nfilters, int ncep, int fb_shift,
+                      int log_precision, int log_width) {
+  return Tail{reinterpret_cast<const int2*>(dtw), nfilters, ncep, fb_shift,
               log_precision, log_width};
 }
 

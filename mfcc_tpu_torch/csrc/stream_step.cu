@@ -496,8 +496,8 @@ int launch_int(const int* carry, const In* chunk, const StepState<int>& io,
                const int* curve, const int* tw, const int* dtw,
                const int* sched, void* stream) {
   using namespace int_stages;
-  const Tail c = make_tail(nullptr, nullptr, dtw, nfilters, ncep, fb_shift,
-                           log_precision, log_width);
+  const Tail c = make_tail(dtw, nfilters, ncep, fb_shift, log_precision,
+                           log_width);
   if (!tail_ok(c) || !shape_ok(S, P, C, F, hop, kNfft) || !state_ok(io))
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return 0;

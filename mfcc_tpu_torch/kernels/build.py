@@ -44,10 +44,10 @@ _LL = ctypes.c_longlong
 _FLADDER_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, ctypes.c_double, _P]
 # mfcc_int_{i16,i32}(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
-#                    log_precision, log_width, curve, tw, dtw, fbw, band,
+#                    log_precision, log_width, curve, tw, dtw, sched,
 #                    stream)
 _INT_AUDIO_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
-                   _P, _P, _P, _P, _P, _P]
+                   _P, _P, _P, _P, _P]
 # mfcc_int_frames_i32(frames, out, M, nfilters, ncep, fb_shift,
 #                     log_precision, log_width, curve, tw, dtw, sched,
 #                     stream)

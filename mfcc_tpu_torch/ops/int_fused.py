@@ -22,10 +22,10 @@ of ``tools/ab_int_r5.py``:
     device memory between them (``csrc/int_split2.cu``).
 
 K2, K3-v1 and K3 are ``csrc/int_mfcc.cu``; every kernel runs the device
-functions of ``csrc/int_stages.cuh``.  K3 and K10's epilogue sum the
-filterbank on the balanced schedule that ``fb_schedule`` builds (the bank's
-nonzero terms split evenly over a warp's 32 lanes); K2, K9, K3-v1 and K4-INT
-a lane per filter over its band.  A CUDA tensor launches the kernel (or
+functions of ``csrc/int_stages.cuh``.  Every kernel that sums the
+filterbank (K2, K9, K3-v1, K3, K10's epilogue and K4-INT) sums it on the
+balanced schedule that ``fb_schedule`` builds (the bank's nonzero terms
+split evenly over a warp's 32 lanes).  A CUDA tensor launches the kernel (or
 the wrapper raises), a CPU tensor takes the plain version (``*_plain``, the
 ``int_ops`` chain).  ``LAUNCHES`` counts kernel launches per entry.
 
@@ -77,7 +77,8 @@ class IntOperators(NamedTuple):
     fbw: torch.Tensor      # (256, nfilters) int64 filterbank matrix
     band: torch.Tensor     # (nfilters, 2) int32 [lo, hi) nonzero rows of fbw
     fb_shift: int          # the filterbank keeps bits [shift, shift+16)
-    fbs: torch.Tensor      # int32 balanced filterbank schedule (fb_schedule)
+    fbs: torch.Tensor      # int32 balanced filterbank schedule (fb_schedule),
+    #                        what the kernels read of fbw
 
 
 # The balanced filterbank (csrc/int_stages.cuh): schedule entries a lane
@@ -92,7 +93,7 @@ FB_ROW_BYTES = 4 * 544
 
 def fb_schedule(W: np.ndarray) -> np.ndarray:
     """The balanced filterbank's schedule of the (nbins, nfilters)
-    filterbank matrix ``W``, as K3 and K10's epilogue read it
+    filterbank matrix ``W``, as every INT kernel's filterbank reads it
     (``csrc/int_stages.cuh``): the nonzero terms (filter j, bin k),
     filter-major with ascending bins, cut into 32 runs of L = ceil(terms /
     32), lane l taking run l.  Returns int32 words: FB_STEPS x 32 entries
@@ -176,8 +177,9 @@ def tail_args(cfg: MFCCConfig, ops: IntOperators) -> tuple:
 
 
 def table_ptrs(ops: IntOperators) -> tuple:
+    """K2's and K3's tables: (curve, tw, dtw, sched) pointers."""
     return (ops.curve.data_ptr(), ops.tw.data_ptr(), ops.dtw.data_ptr(),
-            ops.fbw.data_ptr(), ops.band.data_ptr())
+            ops.fbs.data_ptr())
 
 
 def _require_family(cfg: MFCCConfig) -> None:
@@ -255,8 +257,7 @@ def _launch_frames(key: str, frames: torch.Tensor, cfg: MFCCConfig
     tail = tail_args(cfg, ops)
     out = torch.empty((M, tail[1]), dtype=torch.int32, device=frames.device)
     _launch(key, build.library().mfcc_int_frames_i32, frames,
-            frames.data_ptr(), out.data_ptr(), M, *tail, ops.curve.data_ptr(),
-            ops.tw.data_ptr(), ops.dtw.data_ptr(), ops.fbs.data_ptr())
+            frames.data_ptr(), out.data_ptr(), M, *tail, *table_ptrs(ops))
     return out.reshape(lead + (tail[1],))
 
 

@@ -7,7 +7,7 @@ passes the warp exchanges them through the frame's shared row.  The batch
 kernels' warps walk the frames in a persistent grid (``persistent_walk``;
 the serving step's writes: ``step_walk``),
 K2's and K3-v1's ingest loads each frame from the samples
-(``int_audio_ingest_model``), and K3 and K10's epilogue sum the filterbank
+(``int_audio_ingest_model``), and every INT kernel sums the filterbank
 on the balanced schedule (``int_fb_balanced``).  This module states those schedules with the
 kernels' own index formulas -- which lane and register holds which point in
 each pass, which stages run in each pass, where each point sits in the row,
@@ -42,7 +42,7 @@ _L = torch.arange(LANES)
 INT_NFFT = 512
 INT_PTS = INT_NFFT // LANES            # ladder points per lane
 INT_ROW = INT_NFFT + INT_NFFT // 16    # padded row
-INT_FB_TABLE = 1536                    # kFbTable
+INT_FB_TABLE = 1536                    # the lane-per-filter weight table
 
 # (layout, stages) of the ladder's three passes
 INT_PASSES = (("A", (0, 1, 2, 3)), ("B", (4, 5, 6, 7)), ("C", (8,)))
@@ -215,8 +215,8 @@ def int_ladder_power_registers(re: torch.Tensor) -> torch.Tensor:
 
 
 def int_fb_table(W: torch.Tensor, band: torch.Tensor) -> torch.Tensor:
-    """The block's banded filterbank table fbt[t * nf + j] = W[lo_j + t, j]
-    (0 past the band), kFbTable entries."""
+    """The lane-per-filter schedule's banded filterbank table fbt[t * nf +
+    j] = W[lo_j + t, j] (0 past the band), INT_FB_TABLE entries."""
     nf = W.shape[1]
     e = torch.arange(INT_FB_TABLE)
     t, j = e // nf, e % nf
@@ -304,8 +304,9 @@ def int_post_power_model(power: torch.Tensor, cfg: MFCCConfig,
                          balanced: bool = False) -> torch.Tensor:
     """The warp's post-power stages on (N, 256) int32 power: the filterbank
     a lane per filter (two lanes per filter at 16 filters, their sums
-    joined; K2's tail), or with ``balanced`` on the balanced schedule
-    (``int_fb_balanced``; K3's and K10's epilogue's), log2, the DCT
+    joined: no kernel runs it, it is the schedule the balanced one is held
+    to), or with ``balanced`` on the balanced schedule
+    (``int_fb_balanced``; every INT kernel's), log2, the DCT
     ladder's upper half in lanes and shuffles, and lane c's last-stage
     output c.  Returns (N, ncep) int32."""
     ops = int_operators(cfg, torch.device("cpu"))
@@ -365,7 +366,7 @@ def int_post_power_model(power: torch.Tensor, cfg: MFCCConfig,
 def int_tail_model(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
                    balanced: bool = False) -> torch.Tensor:
     """K3's function through the warp schedule: (N, 512) int32
-    pre-emphasized frames -> (N, ncep) int32; ``balanced`` (K3's own
+    pre-emphasized frames -> (N, ncep) int32; ``balanced`` (the kernels'
     filterbank) as ``int_post_power_model`` takes it."""
     win = int_ops.window_int(frames, cfg.nfft, cfg.window_precision,
                              cfg.width)

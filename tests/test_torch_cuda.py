@@ -7,7 +7,8 @@ ragged shapes and at the headline size), K8's seven dense-DFT entries
 (within TOL), K9, K3-v1 and K10 (``torch.equal``; K3-v1 on int32 edges
 and int64 too, one launch and no allocation but its output), K3 and K10's
 persistent epilogue on the balanced filterbank (ragged row counts, leading
-axes, 16 and 32 filters), streaming
+axes, 16 and 32 filters), K2, K9 and K3-v1 on the same filterbank (ragged
+and one-frame shapes, leading axes, 16 and 32 filters), streaming
 against batch, the split chain and the ``FeatureServer`` on the card; and the
 warp tails' geometry (one warp a frame, 8 frames a block): ragged frame
 counts for K1, K2, K3 and K10, and K4 where a stream's frame slots fill a
@@ -1014,6 +1015,44 @@ def test_balanced_tails_on_ragged_rows(dev, nf):
     a = torch.from_numpy(_tonal(3, 9000, nf).astype(np.int16)).to(dev)
     assert torch.equal(int_fused.mfcc_int_split2(a, cfg),
                        int_fused.mfcc_int_fused(a, cfg))
+
+
+@pytest.mark.parametrize("nf", [32, 16])
+def test_audio_kernels_on_the_balanced_filterbank(dev, nf):
+    """K2, K9 and K3-v1, K2's kernel on the balanced filterbank, equal
+    their plain versions element for element at 16 and 32 filters: T of
+    exactly one frame at S = 1 and S = 7, ragged S and T, two leading
+    axes, full-range int32, and more frames than the grid's resident
+    warps (132 SMs x 4 blocks x 8 warps); one launch a call under each
+    key."""
+    cfg = MFCCConfig(nfilters=nf, nceptrums=nf)
+    rng = np.random.default_rng(100 + nf)
+    inputs = [
+        ("S=1, T=512", rng.integers(-32768, 32768, (1, 512))),
+        ("S=7, T=512", rng.integers(-32768, 32768, (7, 512))),
+        ("ragged S and T", _tonal(13, 512 + 23 * cfg.hop + 99, nf)),
+        ("leading axes", rng.integers(-32768, 32768,
+                                      (2, 3, 512 + 5 * cfg.hop + 1))),
+        ("wide int32", rng.integers(-2 ** 31, 2 ** 31,
+                                    (3, 512 + 40 * cfg.hop + 7))),
+        ("beyond the resident warps", _tonal(61, 16000 + 3, nf + 1)),
+    ]
+    for name, x in inputs:
+        x = x.astype(np.int32 if name == "wide int32" else np.int16)
+        xt = torch.from_numpy(x).to(dev)
+        F = cfg.n_frames(x.shape[-1])
+        for key, fn, plain in (
+                ("K2", int_fused.mfcc_int_fused,
+                 int_fused.mfcc_int_fused_plain),
+                ("K9", int_fused.mfcc_int_v2, int_fused.mfcc_int_fused_plain),
+                ("K3-v1", int_fused.mfcc_int_v1, int_fused.mfcc_int_v1_plain)):
+            want_n = dict(int_fused.LAUNCHES)
+            want_n[key] += 1
+            got = fn(xt, cfg)
+            torch.cuda.synchronize()
+            assert int_fused.LAUNCHES == want_n, (key, name)
+            assert got.shape == x.shape[:-1] + (F, nf), (key, name)
+            assert torch.equal(got, plain(xt, cfg)), (key, name)
 
 
 def test_int_epilogue_refuses_unaligned_rows(dev):

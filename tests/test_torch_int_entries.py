@@ -5,10 +5,11 @@ CPU, through their plain versions: K9 (``mfcc_int_v2``) and K3-v1
 K10 (``mfcc_int_split2``) against K2's plain version; all against the RTL
 oracle ``int_ref.mfcc_int``.  K3-v1's kernel path is modelled too: K2's
 ingest at int32 (``warp_tails.int_audio_ingest_model``) through the warp
-schedule, on a stream of int32 edges where every emphasis wraps; and the
+schedule, on a stream of int32 edges where every emphasis wraps; the
 balanced filterbank of K3 and K10's epilogue, against JAX K3
 (``mfcc_int_pallas_frames``) and the oracle, on power rows at the top of
-their range and on ragged row counts of the epilogue's walk.
+their range and on ragged row counts of the epilogue's walk; and the same
+filterbank behind K2's ingest (K2, K9 and K3-v1) against the oracle.
 
 The JAX kernels take no ``interpret`` argument, so the ``interpret``
 fixture swaps ``pl.pallas_call`` for one that forces ``interpret=True``
@@ -323,3 +324,48 @@ def test_epilogue_on_ragged_rows(M):
         lead = p.reshape(1, M, 256) if M == 1 else p.reshape(2, M // 2, 256)
         assert torch.equal(int_fused.mfcc_int_epi(lead, cfg).reshape(M, -1),
                            want)
+
+
+def _k2_inputs(hop):
+    """(name, samples the kernel reads, the samples the oracle reads): two
+    ragged streams of 7 frames each, tonal and full-range int16; int32
+    outside the int16 range under K2's wire rule (taken mod 2^16, then
+    the int16 ingest) and under K3-v1's (read whole, the int32 ingest)."""
+    rng = np.random.default_rng(hop)
+    T = 512 + 6 * hop + 37
+    t = np.arange(T) / 16000.0
+    tone = np.round(12000 * np.sin(2 * np.pi * (300 + 2500 * t) * t)
+                    + rng.integers(-900, 900, (2, T))).astype(np.int16)
+    full = rng.integers(-32768, 32768, (2, T)).astype(np.int16)
+    wide = rng.integers(-2 ** 31, 2 ** 31, (2, T)).astype(np.int32)
+    wrapped = framing.wrap_signed(torch.from_numpy(wide), 16).to(
+        torch.int16).numpy()
+    return [("tonal int16", tone, tone), ("full-range int16", full, full),
+            ("int32, K2's rule", wrapped, wrapped),
+            ("int32, K3-v1's rule", wide, wide)]
+
+
+@pytest.mark.parametrize("hop", [170, 160])
+@pytest.mark.parametrize("nf", sorted(FB_CFGS))
+def test_k2_ingest_on_the_balanced_tail_is_the_oracle(nf, hop):
+    """K2's, K9's and K3-v1's kernel path as it now runs, modelled with the
+    kernel's index formulas: the audio ingest (``int_audio_ingest_model``:
+    the first frame's prev 0, frames by address at the hop) feeding the
+    ladder and power and the balanced filterbank
+    (``int_post_power_model(..., balanced=True)``) equals the
+    lane-per-filter model and ``int_ref.mfcc_int`` element for element,
+    at 16 and 32 filters and hops 170 and 160, on tonal and full-range
+    int16 and on int32 outside the int16 range under both wire rules."""
+    cfg = MFCCConfig(nfilters=nf, nceptrums=nf, step=hop)
+    for name, x, oracle_in in _k2_inputs(hop):
+        xt = torch.from_numpy(x)
+        regs = wt.int_audio_ingest_model(xt, cfg)
+        power = wt.int_ladder_power_registers(regs)
+        got = wt.int_post_power_model(power, cfg, balanced=True)
+        assert torch.equal(got, wt.int_post_power_model(power, cfg)), name
+        want = _oracle(oracle_in, cfg)
+        assert want.shape == (2, 7, nf)
+        assert np.array_equal(got.reshape(want.shape).numpy(), want), name
+        plain = (int_fused.mfcc_int_v1_plain if x.dtype == np.int32
+                 else int_fused.mfcc_int_fused_plain)
+        assert np.array_equal(plain(xt, cfg).numpy(), want), name

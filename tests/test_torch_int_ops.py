@@ -316,6 +316,29 @@ def test_signatures_match_sources():
     assert any(p.name == "int_stages.cuh" for p in build.CSRC_DIR.iterdir())
 
 
+@pytest.mark.parametrize("name", ["mfcc_int_i16", "mfcc_int_i32"])
+def test_audio_entries_take_the_schedule(name):
+    """K2's and K3-v1's C entries take the balanced filterbank's schedule
+    where the filterbank matrix and its bands were: their tables are
+    K3's (curve, tw, dtw, sched, then the stream), and the wrapper hands
+    them ``IntOperators.fbs``, the same four pointers as K3's launch."""
+    text = (build.CSRC_DIR / "int_mfcc.cu").read_text()
+    params = {m.group(1): [p.strip().split()[-1].lstrip("*")
+                           for p in m.group(2).split(",")]
+              for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text)}
+    assert params[name][-5:] == ["curve", "tw", "dtw", "sched", "stream"]
+    assert params[name][-5:] == params["mfcc_int_frames_i32"][-5:]
+    assert "fbw" not in params[name] and "band" not in params[name]
+    args = build.SIGNATURES[name]
+    assert args == build._INT_AUDIO_ARGS and len(args) == len(params[name])
+    assert args[-5:] == [build._P] * 5
+    assert args[-5:] == build.SIGNATURES["mfcc_int_frames_i32"][-5:]
+    ops = int_fused.int_operators(MFCCConfig(), torch.device("cpu"))
+    assert int_fused.table_ptrs(ops) == (
+        ops.curve.data_ptr(), ops.tw.data_ptr(), ops.dtw.data_ptr(),
+        ops.fbs.data_ptr())
+
+
 def test_config_int_properties_match_jax():
     for name, jcfg in JAX_CONFIGS.items():
         cfg = from_jax(jcfg)

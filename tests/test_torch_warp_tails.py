@@ -9,7 +9,7 @@ float schedule's spectrum is within 1e-12 of ``torch.fft.rfft`` in float64
 and its cepstra within KERNEL_TOL of ``ladder_tail_plain``; the persistent
 grid's walk (K1, K7, K2, K3-v1, K3, and K10's epilogue with its prefetch)
 takes every frame once, with the loop bounds the kernels' sources hold;
-the balanced filterbank's schedule (K3, K10's epilogue) holds every term
+the balanced filterbank's schedule (every INT kernel's) holds every term
 of the bank once with no lane over ceil(terms / 32) + 2, and the tail on
 it equals the chain and JAX.
 """
@@ -425,6 +425,37 @@ def test_k3_ingest_folds_first_sample():
     body = text[text.index("int_frames_kernel("):]
     assert "const int b = bitrev(lane(), 5);" in body
     assert "re[r] = window(x[q], cv[b + q]);" in body
+
+
+def test_k2_runs_the_balanced_tail():
+    """K2's kernel (``int_audio_kernel``, also K9's and K3-v1's) loads the
+    balanced filterbank's tables and runs ``tail_balanced`` behind its own
+    ingest, ``load_audio_frame``, which reads first_sample(r) as K3 does
+    (a lane base and constant offsets) and the window curve from shared
+    memory; no kernel of int_mfcc.cu calls the lane-per-filter ``tail(``,
+    and int_stages.cuh no longer defines it."""
+    csrc = Path(wt.__file__).resolve().parent.parent / "csrc"
+    text = (csrc / "int_mfcc.cu").read_text()
+    body = text[text.index("int_audio_kernel("):text.index("int_frames_kernel(")]
+    for line in ("__shared__ FbLadderSmem sm;",
+                 "load_fb_tables(sm.fb, sched, c);",
+                 "sm.curve[i] = curve[i];",
+                 "const volatile int* cv = sm.curve;",
+                 "load_audio_frame(audio + s * T",
+                 "tail_balanced(re, sm, c, out + G * c.ncep);"):
+        assert line in body, line
+    assert not re.search(r"(?<![\w.])tail\(", text)
+    assert text.count("tail_balanced(re, sm, c,") == 2       # K2 and K3
+    head = (csrc / "int_stages.cuh").read_text()
+    ingest = head[head.index("void load_audio_frame("):]
+    ingest = ingest[:ingest.index("\n}\n")]
+    for line in ("const int b = bitrev(lane(), 5);",
+                 "const int q = 32 * rev4(r);",
+                 "re[r] = window(emphasize<In>(x[q], prev), curve[q]);"):
+        assert line in ingest, line
+    for gone in ("void tail(", "void post_power(", "load_tail_tables",
+                 "kFbTable", "fbt["):
+        assert gone not in head, gone
 
 
 # -- the serving step's persistent walk (stream_step.cu) ----------------------
