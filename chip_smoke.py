@@ -26,7 +26,14 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      S=1024 streams x 4 s of int16 audio, checks that K1 launched once per
      call, the shape, finiteness, and the gate against the float64 oracle
      on 8 spread streams; times K1 against its plain version and the plain
-     ``float_ops`` chain;
+     ``float_ops`` chain; then K1's Kaldi instantiation
+     (``MFCC(KALDI_MFCC_HIRES)``, ``fladder.mfcc_kaldi_*``): against its
+     plain version at 16 kHz (400/160 in 512) and 8 kHz (200/80 in 256)
+     on int16 and f32 input with a constant stretch (the FLT_EPSILON
+     floor) and at 16 kHz on the headline int16 input (every pass of the
+     persistent walk), one launch a call at the headline shape (407,552 frames),
+     against ``ref/kaldi_ref.py`` on 8 spread streams, the frames entry
+     bit for bit, and its time beside its plain version's;
   4. INT path: compares K2 and K3 (``ops/int_fused.py``) with their plain
      versions element for element (``torch.equal``): K2 on tonal, full-range,
      silent and out-of-int16-range input, T = 512 and 512+169, MIC_CONFIG,
@@ -431,6 +438,22 @@ def k1_flops_per_frame(cfg, band: torch.Tensor) -> int:
             + 2 * cfg.nfilters * cfg.nceptrums)
 
 
+def kaldi_ops_per_frame(cfg, band: torch.Tensor) -> int:
+    """FP64 operations of K1-Kaldi's function per frame, the recipe's own
+    count: over the frame's live samples the sum for the mean, its
+    subtraction, the emphasis (2) and the window (5 a sample) and the
+    mean's division; the packed FFT and the unpack and power as
+    ``k1_flops_per_frame`` counts them; the banded mel sums (2 a weight),
+    the floor and the log (2 a filter); the DCT product (2 a weight), the
+    lifter folded into it."""
+    m = cfg.nfft // 2
+    log2m = m.bit_length() - 1
+    fft = (log2m // 2) * (m // 4) * 40 + (log2m % 2) * (m // 2) * 4
+    mel = 2 * int((band[:, 1] - band[:, 0]).sum())
+    return (5 * cfg.windowlen + 1 + fft + 19 * m + mel + 2 * cfg.nfilters
+            + 2 * cfg.nfilters * cfg.nceptrums)
+
+
 def ladder_ops(log2n: int, nz_re, nz_im, live_re, live_im) -> int:
     """int32 operations that the RTL's radix-2 DIT ladder on 2^log2n points
     needs (csrc/int_stages.cuh ``fft_rows``).  ``nz_*`` say which inputs,
@@ -605,6 +628,92 @@ def float_phases(dev, card: str) -> dict:
         "plain_ms": times["K1 plain version (float64 torch ops)"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
+
+
+def kaldi_phase(dev, card: str) -> dict:
+    """K1's Kaldi instantiation against its plain version and the plain
+    reference, and its times; returns its entry of the kernels line."""
+    from mfcc_tpu_torch import MFCC
+    from mfcc_tpu_torch.config import KALDI_MFCC_HIRES, KaldiConfig
+    from mfcc_tpu_torch.ops import fladder, framing, int_fused, stream_fused
+    from mfcc_tpu_torch.ref import kaldi_ref
+
+    errs = []
+    low = KaldiConfig(samplerate=8000, nfft=256, window_samples=200, step=80,
+                      nfilters=23, nceptrums=13, high_freq=-200.0)
+    for cfg in (KALDI_MFCC_HIRES, low):
+        sig = make_audio(64, 16000, seed=cfg.nfft)
+        sig[0, 2000:4000] = 1234                 # floors at FLT_EPSILON
+        inputs = [("int16", torch.from_numpy(sig.astype(np.int16))),
+                  ("f32", torch.from_numpy(sig))]
+        if cfg is KALDI_MFCC_HIRES:              # every pass of the walk
+            inputs.append(("int16 headline shape", torch.from_numpy(
+                make_audio(S_MAIN, T_MAIN).astype(np.int16))))
+        for name, x in inputs:
+            x = x.to(dev)
+            got = fladder.mfcc_kaldi_ladder(x, cfg)
+            want = fladder.mfcc_kaldi_ladder_plain(x, cfg)
+            torch.cuda.synchronize()
+            err = compare(got, want, f"K1-Kaldi nfft {cfg.nfft} {name}")
+            print(f"K1-Kaldi vs plain, {cfg.windowlen}/{cfg.hop} in "
+                  f"{cfg.nfft}, {name} {tuple(x.shape)}: max-abs {err:.3e}")
+            check(err <= KERNEL_TOL, f"K1-Kaldi {cfg.nfft} {name}: {err}")
+            errs.append(err)
+
+    cfg = KALDI_MFCC_HIRES
+    opts = kaldi_ref.options(num_mel_bins=40, num_ceps=40, low_freq=20,
+                             high_freq=-400, dither=0, use_energy=False)
+    sig = make_audio(S_MAIN, T_MAIN)
+    audio = torch.from_numpy(sig.astype(np.int16)).to(dev)
+    fe = MFCC(cfg, device=dev)
+    zero_counts(int_fused, stream_fused)
+    fladder.LAUNCHES = fladder.KALDI_LAUNCHES = 0
+    out = fe(audio)
+    torch.cuda.synchronize()
+    launches = (fladder.KALDI_LAUNCHES, fladder.LAUNCHES)
+    check(launches == (1, 0), f"K1-Kaldi, K1 launches {launches} for a call")
+    n_frames = cfg.n_frames(T_MAIN)
+    check(tuple(out.shape) == (S_MAIN, n_frames, 40),
+          f"output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite cepstra")
+    spread = torch.as_tensor(np.linspace(0, S_MAIN - 1, 8).astype(int))
+    want = kaldi_ref.mfcc(audio[spread.to(dev)], opts)
+    gate_err = float((out[spread.to(dev)].double() - want).abs().max())
+    print(f"MFCC(KALDI_MFCC_HIRES)(audio) {tuple(audio.shape)} int16 -> "
+          f"{tuple(out.shape)}: launches {launches}; max-abs vs kaldi_ref on "
+          f"8 spread streams {gate_err:.3e} (gate {GATE})")
+    check(gate_err <= GATE, f"Kaldi gate: {gate_err} > {GATE}")
+    frames = framing.extract_frames(audio[:64].float(), cfg.nfft, cfg.hop,
+                                    cfg.windowlen).contiguous()
+    check(torch.equal(fe.frames(frames), out[:64]),
+          "K1-Kaldi on frames differs from K1-Kaldi on audio")
+    del out, frames
+
+    rows = S_MAIN * n_frames
+    times = {
+        "K1-Kaldi kernel (mfcc_kaldi_ladder)":
+            time_ms(lambda: fladder.mfcc_kaldi_ladder(audio, cfg)),
+        "MFCC(KALDI_MFCC_HIRES)(audio), K1-Kaldi route":
+            time_ms(lambda: fe(audio)),
+        "K1-Kaldi plain version (float64 torch ops)":
+            time_ms(lambda: fladder.mfcc_kaldi_ladder_plain(audio, cfg)),
+    }
+    for name, ms in times.items():
+        print(f"time {name}: {ms:.4f} ms, {rows / ms * 1e3:.4e} frames/s "
+              f"(S={S_MAIN} x T={T_MAIN} int16, median of {ITERS}; {card})")
+    ops = fladder.default_operators(cfg, dev)
+    nbytes = (audio.nbytes + rows * cfg.nceptrums * 4
+              + sum(t.nbytes for t in ops))
+    flops = rows * kaldi_ops_per_frame(cfg, ops.band.cpu())
+    bound_ms, bound_by = bound(nbytes, flops, FP64_FLOPS)
+    print(f"K1-Kaldi bound: {nbytes} bytes, {flops:.4e} FP64 operations -> "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return kernel_entry(
+        "fladder Kaldi (K1-Kaldi)", "mfcc_tpu_torch/csrc/fladder.cu",
+        "none (Kaldi's recipe has no TPU kernel)", launches[0], max(errs),
+        times["K1-Kaldi kernel (mfcc_kaldi_ladder)"],
+        times["K1-Kaldi plain version (float64 torch ops)"],
+        (bound_ms, bound_by))
 
 
 def int_phases(dev, card: str) -> list[dict]:
@@ -3272,9 +3381,10 @@ def cli_phases(dev, card: str) -> list[dict]:
 
 ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
                   "stream_r2_kernel")
-# the tails' persistent batch kernels: K1 (and K6), K7 and K7-frames, K2 and
+# the tails' persistent batch kernels: K1 (and K6) and its Kaldi
+# instantiation, K7 and K7-frames, K2 and
 # K3-v1 (int16 and int32 instantiations), K3, K10's epilogue
-TAIL_KERNELS = ("fladder_kernel", "f64ish_kernel", "f64ish_frames_kernel",
+TAIL_KERNELS = ("fladder_kernel", "fladder_kaldi_kernel", "f64ish_kernel", "f64ish_frames_kernel",
                 "int_audio_kernel", "int_frames_kernel", "int_epi_kernel",
                 "stream_f32_kernel", "stream_int_kernel")
 # the INT kernels whose SASS is counted: (name, library, a substring of the
@@ -3420,6 +3530,8 @@ def main() -> int:
     print(int_sass(build.build()))
 
     kernels = [float_phases(dev, card)]
+    torch.cuda.empty_cache()
+    kernels.append(kaldi_phase(dev, card))
     torch.cuda.empty_cache()
     kernels += int_phases(dev, card)
     torch.cuda.empty_cache()

@@ -42,6 +42,11 @@ Ported so far:
     streaming through K4); ``parallel.bootstrap.run_in_group`` starts the
     ranks (on the card unless ``device_type="cpu"``; gloo on the CPU and
     for ranks that share a card, NCCL one rank a card);
+  * a second recipe of the float front-end, Kaldi's MFCC (``KaldiConfig``;
+    ``KALDI_MFCC_HIRES`` is ``conf/mfcc_hires.conf``): ``MFCC`` on K1's
+    Kaldi instantiation (``fladder.mfcc_kaldi_ladder``), ``StreamingMFCC``
+    on the chain with that kernel as its features, against the plain
+    reference ``ref/kaldi_ref.py``;
   * the model family (``models/``: ``nn.Module`` feature extractors,
     differentiable through the float chain), the debug taps
     (``utils/debug.py``, ``MFCC.intermediates``), ``utils/vad.py``,
@@ -59,7 +64,8 @@ and binds the plain C entry points with ``ctypes``.
 Importing the package builds nothing and never imports JAX.
 """
 
-from .config import MFCCConfig, DEFAULT_CONFIG, MIC_CONFIG
+from .config import (MFCCConfig, DEFAULT_CONFIG, MIC_CONFIG, KaldiConfig,
+                     KALDI_MFCC_HIRES)
 from .pipeline import MFCC
 from .streaming import StreamingMFCC, StreamState
 from .server import FeatureServer
@@ -67,4 +73,5 @@ from .server import FeatureServer
 __version__ = "0.1.0"
 
 __all__ = ["MFCC", "MFCCConfig", "DEFAULT_CONFIG", "MIC_CONFIG",
-           "StreamingMFCC", "StreamState", "FeatureServer", "__version__"]
+           "KaldiConfig", "KALDI_MFCC_HIRES", "StreamingMFCC", "StreamState",
+           "FeatureServer", "__version__"]

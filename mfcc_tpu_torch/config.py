@@ -14,7 +14,7 @@ defaults and properties, kept here so that the package never imports JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +122,72 @@ class MFCCConfig:
             return 0
         return (n_samples - self.windowlen) // self.hop + 1
 
+    @property
+    def recipe(self) -> str:
+        """The front-end's recipe: "fpga", this core's (every field
+        above); ``KaldiConfig`` is "kaldi"."""
+        return "fpga"
+
+
+@dataclasses.dataclass(frozen=True)
+class KaldiConfig(MFCCConfig):
+    """Kaldi's MFCC recipe (``compute-mfcc-feats``, ``feat/feature-mfcc.cc``)
+    on the port's float front-end.  The defaults are the high-resolution
+    recipe of ``egs/librispeech/s5/conf/mfcc_hires.conf`` in kaldi-asr/kaldi
+    (``--use-energy=false --num-mel-bins=40 --num-ceps=40 --low-freq=20
+    --high-freq=-400``, every other option at ``compute-mfcc-feats``'s
+    default at 16 kHz): 25 ms frames (``window_samples`` 400), a 10 ms
+    shift (``step`` 160), snip-edges, the frame's DC offset removed, a
+    pre-emphasis of 0.97 inside the frame, the povey window, zero-padded
+    to a 512-point FFT, 40 mel triangles (``1127 ln(1 + f/700)``) over the
+    bins below Nyquist, ``ln(max(E, FLT_EPSILON))``, the orthonormal DCT-II
+    and a sinusoidal lifter of 22.  Samples are taken at their integer
+    values, as Kaldi reads a wav.
+
+    The low frequency (20 Hz), the pre-emphasis and the lifter are
+    constants of the recipe; ``high_freq`` stays a field, as Kaldi's 8 kHz
+    conf files set another.
+
+    One departure: no dither.  Kaldi's default ``--dither=1.0`` adds
+    Gaussian noise from its own generator, so no two runs agree; ``dither
+    0``, which deterministic extraction sets, is what this computes.
+
+    The fixed-point fields inherited from ``MFCCConfig`` are unused: Kaldi
+    defines no fixed point, and ``MFCC(KaldiConfig()).int`` raises."""
+
+    nfft: int = 512
+    nfilters: int = 40          # --num-mel-bins
+    nceptrums: int = 40         # --num-ceps
+    window_samples: Optional[int] = 400   # --frame-length=25 (ms)
+    step: Optional[int] = 160   # --frame-shift=10 (ms)
+    high_freq: float = -400.0   # --high-freq (Hz; <= 0: below Nyquist)
+    # the recipe's constants, Kaldi's defaults and the conf file's
+    low_freq: ClassVar[float] = 20.0                # --low-freq (Hz)
+    preemphasis_coefficient: ClassVar[float] = 0.97
+    cepstral_lifter: ClassVar[float] = 22.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        wl = self.window_samples
+        if wl is None or wl < 2 or self.nfft != 1 << (wl - 1).bit_length():
+            raise ValueError(
+                f"window_samples={wl} and nfft={self.nfft}: Kaldi's frame "
+                "is padded to the next power of two (round-to-power-of-two)")
+        if self.nceptrums > self.nfilters:
+            raise ValueError(f"nceptrums={self.nceptrums} > nfilters="
+                             f"{self.nfilters} (num-ceps <= num-mel-bins)")
+        nyquist = self.samplerate / 2
+        high = self.high_freq if self.high_freq > 0 else \
+            nyquist + self.high_freq
+        if not 0 <= self.low_freq < high <= nyquist:
+            raise ValueError(f"low_freq={self.low_freq}, high_freq="
+                             f"{self.high_freq}: need 0 <= low < high <= "
+                             f"Nyquist ({nyquist})")
+
+    @property
+    def recipe(self) -> str:
+        return "kaldi"
+
 
 # Architectural constant: the mel filterbank's output width == the log2
 # stage's input width, hardcoded by the reference top-level independently of
@@ -144,3 +210,5 @@ def from_jax(cfg) -> MFCCConfig:
 DEFAULT_CONFIG = MFCCConfig()
 # The live UART/mic target keeps 16 cepstra (mfcc/targets/mic2mfcc.py:19).
 MIC_CONFIG = MFCCConfig(nceptrums=16)
+# Kaldi's high-resolution recipe (conf/mfcc_hires.conf) at 16 kHz, dither 0.
+KALDI_MFCC_HIRES = KaldiConfig()

@@ -123,6 +123,42 @@ fladder_kernel(const In* __restrict__ audio, float* __restrict__ out,
   }
 }
 
+// K1 on Kaldi's recipe (config.KaldiConfig): the same persistent walk and
+// tail, with kaldi_ingest (fladder_stages.cuh) in place of the ingest above:
+// frames of wlen raw samples, each frame's mean removed and its own
+// pre-emphasis by c, the povey window without 1/nfft, zero padding to nfft.
+// The tail's constants are the recipe's: its mel banks, mel_floor =
+// FLT_EPSILON, and the DCT with ln 2 and the lifter folded in, so the
+// tail's log2 gives Kaldi's natural log.  The FPGA kernel above is untouched.
+template <typename In, int LOG2P>
+__global__ void __launch_bounds__(kThreads, kResident<LOG2P>)
+fladder_kaldi_kernel(const In* __restrict__ audio, float* __restrict__ out,
+                     long long T, int F, int hop, long long frames, int wlen,
+                     double emph, int nfilters, int ncep,
+                     const double2* __restrict__ win,
+                     const double2* __restrict__ tw,
+                     const double* __restrict__ mel,
+                     const double* __restrict__ dct,
+                     const int2* __restrict__ band, double mel_floor) {
+  extern __shared__ double2 smem[];
+  constexpr int log2m = 5 + LOG2P;
+  constexpr int kP = 1 << LOG2P;
+  const Smem sm = carve(smem, log2m + 1);
+  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
+  __syncthreads();
+
+  for (long long G = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
+       G < frames; G += static_cast<long long>(gridDim.x) * kFrames) {
+    const long long s = G / F;
+    const int g = static_cast<int>(G - s * F);
+    double2 z[kP];
+    kaldi_ingest<LOG2P>(audio + s * T + static_cast<long long>(g) * hop,
+                        wlen, emph, win, z);
+    ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band, mel_floor,
+                       out + G * ncep);
+  }
+}
+
 template <typename In>
 int launch(const In* audio, float* out, long long S, long long T, int F,
            int hop, int nfft, int nfilters, int ncep, const double* win,
@@ -140,6 +176,31 @@ int launch(const In* audio, float* out, long long S, long long T, int F,
         fladder_kernel<In, L>, kThreads, (frames + kFrames - 1) / kFrames,
         smem_bytes(nfft), stream, audio, out, T, F, hop, frames, nfilters,
         ncep, reinterpret_cast<const double2*>(win),
+        reinterpret_cast<const double2*>(tw), mel, dct,
+        reinterpret_cast<const int2*>(band), mel_floor);
+  });
+}
+
+template <typename In>
+int launch_kaldi(const In* audio, float* out, long long S, long long T, int F,
+                 int hop, int nfft, int wlen, double emph, int nfilters,
+                 int ncep, const double* win, const double* tw,
+                 const double* mel, const double* dct, const int* band,
+                 double mel_floor, void* stream) {
+  const int log2n = log2_nfft(nfft);
+  if (log2n < 0 || F < 1 || hop < 1 || wlen < 2 || wlen % 2 || wlen > nfft ||
+      nfilters < 1 || nfilters > nfft / 2 || ncep < 1 || S < 0 ||
+      T < static_cast<long long>(F - 1) * hop + wlen)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (S == 0) return 0;
+  const long long frames = S * F;
+  return with_points(nfft, [&](auto pts) {
+    constexpr int L = decltype(pts)::value;
+    return launch_persistent(
+        fladder_kaldi_kernel<In, L>, kThreads,
+        (frames + kFrames - 1) / kFrames, smem_bytes(nfft), stream, audio,
+        out, T, F, hop, frames, wlen, emph, nfilters, ncep,
+        reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
         reinterpret_cast<const int2*>(band), mel_floor);
   });
@@ -173,4 +234,32 @@ extern "C" int mfcc_fladder_f32(const float* audio, float* out, long long S,
                                 double mel_floor, void* stream) {
   return launch(audio, out, S, T, F, hop, nfft, nfilters, ncep, win, tw, mel,
                 dct, band, mel_floor, stream);
+}
+
+// K1 on Kaldi's recipe: the arguments of mfcc_fladder_* with wlen, the
+// frame's samples (even, at most nfft; the stream must hold (F-1)*hop +
+// wlen of them), and emph, the pre-emphasis coefficient, after nfft; win
+// holds the window zero-padded to nfft, without 1/nfft.
+extern "C" int mfcc_fladder_kaldi_i16(const int16_t* audio, float* out,
+                                      long long S, long long T, int F,
+                                      int hop, int nfft, int wlen,
+                                      double emph, int nfilters, int ncep,
+                                      const double* win, const double* tw,
+                                      const double* mel, const double* dct,
+                                      const int* band, double mel_floor,
+                                      void* stream) {
+  return launch_kaldi(audio, out, S, T, F, hop, nfft, wlen, emph, nfilters,
+                      ncep, win, tw, mel, dct, band, mel_floor, stream);
+}
+
+extern "C" int mfcc_fladder_kaldi_f32(const float* audio, float* out,
+                                      long long S, long long T, int F,
+                                      int hop, int nfft, int wlen,
+                                      double emph, int nfilters, int ncep,
+                                      const double* win, const double* tw,
+                                      const double* mel, const double* dct,
+                                      const int* band, double mel_floor,
+                                      void* stream) {
+  return launch_kaldi(audio, out, S, T, F, hop, nfft, wlen, emph, nfilters,
+                      ncep, win, tw, mel, dct, band, mel_floor, stream);
 }

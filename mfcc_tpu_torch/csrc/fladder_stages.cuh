@@ -170,6 +170,56 @@ __device__ __forceinline__ double2 window_pair(double ye, double yo, double2 w) 
   return make_double2(__dmul_rn(ye, w.x), __dmul_rn(yo, w.y));
 }
 
+// Kaldi's ingest (fladder.cu's fladder_kaldi_kernel; the recipe of
+// config.KaldiConfig, kaldi-asr/kaldi src/feat/feature-window.cc): the
+// warp's frame of L = wlen raw samples x_0..x_(L-1) (wlen even, at most
+// nfft), its packed points z[m] = y'[2m] + i*y'[2m+1] in registers as the
+// tail takes them, lane l's register r holding z[l + 32r], and nothing read
+// past x_(L-1).  Kaldi computes, per frame:
+//   w_i = x_i - mu, mu = (x_0 + ... + x_(L-1)) / L        (DC offset)
+//   y_i = w_i - c*w_(i-1) for i >= 1, y_0 = w_0 - c*w_0   (pre-emphasis)
+//   y'_i = y_i * povey_i, zero for i >= L                  (window, padding)
+// with no 1/nfft.  Substituting w into y:
+//   y_i = x_i - c*x_(i-1) - (1 - c)*mu for i >= 1, and
+//   y_0 = (1 - c)*(x_0 - mu) = x_0 - c*x_0 - (1 - c)*mu,
+// which is the i >= 1 form with x_(-1) taken as x_0.  So a lane emphasizes
+// its samples as it loads them, e_i = x_i - c*x_(i-1), and sums them; the
+// warp's sum gives mu once every lane has loaded; and y_i = e_i - d with d
+// = (1 - c)*mu, the same for every sample: the two corrections are the one
+// subtraction and x_0 in place of the missing x_(-1).  The window product
+// rounds once, as window_pair does for the other ingests.  Points m with
+// 2m >= L are the padding: zero, and never loaded.
+template <int LOG2P, typename In>
+__device__ __forceinline__ void kaldi_ingest(const In* __restrict__ x,
+                                             int wlen, double c,
+                                             const double2* __restrict__ win,
+                                             double2 (&z)[1 << LOG2P]) {
+  constexpr int kP = 1 << LOG2P;
+  const int l = lane();
+  double sum = 0.0;
+#pragma unroll
+  for (int r = 0; r < kP; ++r) {
+    const int m = l + 32 * r;
+    z[r] = make_double2(0.0, 0.0);
+    if (2 * m < wlen) {
+      const double p = static_cast<double>(x[m > 0 ? 2 * m - 1 : 0]);
+      const double a = static_cast<double>(x[2 * m]);
+      const double b = static_cast<double>(x[2 * m + 1]);
+      sum += a + b;
+      z[r] = make_double2(a - c * p, b - c * a);
+    }
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2)
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const double d = (1.0 - c) * (sum / wlen);
+#pragma unroll
+  for (int r = 0; r < kP; ++r) {
+    const int m = l + 32 * r;
+    if (2 * m < wlen) z[r] = window_pair(z[r].x - d, z[r].y - d, win[m]);
+  }
+}
+
 // The lane part of the points of the layout with register bits [b, b +
 // LOG2P): point(l, r) = lane_part(l) | r << b.
 template <int LOG2P>

@@ -43,6 +43,11 @@ _LL = ctypes.c_longlong
 #                        win, tw, mel, dct, band, mel_floor, stream)
 _FLADDER_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, ctypes.c_double, _P]
+# mfcc_fladder_kaldi_{i16,f32}(audio, out, S, T, F, hop, nfft, wlen, emph,
+#                              nfilters, ncep, win, tw, mel, dct, band,
+#                              mel_floor, stream)
+_FLADDER_KALDI_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, ctypes.c_double, _I,
+                       _I, _P, _P, _P, _P, _P, ctypes.c_double, _P]
 # mfcc_int_{i16,i32}(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
 #                    log_precision, log_width, curve, tw, dtw, sched,
 #                    stream)
@@ -113,6 +118,8 @@ _RADIX2_SMEM_ARGS = [_I] * 5 + _ENGINE + [_P, _P]
 SIGNATURES = {
     "mfcc_fladder_i16": _FLADDER_ARGS,
     "mfcc_fladder_f32": _FLADDER_ARGS,
+    "mfcc_fladder_kaldi_i16": _FLADDER_KALDI_ARGS,
+    "mfcc_fladder_kaldi_f32": _FLADDER_KALDI_ARGS,
     "mfcc_radix2_i16": _RADIX2_ARGS,
     "mfcc_radix2_f32": _RADIX2_ARGS,
     "mfcc_frames_float_f32": _FRAMES_FLOAT_ARGS,

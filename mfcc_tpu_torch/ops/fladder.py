@@ -11,6 +11,14 @@ the wrapper raises), a CPU tensor takes ``mfcc_float_ladder_plain``, the
 same function as a chain of torch ops.  ``LAUNCHES`` counts kernel
 launches.
 
+Kaldi's recipe (``config.KaldiConfig``) runs on the same kernel's second
+instantiation, ``fladder_kaldi_kernel``: ``mfcc_kaldi_ladder`` from audio
+and ``mfcc_kaldi_frames`` from frames, their plain versions
+``mfcc_kaldi_ladder_plain`` and ``mfcc_kaldi_frames_plain`` (the recipe's
+chain, on any device and any config of the recipe), family
+``kaldi_config_ok``, tables ``kaldi_operators``, and launches counted in
+``KALDI_LAUNCHES``.
+
 Both compute the interior in float64 and round to f32 once, at the output
 (the TPU kernel stays in f32 because the TPU has no f64).  An f32 FFT
 resolves a frame's quiet low mel bands only to ~1e-7 of its energy, and
@@ -34,6 +42,7 @@ from ..kernels import build
 from . import framing
 
 LAUNCHES = 0     # kernel launches by mfcc_float_ladder (never the plain path)
+KALDI_LAUNCHES = 0   # launches of the Kaldi instantiation (mfcc_kaldi_*)
 
 
 class LadderOperators(NamedTuple):
@@ -57,12 +66,48 @@ def fladder_config_ok(cfg: MFCCConfig) -> bool:
     ``mfcc_tpu.ops.pallas_fladder.pallas_fladder_config_ok``: nfft in
     {256, 512, 1024}, even hop, full-length windows, and a zero Nyquist mel
     row (the kernel computes bins [0, nfft/2) only)."""
-    return (cfg.nfft in (256, 512, 1024) and cfg.hop % 2 == 0
-            and cfg.windowlen == cfg.nfft and nyquist_mel_row_zero(cfg))
+    return (cfg.recipe == "fpga" and cfg.nfft in (256, 512, 1024)
+            and cfg.hop % 2 == 0 and cfg.windowlen == cfg.nfft
+            and nyquist_mel_row_zero(cfg))
+
+
+def kaldi_config_ok(cfg: MFCCConfig) -> bool:
+    """The Kaldi instantiation's family: Kaldi's recipe at nfft 256, 512
+    or 1024 with an even frame length (the ingest loads sample pairs)."""
+    return (cfg.recipe == "kaldi" and cfg.nfft in (256, 512, 1024)
+            and cfg.windowlen % 2 == 0 and cfg.nfilters <= cfg.nfft // 2)
+
+
+def check_kaldi_dials(method: str, precision: str, dtype: torch.dtype,
+                      mel_floor: float) -> None:
+    """Raise unless the dials are the ones Kaldi's recipe runs at: the
+    recipe states its own floor (FLT_EPSILON) and its FP64 tail."""
+    if (method != "dft" or precision != "highest"
+            or dtype != torch.float32 or mel_floor):
+        raise ValueError(
+            "Kaldi's recipe runs with method=\"dft\", precision=\"highest\", "
+            "float32 and no mel_floor (it floors at FLT_EPSILON itself)")
+
+
+def kaldi_operators(cfg: MFCCConfig) -> tuple[np.ndarray, ...]:
+    """Kaldi's tables as the tail reads them, float64: the povey window
+    zero-padded to nfft (no 1/nfft: Kaldi's power is unscaled), the mel
+    banks over bins [0, nfft/2), and the DCT with the lifter and ln 2
+    folded in (the tail's log2 times ln 2 is Kaldi's natural log)."""
+    win = np.zeros(cfg.nfft)
+    win[: cfg.windowlen] = tables.povey_window(cfg.windowlen)
+    mel = tables.kaldi_mel_matrix(cfg.samplerate, cfg.nfft, cfg.nfilters,
+                                  cfg.low_freq, cfg.high_freq)
+    dct = tables.kaldi_dct_matrix(cfg.nfilters, cfg.nceptrums,
+                                  cfg.cepstral_lifter) * np.log(2.0)
+    return win, mel, np.ascontiguousarray(dct)
 
 
 def fladder_operators(cfg: MFCCConfig) -> tuple[np.ndarray, ...]:
-    """(window/nfft, mel without the Nyquist row, dct) as float64 arrays."""
+    """(window/nfft, mel without the Nyquist row, dct) as float64 arrays;
+    ``kaldi_operators`` for Kaldi's recipe."""
+    if cfg.recipe == "kaldi":
+        return kaldi_operators(cfg)
     if not nyquist_mel_row_zero(cfg):
         raise ValueError("K1 needs a zero Nyquist mel row")
     win = tables.float_window(cfg.nfft) / cfg.nfft
@@ -199,3 +244,103 @@ def launch_ladder(audio: torch.Tensor, cfg: MFCCConfig, mel_floor: float,
                  ops.window.data_ptr(), tw.data_ptr(), ops.mel.data_ptr(),
                  ops.dct.data_ptr(), ops.band.data_ptr(), float(mel_floor))
     return out.reshape(lead + (n_frames, ncep))
+
+
+# -- Kaldi's recipe --------------------------------------------------------------
+
+def mfcc_kaldi_frames_plain(frames: torch.Tensor, cfg: MFCCConfig,
+                            operators: LadderOperators | None = None
+                            ) -> torch.Tensor:
+    """Kaldi's recipe on (..., F, L) frames of raw samples, L >=
+    windowlen (positions past windowlen are ignored), as plain torch ops in
+    float64: the DC removal and emphasis (``framing.kaldi_preemphasis``),
+    the padding to nfft and the tail of ``ladder_tail_plain`` on the
+    recipe's tables with the floor FLT_EPSILON; f32 out.  K1-Kaldi's plain
+    version and the recipe's chain on any device."""
+    ops = _resolve(operators, cfg, frames.device)
+    wl = cfg.windowlen
+    y = framing.kaldi_preemphasis(frames[..., :wl].to(torch.float64),
+                                  cfg.preemphasis_coefficient)
+    y = torch.nn.functional.pad(y, (0, cfg.nfft - wl))
+    return ladder_tail_plain(y, ops, cfg, tables.FLT_EPSILON)
+
+
+def mfcc_kaldi_ladder_plain(audio: torch.Tensor, cfg: MFCCConfig,
+                            operators: LadderOperators | None = None
+                            ) -> torch.Tensor:
+    """Kaldi's recipe on (..., T) raw samples -> (..., F, nceptrums) f32,
+    F = (T - windowlen) // hop + 1, as plain torch ops in float64."""
+    frames = framing.extract_frames(audio, cfg.windowlen, cfg.hop)
+    return mfcc_kaldi_frames_plain(frames, cfg, operators)
+
+
+def _kaldi_checks(x: torch.Tensor, cfg: MFCCConfig, operators, what: str
+                  ) -> LadderOperators:
+    if not kaldi_config_ok(cfg):
+        raise ValueError(f"config outside K1-Kaldi's family: {cfg}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    if x.dtype not in (torch.int16, torch.float32):
+        raise TypeError(f"{what} takes int16 or float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous input")
+    ops = _resolve(operators, cfg, x.device)
+    check_operators(ops, cfg, x.device, what)
+    return ops
+
+
+def mfcc_kaldi_ladder(audio: torch.Tensor, cfg: MFCCConfig,
+                      operators: LadderOperators | None = None
+                      ) -> torch.Tensor:
+    """K1 on Kaldi's recipe: (..., T) int16 or f32 raw samples -> (..., F,
+    nceptrums) f32.  On a CUDA tensor one launch of
+    ``fladder_kaldi_kernel`` (or the wrapper raises); a CPU tensor takes
+    ``mfcc_kaldi_ladder_plain``."""
+    global KALDI_LAUNCHES
+    if audio.device.type == "cpu":
+        return mfcc_kaldi_ladder_plain(audio, cfg, operators)
+    ops = _kaldi_checks(audio, cfg, operators, "K1-Kaldi")
+    lead, T = audio.shape[:-1], audio.shape[-1]
+    F = framing.num_frames(T, cfg.hop, cfg.windowlen)
+    out = launch_kaldi(audio.reshape(-1, T), F, cfg.hop, cfg, ops)
+    KALDI_LAUNCHES += 1
+    return out.reshape(lead + (F, cfg.nceptrums))
+
+
+def mfcc_kaldi_frames(frames: torch.Tensor, cfg: MFCCConfig,
+                      operators: LadderOperators | None = None
+                      ) -> torch.Tensor:
+    """K1 on Kaldi's recipe from (..., F, nfft) int16 or f32 frames of raw
+    samples (positions past windowlen ignored) -> (..., F, nceptrums) f32:
+    on a CUDA tensor one launch over the frames as rows of one frame each;
+    a CPU tensor takes ``mfcc_kaldi_frames_plain``."""
+    global KALDI_LAUNCHES
+    if frames.device.type == "cpu":
+        return mfcc_kaldi_frames_plain(frames, cfg, operators)
+    ops = _kaldi_checks(frames, cfg, operators, "K1-Kaldi frames")
+    if frames.shape[-1] != cfg.nfft:
+        raise ValueError(f"frames of {frames.shape[-1]} samples; K1-Kaldi "
+                         f"takes nfft={cfg.nfft}")
+    out = launch_kaldi(frames.reshape(-1, cfg.nfft), 1, cfg.hop, cfg, ops)
+    KALDI_LAUNCHES += 1
+    return out.reshape(frames.shape[:-1] + (cfg.nceptrums,))
+
+
+def launch_kaldi(x: torch.Tensor, n_frames: int, hop: int, cfg: MFCCConfig,
+                 ops: LadderOperators) -> torch.Tensor:
+    """Launch ``mfcc_fladder_kaldi_{i16,f32}`` on contiguous (S, T) CUDA
+    rows, ``n_frames`` frames a row at ``hop``; (S, n_frames, nceptrums)
+    f32 out.  Counts nothing."""
+    S, T = x.shape
+    out = torch.empty((S, n_frames, cfg.nceptrums), dtype=torch.float32,
+                      device=x.device)
+    lib = build.library()
+    fn = (lib.mfcc_fladder_kaldi_i16 if x.dtype == torch.int16
+          else lib.mfcc_fladder_kaldi_f32)
+    build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), S, T, n_frames,
+                 hop, cfg.nfft, cfg.windowlen, cfg.preemphasis_coefficient,
+                 cfg.nfilters, cfg.nceptrums, ops.window.data_ptr(),
+                 twiddles(cfg.nfft, x.device).data_ptr(), ops.mel.data_ptr(),
+                 ops.dct.data_ptr(), ops.band.data_ptr(), tables.FLT_EPSILON)
+    return out

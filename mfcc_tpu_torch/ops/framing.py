@@ -29,6 +29,19 @@ def preemphasis(x: torch.Tensor, carry: torch.Tensor | None = None
     return x - EMPHASIS_COEFF * prev
 
 
+def kaldi_preemphasis(frames: torch.Tensor, coeff: float) -> torch.Tensor:
+    """Kaldi's DC removal and pre-emphasis inside each frame, on (..., L)
+    frames of raw samples (feature-window.cc ProcessWindow, Preemphasize):
+    with mu the frame's mean, y_i = (x_i - mu) - c (x_(i-1) - mu) for i >= 1
+    and y_0 = (x_0 - mu) - c (x_0 - mu).  Computed as the kernel computes
+    it: y_i = x_i - c x_(i-1) - (1 - c) mu, with x_(-1) taken as x_0 (the
+    algebra is in ``csrc/fladder_stages.cuh``, ``kaldi_ingest``).  Nothing
+    carries from one frame to the next."""
+    prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+    mu = frames.mean(dim=-1, keepdim=True)
+    return (frames - coeff * prev) - (1.0 - coeff) * mu
+
+
 def preemphasis_int(x: torch.Tensor, carry: torch.Tensor | None = None,
                     width: int = 16) -> torch.Tensor:
     """Fixed-point pre-emphasis: y = wrap_w(x + (prev >> 5) - prev)

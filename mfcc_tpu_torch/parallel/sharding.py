@@ -108,7 +108,10 @@ def mfcc_sharded_fn(mesh: DeviceMesh, cfg: MFCCConfig = MFCCConfig(), *,
     the frames that cross a shard boundary come through ``halo.py``'s
     explicit exchange (``halo.chain_frames``) and the cepstra are
     (S/dp, F_loc, ncep) blocks, the frames each sp shard owns
-    (``layout="dp-sp"``)."""
+    (``layout="dp-sp"``).  The FPGA recipe only: Kaldi's raises."""
+    if cfg.recipe != "fpga":
+        raise ValueError(f"mfcc_sharded_fn runs the FPGA recipe, not "
+                         f"{cfg.recipe!r}")
     device = meshlib.mesh_device(mesh)
     if int_path:
         family = int_fused.int_config_ok(cfg)

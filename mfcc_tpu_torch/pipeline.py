@@ -31,6 +31,14 @@ route.  Float path (``forward``, ``frames``):
     that misses the 5e-4 contract) and full float32 for CPU tensors, which
     is what the JAX package computes off its TPU.
 
+Kaldi's recipe (``config.KaldiConfig``): ``forward`` -> K1's Kaldi
+instantiation (``fladder.mfcc_kaldi_ladder``) and ``frames`` -> the same
+kernel on frames (``fladder.mfcc_kaldi_frames``), launched for CUDA
+tensors in its family (``fladder.kaldi_config_ok``), their plain versions
+(the recipe's chain) for CPU tensors and other configs of the recipe; only
+``method="dft"``, ``precision="highest"``, float32 and no ``mel_floor`` (the
+recipe floors at FLT_EPSILON itself); the INT entries raise.
+
 INT path (``int``, ``int_frames``): a config in the fused kernels' family
 (``ops.int_fused.int_config_ok``) -> K2 / K3 (launched for CUDA tensors;
 their plain versions for CPU tensors); every other config (width != 16,
@@ -122,13 +130,18 @@ class MFCC(nn.Module):
         self.dtype = dtype
         self.mel_floor = mel_floor
 
+        if cfg.recipe == "kaldi":
+            fladder.check_kaldi_dials(method, precision, dtype, mel_floor)
+
         fast = precision == "fast"
         # the JAX package's split-DFT family: pallas_mfcc.pallas_float_config_ok
         fused_ok = (method == "dft" and dtype == torch.float32
                     and mel_floor == 0.0 and float_fused.float_config_ok(cfg))
         # the route of CUDA tensors; CPU tensors take the chain outside K1's
         # and K7's
-        if precision == "f64ish":
+        if cfg.recipe == "kaldi":
+            self._route = "kaldi"           # K1-Kaldi, or its chain
+        elif precision == "f64ish":
             self._route = "f64ish"          # K7, or the float64 chain
         elif (method == "dft" and dtype == torch.float32
                 and precision == "highest" and fladder.fladder_config_ok(cfg)):
@@ -139,7 +152,8 @@ class MFCC(nn.Module):
             self._route = "recomp_t"        # K6
         else:
             self._route = "chain"
-        self._frames_route = ("f64ish" if precision == "f64ish" else
+        self._frames_route = ("kaldi" if cfg.recipe == "kaldi" else
+                              "f64ish" if precision == "f64ish" else
                               "radix2" if fast and fused_ok else "chain")
         self._int_route = "fused" if int_fused.int_config_ok(cfg) else "chain"
 
@@ -148,7 +162,14 @@ class MFCC(nn.Module):
         # the DFT operator, K1's window/nfft and the mel band limits are
         # derived from them, and rebuilt whenever they change
         # (load_numpy_operators, load_state_dict).
-        ops = float_ops.operators_np(cfg)
+        if cfg.recipe == "kaldi":
+            # the recipe's tables as K1-Kaldi reads them; the mel matrix
+            # gets the zero Nyquist row of the buffer's (nfft/2+1) shape
+            win, mel, dct = fladder.kaldi_operators(cfg)
+            ops = dict(window=win, dct=dct, mel=np.concatenate(
+                [mel, np.zeros((1, cfg.nfilters))]))
+        else:
+            ops = float_ops.operators_np(cfg)
         for name in _STATE:
             self.register_buffer(name, torch.as_tensor(
                 ops[name], dtype=torch.float64, device=device))
@@ -164,7 +185,9 @@ class MFCC(nn.Module):
         self.dft = torch.as_tensor(np.concatenate([C, S], axis=1),
                                    dtype=torch.float64,
                                    device=self.window.device)
-        self.ladder_window = self.window / nfft
+        # Kaldi's power is unscaled: its window carries no 1/nfft
+        self.ladder_window = (self.window if self.cfg.recipe == "kaldi"
+                              else self.window / nfft)
         self.mel_band = fladder.mel_bands(self.mel[: nfft // 2])
 
     def load_numpy_operators(self, arrays: dict) -> None:
@@ -245,6 +268,9 @@ class MFCC(nn.Module):
     def forward(self, audio) -> torch.Tensor:
         """(..., T) raw samples -> (..., F, nceptrums) float cepstra."""
         audio = self._as_input(audio)
+        if self._route == "kaldi":
+            return self._kaldi(fladder.mfcc_kaldi_ladder,
+                               fladder.mfcc_kaldi_ladder_plain, audio)
         if self._route == "f64ish":
             return f64ish.mfcc_batch_f64ish(audio, self.cfg,
                                             operators=self._f64ish_ops())
@@ -266,8 +292,14 @@ class MFCC(nn.Module):
             mel_floor=self.mel_floor, operators=self._chain_ops())
 
     def frames(self, frames) -> torch.Tensor:
-        """(..., F, nfft) pre-emphasized frames -> (..., F, nceptrums)."""
+        """(..., F, nfft) pre-emphasized frames -> (..., F, nceptrums); for
+        Kaldi's recipe, frames of raw samples (Kaldi removes each frame's
+        DC offset and emphasizes inside it), positions past windowlen
+        ignored."""
         frames = self._as_input(frames)
+        if self._frames_route == "kaldi":
+            return self._kaldi(fladder.mfcc_kaldi_frames,
+                               fladder.mfcc_kaldi_frames_plain, frames)
         if self._frames_route == "f64ish":
             return f64ish.mfcc_frames_f64ish(frames, self.cfg,
                                              operators=self._f64ish_ops())
@@ -278,6 +310,21 @@ class MFCC(nn.Module):
             frames, self.cfg, method=self.method,
             precision=self._chain_precision, dtype=self.dtype,
             mel_floor=self.mel_floor, operators=self._chain_ops())
+
+    def _kaldi(self, kernel, plain, x) -> torch.Tensor:
+        """Kaldi's recipe: ``kernel`` in K1-Kaldi's family (one launch on a
+        CUDA tensor, the plain version on a CPU one), else ``plain``."""
+        fn = kernel if fladder.kaldi_config_ok(self.cfg) else plain
+        if x.dtype != torch.int16 and x.device.type != "cpu":
+            x = x.to(torch.float32)          # never truncated to int16
+        return fn(x.contiguous(), self.cfg, operators=self._ladder_ops())
+
+    def _no_int(self) -> None:
+        if self.cfg.recipe != "fpga":
+            raise ValueError(
+                f"the {self.cfg.recipe} recipe has no INT path: the "
+                "fixed-point pipeline is the FPGA core's, and Kaldi defines "
+                "none; call the module for float cepstra")
 
     # -- INT path (bit-exact RTL parity) ---------------------------------------
 
@@ -297,6 +344,7 @@ class MFCC(nn.Module):
         """(..., T) int16-range samples -> (..., F, nceptrums) int32
         cepstra, element-exact vs the RTL fixed-point pipeline.  The
         kernels' route takes samples mod 2^16 (the int16 wire contract)."""
+        self._no_int()
         x = self._as_int(audio)
         if self._int_route == "fused":
             return int_fused.mfcc_int_fused(x, self.cfg)
@@ -305,6 +353,7 @@ class MFCC(nn.Module):
     def int_frames(self, frames) -> torch.Tensor:
         """(..., F, nfft) pre-emphasized int frames -> (..., F, nceptrums)
         int32."""
+        self._no_int()
         x = self._as_int(frames).to(torch.int32)
         if self._int_route == "fused":
             return int_fused.mfcc_int_fused_frames(x, self.cfg)
@@ -315,6 +364,9 @@ class MFCC(nn.Module):
     def intermediates(self, audio) -> dict:
         """All stage outputs of the float path (the ``gen_collector`` debug
         pattern, mfcc/core/mfcc.py:128-141, as a returned dict), on the
-        module's device; see ``utils.debug.float_intermediates``."""
+        module's device; see ``utils.debug.float_intermediates``.  The
+        FPGA recipe's stages only."""
+        if self.cfg.recipe != "fpga":
+            raise ValueError("intermediates are the FPGA recipe's stages")
         return float_intermediates(self._as_input(audio), self.cfg,
                                    dtype=self.dtype)

@@ -41,6 +41,14 @@ Routing, as ``mfcc_tpu.streaming`` routes:
     K3, or the ``float_ops`` chain, with ``precision="split"``, ``"high"``,
     ``"default"`` and ``"bf16"`` as given).
 
+Kaldi's recipe (``config.KaldiConfig``) takes the chain on every step: its
+carry holds windowlen - 1 raw samples (Kaldi removes each frame's DC offset
+and emphasizes inside the frame, so nothing is emphasized across chunks and
+``prev`` is unused), and its features are ``fladder.mfcc_kaldi_frames``: one
+launch of K1's Kaldi instantiation on the step's frames on the card, its
+plain version on the CPU.  Only ``method="dft"``, ``precision="highest"``,
+float32 and no ``mel_floor``; ``int_path`` raises.
+
 The JAX package's barrel shifter (``_barrel_align``) is a TPU device: here
 the per-row alignment is one indexed read.  Nothing is compiled per chunk
 width, so ``CHUNK_WIDTH_WARN`` has no counterpart.  ``save_state`` /
@@ -186,7 +194,15 @@ class StreamingMFCC:
         # off the CPU
         self._route = "chain"
         fused_geometry = stream_fused.stream_config_ok(cfg)
-        if int_path:
+        if cfg.recipe == "kaldi":
+            if int_path:
+                raise ValueError("Kaldi's recipe has no INT path")
+            fladder.check_kaldi_dials(method, precision, dtype, mel_floor)
+            self._emphasize = lambda chunks, prev: chunks   # raw carry
+            self._features = functools.partial(
+                fladder.mfcc_kaldi_frames if fladder.kaldi_config_ok(cfg)
+                else fladder.mfcc_kaldi_frames_plain, cfg=cfg)
+        elif int_path:
             self._emphasize = functools.partial(framing.preemphasis_int,
                                                 width=cfg.width)
             if int_fused.int_config_ok(cfg):

@@ -94,6 +94,63 @@ def windowed_rdft_matrix(nfft: int, scale: float | None = None,
 
 
 # ---------------------------------------------------------------------------
+# Kaldi's recipe (config.KaldiConfig; kaldi-asr/kaldi src/feat)
+# ---------------------------------------------------------------------------
+
+FLT_EPSILON = float(np.finfo(np.float32).eps)   # Kaldi's mel energy floor
+
+
+def povey_window(frame_length: int) -> np.ndarray:
+    """Kaldi's "povey" window (feature-window.cc FeatureWindowFunction):
+    (0.5 - 0.5 cos(2 pi i / (L - 1)))^0.85 for i in [0, L); zero at i = 0."""
+    a = 2.0 * np.pi / (frame_length - 1)
+    return (0.5 - 0.5 * np.cos(a * np.arange(frame_length))) ** 0.85
+
+
+def kaldi_mel_scale(freq):
+    """mel-computations.h MelScale: 1127 ln(1 + f/700)."""
+    return 1127.0 * np.log(1.0 + np.asarray(freq, np.float64) / 700.0)
+
+
+def kaldi_mel_matrix(sample_rate: int, nfft: int, nfilters: int,
+                     low_freq: float, high_freq: float) -> np.ndarray:
+    """Kaldi's mel banks (mel-computations.cc MelBanks, no VTLN, not HTK
+    mode), (nfft/2, nfilters): over the FFT bins below Nyquist at bin
+    frequency i * sample_rate / nfft, triangle b has edges mel(low) + (b,
+    b+1, b+2) * delta, delta = (mel(high) - mel(low)) / (nfilters + 1),
+    with weights linear in mel, strictly inside its edges.  ``high_freq``
+    <= 0 is an offset from Nyquist."""
+    nyquist = 0.5 * sample_rate
+    high = high_freq if high_freq > 0 else nyquist + high_freq
+    lo_mel, hi_mel = kaldi_mel_scale(low_freq), kaldi_mel_scale(high)
+    delta = (hi_mel - lo_mel) / (nfilters + 1)
+    mel = kaldi_mel_scale(np.arange(nfft // 2) * sample_rate / nfft)
+    W = np.zeros((nfft // 2, nfilters), np.float64)
+    for b in range(nfilters):
+        left = lo_mel + b * delta
+        center, right = left + delta, left + 2 * delta
+        inside = (mel > left) & (mel < right)
+        m = mel[inside]
+        W[inside, b] = np.where(m <= center, (m - left) / (center - left),
+                                (right - m) / (right - center))
+    return W
+
+
+def kaldi_dct_matrix(nfilters: int, nceptrums: int,
+                     cepstral_lifter: float) -> np.ndarray:
+    """(nfilters, nceptrums): the first nceptrums rows of Kaldi's
+    ComputeDctMatrix (an orthonormal DCT-II, the 2-D transform of
+    ``dct2_ortho_matrix``) with the lifter of ComputeLifterCoeffs,
+    1 + Q/2 sin(pi k / Q), folded into column k (Q = 0: none)."""
+    dct = dct2_ortho_matrix(nfilters)[:, :nceptrums]
+    if cepstral_lifter:
+        k = np.arange(nceptrums)
+        dct = dct * (1.0 + 0.5 * cepstral_lifter
+                     * np.sin(np.pi * k / cepstral_lifter))
+    return dct
+
+
+# ---------------------------------------------------------------------------
 # Fixed-point (INT path) tables
 # ---------------------------------------------------------------------------
 

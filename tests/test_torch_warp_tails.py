@@ -160,11 +160,12 @@ def test_persistent_walk_takes_every_frame_once(name, sms, per_sm):
         assert max(counts) - (min(counts) if len(counts) == warps else 0) <= 1
 
 
-@pytest.mark.parametrize("source,loops", [("fladder.cu", 1), ("f64ish.cu", 2),
+@pytest.mark.parametrize("source,loops", [("fladder.cu", 2), ("f64ish.cu", 2),
                                           ("int_mfcc.cu", 2)])
 def test_persistent_walk_is_the_kernels_loop(source, loops):
-    """The model's loop is the kernels' own: each persistent kernel of K1,
-    K7 (audio and frames) and K2/K3-v1/K3 walks G from blockIdx.x * kFrames
+    """The model's loop is the kernels' own: each persistent kernel of K1
+    (the FPGA's and Kaldi's instantiations), K7 (audio and frames) and
+    K2/K3-v1/K3 walks G from blockIdx.x * kFrames
     + the warp by gridDim.x * kFrames, and K1's and K7's batch kernels and
     K2's take (s, g) = (G / F, G - s*F) and the frame before the start as 0
     where g == 0; every launch goes through ``launch_persistent``
