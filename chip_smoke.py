@@ -3387,14 +3387,19 @@ ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
 TAIL_KERNELS = ("fladder_kernel", "fladder_kaldi_kernel", "f64ish_kernel", "f64ish_frames_kernel",
                 "int_audio_kernel", "int_frames_kernel", "int_epi_kernel",
                 "stream_f32_kernel", "stream_int_kernel")
-# the INT kernels whose SASS is counted: (name, library, a substring of the
-# mangled name)
-INT_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
-            ("K3-v1", "int_mfcc", "int_audio_kernelIiE"),
-            ("K3", "int_mfcc", "int_frames_kernel"),
-            ("K10-front", "int_split2", "int_front_kernel"),
-            ("K10-epi", "int_split2", "int_epi_kernel"),
-            ("K4-INT", "stream_step", "stream_int_kernelIsE"))
+# the tail kernels whose SASS is counted: (name, library, a substring of
+# the mangled name); the FP64 tail's at nfft 512 on int16
+TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
+             ("K3-v1", "int_mfcc", "int_audio_kernelIiE"),
+             ("K3", "int_mfcc", "int_frames_kernel"),
+             ("K10-front", "int_split2", "int_front_kernel"),
+             ("K10-epi", "int_split2", "int_epi_kernel"),
+             ("K4-INT", "stream_step", "stream_int_kernelIsE"),
+             ("K1", "fladder", "fladder_kernelIsLi3E"),
+             ("K1-Kaldi", "fladder", "fladder_kaldi_kernelIsLi3E"),
+             ("K7", "f64ish", "f64ish_kernelIsLi3E"),
+             ("K7-frames", "f64ish", "f64ish_frames_kernelILi3E"),
+             ("K4-float", "stream_step", "stream_f32_kernelIsE"))
 # K2's static SASS instructions as PERF.md records them (on the balanced
 # filterbank): K2's kernel also runs K9, so a change to the count is a
 # change to both
@@ -3428,9 +3433,9 @@ def ptxas_registers(build_log: str, kernels) -> list[str]:
     return regs
 
 
-def int_sass(libs) -> str:
-    """One line: the static SASS instructions of the INT kernels
-    (``cuobjdump -sass`` of the built libraries, counted by
+def tail_sass(libs) -> str:
+    """One line: the static SASS instructions of the tail kernels, INT and
+    FP64 (``cuobjdump -sass`` of the built libraries, counted by
     ``tools/sass_mix.py``) and the body size of each of their loops (the
     outermost the walk over frames), K2's beside ``K2_SASS``; "not
     measured" without a ``cuobjdump`` beside nvcc."""
@@ -3439,16 +3444,16 @@ def int_sass(libs) -> str:
     from mfcc_tpu_torch.tools import sass_mix
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     if not tool.exists():
-        return "INT kernels' SASS: not measured (no cuobjdump beside nvcc)"
+        return "tail kernels' SASS: not measured (no cuobjdump beside nvcc)"
     listings = {}
     for lib in libs:
         stem = lib.name[3:].split("-")[0]
-        if stem in {lib_ for _, lib_, _ in INT_SASS}:
+        if stem in {lib_ for _, lib_, _ in TAIL_SASS}:
             listings[stem] = subprocess.run(
                 [str(tool), "-sass", str(lib)], capture_output=True,
                 text=True, check=True, timeout=300).stdout
     parts, k2 = [], None
-    for key, stem, sub in INT_SASS:
+    for key, stem, sub in TAIL_SASS:
         counts = sass_mix.kernels(listings[stem])
         bodies = sass_mix.loops(listings[stem])
         for name, ops in counts.items():
@@ -3456,7 +3461,7 @@ def int_sass(libs) -> str:
                 n = sum(ops.values())
                 k2 = n if key == "K2" else k2
                 parts.append(f"{key} {n}, loop bodies {bodies[name]}")
-    return ("INT kernels' SASS (cuobjdump, tools/sass_mix.py; static "
+    return ("tail kernels' SASS (cuobjdump, tools/sass_mix.py; static "
             "instructions a kernel, then the body of each loop: a "
             "persistent kernel's largest is its walk, a frame's "
             "instructions with each inner loop once): " + "; ".join(parts)
@@ -3527,7 +3532,7 @@ def main() -> int:
           "int_audio, K3 int_frames, K10's epilogue int_epi, K4 stream_f32 "
           "and stream_int): "
           + "; ".join(ptxas_registers(log.getvalue(), TAIL_KERNELS)))
-    print(int_sass(build.build()))
+    print(tail_sass(build.build()))
 
     kernels = [float_phases(dev, card)]
     torch.cuda.empty_cache()

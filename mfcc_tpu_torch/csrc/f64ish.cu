@@ -35,7 +35,7 @@
 //
 // Design: K1's tail (fladder_stages.cuh) in K1's persistent grid
 // (persistent.cuh, fladder.cu): as many blocks of 8 warps as the card
-// holds at once, each loading its twiddle and mel tables into shared memory
+// holds at once, each loading its twiddles and mel schedule to shared memory
 // once; each warp then takes frames in a grid-stride loop, one frame at a
 // time, loading its frame's packed points straight into registers.  The
 // batch entry walks the flat frames G = s*F + g and frames by address into
@@ -93,12 +93,12 @@ f64ish_kernel(const In* __restrict__ audio, float* __restrict__ out,
               int ncep, const double2* __restrict__ win,
               const double2* __restrict__ tw, const double* __restrict__ mel,
               const double* __restrict__ dct, const int2* __restrict__ band,
-              int wire_grid) {
+              const double2* __restrict__ msched, int msteps, int wire_grid) {
   extern __shared__ double2 smem[];
   constexpr int log2m = 5 + LOG2P;
   constexpr int kP = 1 << LOG2P;
-  const Smem sm = carve(smem, log2m + 1);
-  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
+  const Smem sm = carve(smem, log2m + 1, msteps);
+  load_constants(sm, log2m + 1, tw, mel, band, msched, nfilters);
   __syncthreads();
 
   // each warp takes frames G = s * F + g in a grid-stride loop
@@ -133,13 +133,15 @@ f64ish_frames_kernel(const float* __restrict__ frames, float* __restrict__ out,
                      const double2* __restrict__ tw,
                      const double* __restrict__ mel,
                      const double* __restrict__ dct,
-                     const int2* __restrict__ band, int wire_grid) {
+                     const int2* __restrict__ band,
+                     const double2* __restrict__ msched, int msteps,
+                     int wire_grid) {
   extern __shared__ double2 smem[];
   constexpr int log2m = 5 + LOG2P;
   constexpr int nfft = 2 << log2m;
   constexpr int kP = 1 << LOG2P;
-  const Smem sm = carve(smem, log2m + 1);
-  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
+  const Smem sm = carve(smem, log2m + 1, msteps);
+  load_constants(sm, log2m + 1, tw, mel, band, msched, nfilters);
   __syncthreads();
 
   // each warp takes rows G in a grid-stride loop
@@ -169,7 +171,8 @@ template <typename In>
 int launch_audio(const In* audio, float* out, long long S, long long T, int F,
                  int hop, int nfft, int nfilters, int ncep, const double* win,
                  const double* tw, const double* mel, const double* dct,
-                 const int* band, int wire_grid, void* stream) {
+                 const int* band, const void* msched, int msteps,
+                 int wire_grid, void* stream) {
   if (bad_tables(nfft, nfilters, ncep) || F < 1 || hop < 1 || S < 0 ||
       T < static_cast<long long>(F - 1) * hop + nfft)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -182,7 +185,9 @@ int launch_audio(const In* audio, float* out, long long S, long long T, int F,
         smem_bytes(nfft), stream, audio, out, T, F, hop, frames, nfilters,
         ncep, reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
-        reinterpret_cast<const int2*>(band), wire_grid);
+        reinterpret_cast<const int2*>(band),
+        static_cast<const double2*>(msched), mel_steps(msched, msteps, nfft),
+        wire_grid);
   });
 }
 
@@ -193,7 +198,9 @@ int launch_audio(const In* audio, float* out, long long S, long long T, int F,
 // (nfft/2 x nfilters, the Nyquist row dropped) and dct (nfilters x ncep)
 // are float64, row-major; tw holds nfft/2 interleaved complex float64
 // twiddles exp(-2*pi*i*k/nfft); band holds nfilters int32 pairs [lo, hi)
-// outside which a mel column is zero; wire_grid is 0 or 1.  Launches on
+// outside which a mel column is zero; msched and msteps are the mel
+// schedule (or null and 0), as fladder.cu's entries take them; wire_grid
+// is 0 or 1.  Launches on
 // `stream`, on the calling thread's current device (the caller sets it),
 // without synchronizing; returns a cudaError_t (0 = launched).
 extern "C" int mfcc_f64ish_i16(const int16_t* audio, float* out, long long S,
@@ -201,9 +208,10 @@ extern "C" int mfcc_f64ish_i16(const int16_t* audio, float* out, long long S,
                                int nfilters, int ncep, const double* win,
                                const double* tw, const double* mel,
                                const double* dct, const int* band,
+                               const void* msched, int msteps,
                                int wire_grid, void* stream) {
   return launch_audio(audio, out, S, T, F, hop, nfft, nfilters, ncep, win, tw,
-                      mel, dct, band, wire_grid, stream);
+                      mel, dct, band, msched, msteps, wire_grid, stream);
 }
 
 extern "C" int mfcc_f64ish_f32(const float* audio, float* out, long long S,
@@ -211,9 +219,10 @@ extern "C" int mfcc_f64ish_f32(const float* audio, float* out, long long S,
                                int nfilters, int ncep, const double* win,
                                const double* tw, const double* mel,
                                const double* dct, const int* band,
+                               const void* msched, int msteps,
                                int wire_grid, void* stream) {
   return launch_audio(audio, out, S, T, F, hop, nfft, nfilters, ncep, win, tw,
-                      mel, dct, band, wire_grid, stream);
+                      mel, dct, band, msched, msteps, wire_grid, stream);
 }
 
 // frames: (M, nfft) float32, contiguous.
@@ -222,6 +231,7 @@ extern "C" int mfcc_f64ish_frames_f32(const float* frames, float* out,
                                       int ncep, const double* win,
                                       const double* tw, const double* mel,
                                       const double* dct, const int* band,
+                                      const void* msched, int msteps,
                                       int wire_grid, void* stream) {
   if (bad_tables(nfft, nfilters, ncep) || M < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -233,6 +243,8 @@ extern "C" int mfcc_f64ish_frames_f32(const float* frames, float* out,
         smem_bytes(nfft), stream, frames, out, M, nfilters, ncep,
         reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
-        reinterpret_cast<const int2*>(band), wire_grid);
+        reinterpret_cast<const int2*>(band),
+        static_cast<const double2*>(msched), mel_steps(msched, msteps, nfft),
+        wire_grid);
   });
 }

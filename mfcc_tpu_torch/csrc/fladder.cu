@@ -23,9 +23,10 @@
 // samples alike and the output sits within f32 rounding of the oracle.
 //
 // Design (fladder_stages.cuh): a persistent grid (persistent.cuh) of blocks
-// of 8 warps, as many as the card holds; a block loads its twiddle and mel
-// tables into shared memory once, and each warp then takes frames G = s*F
-// + g in a grid-stride loop, one frame at a time, at every nfft:
+// of 8 warps, as many as the card holds; a block loads its twiddle table
+// and mel schedule into shared memory once, and each warp then takes
+// frames G = s*F + g in a grid-stride loop, one frame at a time, at every
+// nfft:
 //  * the warp loads its frame's nfft samples and the one before its start
 //    (0 at t = 0) straight from the input, so overlapped framing is
 //    addressing; int16 stays int16;
@@ -36,10 +37,12 @@
 //  * the FFT in registers, 8 complex points a lane at nfft 512, radix-2
 //    decimation in frequency in passes of 3 + 3 + 2 stages with two
 //    exchanges through the warp's swizzled shared row (no bank
-//    conflicts); the unpack and power; the mel sums a lane per filter over
-//    its nonzero bins (~16x less work than the dense product); log2; the
-//    DCT a lane per cepstrum, stored coalesced.  No block barrier after
-//    the tables'.
+//    conflicts); the unpack and power; the mel over the bank's nonzero
+//    terms (~16x less work than the dense product) on the balanced
+//    schedule, the terms cut evenly over the 32 lanes (14 steps a lane
+//    for the FPGA bank, where a lane per filter ran the widest band's 38);
+//    log2; the DCT a lane per cepstrum, stored coalesced.  No block
+//    barrier after the tables'.
 // Offsets are 64-bit: S*T passes 2^31 at S=4096 x 60 s.
 //
 // What bounds it, per call at the headline size (S=1024 x T=63,922, nfft
@@ -47,21 +50,24 @@
 // out, ~54 us of HBM time at 3.35 TB/s; ~19.6 kFLOP of FP64 per frame as
 // chip_smoke.py counts the function (the FFT as radix-4 passes), ~7.5
 // GFLOP per call (0.22 ms at the card's 34 TFLOP/s outside the tensor
-// cores, the bound).  This design is bound by instruction issue: ~2.5k
-// SASS instructions a warp issues per frame straight-line (tools/
-// sass_mix.py on the nfft-512 kernel), ~0.45k more in the mel, log2 and DCT
-// loops, ~1.06 ms at one warp instruction a clock per scheduler; of
-// them ~730 FP64 (the FP64 pipe ~half busy), ~460 IMAD and ~210 LOP3 of
-// address and index work, ~190 shared loads and stores.  A design with a
-// block per 4 frames and radix-4 passes through shared memory, 7 barriers
-// a block, makes ~5.5k 16-byte shared accesses a frame and takes ~2 ms.
+// cores, the bound).  This design is bound by instruction issue, ~1.01 ms
+// a call at the headline (H100): tools/sass_mix.py counts 2,912 static
+// SASS instructions in the nfft-512 kernel, 2,036 in the body of its walk
+// over frames with each inner loop (the mel schedule unrolled whole, the
+// gather and log2, the DCT unrolled by 16, and the paths a frame of the
+// FPGA recipe never takes: the lane-per-filter fallback, the DCT's
+// remainder) counted once; ~730 of a frame's are FP64 (the FP64 pipe
+// ~half busy), the rest mostly IMAD and LOP3 of address and index work
+// and shared loads and stores.  A design with a block per 4 frames and
+// radix-4 passes through shared memory, 7 barriers a block, makes ~5.5k
+// 16-byte shared accesses a frame and takes ~2 ms.
 //
-// Left for later work: the mel loop (balanced bands, conflict-free power
-// reads), radix-4 passes in registers, and f32 or double-f32 arithmetic
-// where the gate allows it.  The TPU-only structure of the Pallas kernel is
-// not carried: its sigma/evenodd8 row order, (8, lanes) sublane blocks with
-// the regroup permutation, 128-lane frame tiles, rolls, and the super-block
-// chunking with SMEM carries.
+// Left for later work: index and address work, radix-4 passes in
+// registers, and f32 or double-f32 arithmetic where the gate allows it.
+// The TPU-only structure of the Pallas kernel is not carried: its
+// sigma/evenodd8 row order, (8, lanes) sublane blocks with the regroup
+// permutation, 128-lane frame tiles, rolls, and the super-block chunking
+// with SMEM carries.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,12 +98,13 @@ fladder_kernel(const In* __restrict__ audio, float* __restrict__ out,
                int ncep, const double2* __restrict__ win,
                const double2* __restrict__ tw, const double* __restrict__ mel,
                const double* __restrict__ dct, const int2* __restrict__ band,
+               const double2* __restrict__ msched, int msteps,
                double mel_floor) {
   extern __shared__ double2 smem[];
   constexpr int log2m = 5 + LOG2P;
   constexpr int kP = 1 << LOG2P;
-  const Smem sm = carve(smem, log2m + 1);
-  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
+  const Smem sm = carve(smem, log2m + 1, msteps);
+  load_constants(sm, log2m + 1, tw, mel, band, msched, nfilters);
   __syncthreads();
 
   // each warp takes frames G = s * F + g in a grid-stride loop
@@ -139,12 +146,14 @@ fladder_kaldi_kernel(const In* __restrict__ audio, float* __restrict__ out,
                      const double2* __restrict__ tw,
                      const double* __restrict__ mel,
                      const double* __restrict__ dct,
-                     const int2* __restrict__ band, double mel_floor) {
+                     const int2* __restrict__ band,
+                     const double2* __restrict__ msched, int msteps,
+                     double mel_floor) {
   extern __shared__ double2 smem[];
   constexpr int log2m = 5 + LOG2P;
   constexpr int kP = 1 << LOG2P;
-  const Smem sm = carve(smem, log2m + 1);
-  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
+  const Smem sm = carve(smem, log2m + 1, msteps);
+  load_constants(sm, log2m + 1, tw, mel, band, msched, nfilters);
   __syncthreads();
 
   for (long long G = static_cast<long long>(blockIdx.x) * kFrames + threadIdx.x / kLanes;
@@ -163,7 +172,8 @@ template <typename In>
 int launch(const In* audio, float* out, long long S, long long T, int F,
            int hop, int nfft, int nfilters, int ncep, const double* win,
            const double* tw, const double* mel, const double* dct,
-           const int* band, double mel_floor, void* stream) {
+           const int* band, const void* msched, int msteps,
+           double mel_floor, void* stream) {
   const int log2n = log2_nfft(nfft);
   if (log2n < 0 || F < 1 || hop < 1 || nfilters < 1 || nfilters > nfft / 2 ||
       ncep < 1 || S < 0 || T < static_cast<long long>(F - 1) * hop + nfft)
@@ -177,7 +187,9 @@ int launch(const In* audio, float* out, long long S, long long T, int F,
         smem_bytes(nfft), stream, audio, out, T, F, hop, frames, nfilters,
         ncep, reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
-        reinterpret_cast<const int2*>(band), mel_floor);
+        reinterpret_cast<const int2*>(band),
+        static_cast<const double2*>(msched), mel_steps(msched, msteps, nfft),
+        mel_floor);
   });
 }
 
@@ -186,7 +198,8 @@ int launch_kaldi(const In* audio, float* out, long long S, long long T, int F,
                  int hop, int nfft, int wlen, double emph, int nfilters,
                  int ncep, const double* win, const double* tw,
                  const double* mel, const double* dct, const int* band,
-                 double mel_floor, void* stream) {
+                 const void* msched, int msteps, double mel_floor,
+                 void* stream) {
   const int log2n = log2_nfft(nfft);
   if (log2n < 0 || F < 1 || hop < 1 || wlen < 2 || wlen % 2 || wlen > nfft ||
       nfilters < 1 || nfilters > nfft / 2 || ncep < 1 || S < 0 ||
@@ -202,7 +215,9 @@ int launch_kaldi(const In* audio, float* out, long long S, long long T, int F,
         out, T, F, hop, frames, wlen, emph, nfilters, ncep,
         reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw), mel, dct,
-        reinterpret_cast<const int2*>(band), mel_floor);
+        reinterpret_cast<const int2*>(band),
+        static_cast<const double2*>(msched), mel_steps(msched, msteps, nfft),
+        mel_floor);
   });
 }
 
@@ -212,18 +227,22 @@ int launch_kaldi(const In* audio, float* out, long long S, long long T, int F,
 // Every pointer is a device pointer.  win (nfft), mel (nfft/2 x nfilters)
 // and dct (nfilters x ncep) are float64, row-major; tw holds nfft/2
 // interleaved complex float64 twiddles exp(-2*pi*i*k/nfft); band holds
-// nfilters int32 pairs [lo, hi) outside which a mel column is zero.
-// Launches on `stream`, on the calling thread's current device (the
-// caller sets it), without synchronizing; returns a cudaError_t
-// (0 = launched).
+// nfilters int32 pairs [lo, hi) outside which a mel column is zero;
+// msched is the balanced mel schedule of msteps steps a lane
+// (ops/fladder.py mel_schedule: 16-byte entries, then nfilters gather
+// words), or null: with no schedule, or one over the table's capacity
+// (mel_steps), the mel runs a lane per filter over its band.  Launches on
+// `stream`, on the calling thread's current device (the caller sets it),
+// without synchronizing; returns a cudaError_t (0 = launched).
 extern "C" int mfcc_fladder_i16(const int16_t* audio, float* out, long long S,
                                 long long T, int F, int hop, int nfft,
                                 int nfilters, int ncep, const double* win,
                                 const double* tw, const double* mel,
                                 const double* dct, const int* band,
+                                const void* msched, int msteps,
                                 double mel_floor, void* stream) {
   return launch(audio, out, S, T, F, hop, nfft, nfilters, ncep, win, tw, mel,
-                dct, band, mel_floor, stream);
+                dct, band, msched, msteps, mel_floor, stream);
 }
 
 extern "C" int mfcc_fladder_f32(const float* audio, float* out, long long S,
@@ -231,9 +250,10 @@ extern "C" int mfcc_fladder_f32(const float* audio, float* out, long long S,
                                 int nfilters, int ncep, const double* win,
                                 const double* tw, const double* mel,
                                 const double* dct, const int* band,
+                                const void* msched, int msteps,
                                 double mel_floor, void* stream) {
   return launch(audio, out, S, T, F, hop, nfft, nfilters, ncep, win, tw, mel,
-                dct, band, mel_floor, stream);
+                dct, band, msched, msteps, mel_floor, stream);
 }
 
 // K1 on Kaldi's recipe: the arguments of mfcc_fladder_* with wlen, the
@@ -246,10 +266,12 @@ extern "C" int mfcc_fladder_kaldi_i16(const int16_t* audio, float* out,
                                       double emph, int nfilters, int ncep,
                                       const double* win, const double* tw,
                                       const double* mel, const double* dct,
-                                      const int* band, double mel_floor,
+                                      const int* band, const void* msched,
+                                      int msteps, double mel_floor,
                                       void* stream) {
   return launch_kaldi(audio, out, S, T, F, hop, nfft, wlen, emph, nfilters,
-                      ncep, win, tw, mel, dct, band, mel_floor, stream);
+                      ncep, win, tw, mel, dct, band, msched, msteps,
+                      mel_floor, stream);
 }
 
 extern "C" int mfcc_fladder_kaldi_f32(const float* audio, float* out,
@@ -258,8 +280,10 @@ extern "C" int mfcc_fladder_kaldi_f32(const float* audio, float* out,
                                       double emph, int nfilters, int ncep,
                                       const double* win, const double* tw,
                                       const double* mel, const double* dct,
-                                      const int* band, double mel_floor,
+                                      const int* band, const void* msched,
+                                      int msteps, double mel_floor,
                                       void* stream) {
   return launch_kaldi(audio, out, S, T, F, hop, nfft, wlen, emph, nfilters,
-                      ncep, win, tw, mel, dct, band, mel_floor, stream);
+                      ncep, win, tw, mel, dct, band, msched, msteps,
+                      mel_floor, stream);
 }

@@ -1,15 +1,14 @@
 // Device functions of the float MFCC tail, in FP64: the packed nfft/2-point
-// FFT, the real-spectrum unpack and power, the banded mel sum with floor and
-// log2, and the DCT product with the f32 store.  Shared by K1 and K6
-// (fladder.cu, from raw audio), K7 and K7-frames (f64ish.cu) and the float
-// serving step K4 (stream_step.cu, from carry and chunk).  Each kernel has
+// FFT, the real-spectrum unpack and power, the mel sum on the balanced
+// schedule with floor and log2, and the DCT product with the f32 store.
+// Shared by K1, K1-Kaldi and K6 (fladder.cu, from raw audio), K7 and
+// K7-frames (f64ish.cu) and the float serving step K4 (stream_step.cu,
+// from carry and chunk).  Each kernel has
 // its own ingest: the warp loads its frame's packed points z[m] = y[2m] +
 // i*y[2m+1] after the window * 1/nfft straight into registers, lane l
 // holding z[l + 32r], and calls ladder_tail.  The tail is the same
 // arithmetic in the same order for all of them, so their outputs agree bit
-// for bit on the same frame values.  K8 (dense_dft.cu)
-// shares mel_log2 and dct_store, functions of its own tile geometry that
-// the tail does not use.
+// for bit on the same frame values.
 //
 // Design: one warp owns one frame, a block of 8 warps 8 frames at a time,
 // at every nfft; each warp runs its frame alone, with __syncwarp only:
@@ -25,13 +24,17 @@
 //  * the unpack reads Z[k] (at the bit-reversed position) and Z[M-k] from
 //    the row, lane l taking the bin pairs (k, M - k) for k = l + 32u, and
 //    |X|^2 goes to the row in natural bin order;
-//  * the mel sums one lane per filter over its band, the weights read by
-//    band offset from a block table (melt[t * nfilters + m] = mel[lo_m +
-//    t, m], 6*M entries; rows past the table read global memory), the
-//    floor and log2 in the same lane, the log-mel row after the power;
+//  * the mel on the balanced schedule (see mel_log2 below): the bank's
+//    nonzero terms cut evenly over the 32 lanes, each lane's segment sums
+//    stored to slots in the row past the power, then lane j adds filter
+//    j's slots, takes the floor and log2 and stores it where the power
+//    was;
 //  * the DCT one lane per cepstrum over the log-mel row, read as a
 //    broadcast, with the dct column read through L1 (consecutive lanes,
-//    consecutive words), and lane c's store of cepstrum c, coalesced.
+//    consecutive words), and lane c's store of cepstrum c, coalesced; past
+//    the last full round of 32 cepstra (ncep > 32: Kaldi's 40), the r left
+//    are spread over groups of r lanes, each group a share of the filters,
+//    joined by shuffles, so no lane takes two cepstra in turn.
 // A frame's row holds M double2 with no pad: point i sits at slot(i) = i
 // ^ swz(i), an XOR of its bits 0-2 with a fixed function of bits 3-8 that
 // makes every access of the passes, the exchanges and the unpack free of
@@ -39,13 +42,11 @@
 // hits 8 distinct 16-byte slots of 128 bytes).  slot is linear in the
 // bits, so slot(lane part | register part) costs one XOR.
 //
-// What bounds it now, at nfft 512: instruction issue, ~2.9k SASS
-// instructions a warp per frame (~730 of them FP64; the rest index and
-// address work, shared loads and stores, loop control), beside ~500
-// shared-memory wavefronts a frame.  Left for later: fewer index and
-// address instructions; the mel loop, whose widest band (38 bins) sets its
-// length for an average of 13 and whose power reads conflict; radix-4
-// passes (the -i rotation is free, ~10% fewer FP64 instructions).
+// What bounds it now, at nfft 512: instruction issue (~730 FP64
+// instructions a frame; the rest index and address work, shared loads and
+// stores, loop control), beside ~500 shared-memory wavefronts a frame.
+// Left for later: fewer index and address instructions; radix-4 passes
+// (the -i rotation is free, ~10% fewer FP64 instructions).
 
 #pragma once
 
@@ -60,7 +61,10 @@ namespace fladder_stages {
 constexpr int kThreads = 256;
 constexpr int kLanes = 32;
 constexpr int kFrames = kThreads / kLanes;   // frames per block, one a warp
-constexpr int kMelPerPoint = 6;              // mel table entries per point
+constexpr int kMelPerPoint = 6;              // mel table doubles per point
+// The mel schedule holds nfft/2 / kMelBinsPerStep steps a lane: a
+// triangular bank has at most two terms a bin, 2 * nfft/2 over 32 lanes
+constexpr int kMelBinsPerStep = 16;
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
   return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -93,6 +97,14 @@ inline size_t smem_bytes(int nfft) {
          sizeof(double) * kMelPerPoint * M;
 }
 
+// The mel schedule's steps a lane that the tail runs: msteps where the
+// table holds them (1 to nfft/2 / kMelBinsPerStep), else 0, the
+// lane-per-filter loop.  ops/fladder.py mel_steps_fit decides the same.
+inline int mel_steps(const void* msched, int msteps, int nfft) {
+  return msched && msteps >= 1 && msteps <= nfft / 2 / kMelBinsPerStep
+             ? msteps : 0;
+}
+
 // Raise the kernel's dynamic shared-memory limit when the tile needs more
 // than the default 48 KB; returns a cudaError_t.
 template <typename Kernel>
@@ -119,31 +131,45 @@ inline int with_points(int nfft, Fn fn) {
 struct Smem {
   double2* buf;     // kFrames rows of M points at slot(m), the warps'
                     // exchanges; later each holds its frame's power (M
-                    // doubles) and log-mel row
+                    // doubles), the mel segments' slots and log-mel row
   double2* stw;     // M twiddles W^k = exp(-2 pi i k / nfft), the unpack's
   double2* ftw;     // M - 1 FFT twiddles by stage (see the notes above)
-  double* melt;     // kMelPerPoint * M mel weights by band offset
+  // The mel table, kMelPerPoint * M doubles, holds one of two layouts:
+  double2* msched;  // the schedule's entries, msteps * 32 (mel_log2; at
+                    // most 2M double2), then
+  unsigned* mgather;  // its gather words, one a filter (at most M);
+  double* melt;     // or, without a schedule, the weights by band offset
+                    // (melt[t * nfilters + m] = mel[lo_m + t, m])
   int R;            // row stride, M
+  int msteps;       // the schedule's steps a lane; 0: a lane per filter
 };
 
-__device__ __forceinline__ Smem carve(double2* smem, int log2n) {
+// The block's arrays, for a mel schedule of msteps steps a lane (mel_steps:
+// 0 for none).
+__device__ __forceinline__ Smem carve(double2* smem, int log2n, int msteps) {
   const int M = 1 << (log2n - 1);
   Smem sm;
   sm.R = M;
+  sm.msteps = msteps;
   sm.buf = smem;
   sm.stw = sm.buf + kFrames * M;
   sm.ftw = sm.stw + M;
-  sm.melt = reinterpret_cast<double*>(sm.ftw + (M - 1));
+  sm.msched = sm.ftw + (M - 1);
+  sm.mgather = reinterpret_cast<unsigned*>(
+      sm.msched + kLanes * (M / kMelBinsPerStep));
+  sm.melt = reinterpret_cast<double*>(sm.msched);
   return sm;
 }
 
-// Fill the twiddle and mel tables from the nfft/2 twiddles W^k, the (M,
-// nfilters) mel and its band limits in global memory; the caller's barrier
-// follows.
+// Fill the twiddle and mel tables from the nfft/2 twiddles W^k and either
+// the mel schedule (ops/fladder.py mel_schedule: sm.msteps * 32 entries,
+// then nfilters gather words) or, without one, the (M, nfilters) mel and
+// its band limits, in global memory; the caller's barrier follows.
 __device__ __forceinline__ void load_constants(const Smem& sm, int log2n,
                                                const double2* tw,
                                                const double* mel,
                                                const int2* band,
+                                               const double2* msched,
                                                int nfilters) {
   const int log2m = log2n - 1;
   const int M = 1 << log2m;
@@ -152,13 +178,21 @@ __device__ __forceinline__ void load_constants(const Smem& sm, int log2n,
     const int t = 31 - __clz(i + 1);
     sm.ftw[i] = tw[(i + 1 - (1 << t)) << (log2m - t)];
   }
-  const int n = kMelPerPoint * M / nfilters * nfilters;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int t = e / nfilters;
-    const int m = e - t * nfilters;
-    const int2 bd = band[m];
-    sm.melt[e] = bd.x + t < bd.y ? mel[(bd.x + t) * nfilters + m] : 0.0;
+  if (sm.msteps == 0) {
+    const int n = kMelPerPoint * M / nfilters * nfilters;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int t = e / nfilters;
+      const int m = e - t * nfilters;
+      const int2 bd = band[m];
+      sm.melt[e] = bd.x + t < bd.y ? mel[(bd.x + t) * nfilters + m] : 0.0;
+    }
+    return;
   }
+  const int n = sm.msteps * kLanes;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sm.msched[i] = msched[i];
+  const unsigned* gather = reinterpret_cast<const unsigned*>(msched + n);
+  for (int i = threadIdx.x; i < nfilters; i += blockDim.x)
+    sm.mgather[i] = gather[i];
 }
 
 // The packed point z = (ye * w.x, yo * w.y) of emphasized samples ye, yo and
@@ -281,6 +315,126 @@ __device__ __forceinline__ double bin_power(double2 zk, double2 zn, double2 w) {
   return re * re + im * im;
 }
 
+// The mel sums of the warp's power row pw (M doubles), their floor and
+// log2, to the log-mel row, lane j storing its filter j; returns the row.
+//
+// On the balanced schedule (sm.msteps > 0; built on the host by
+// ops/fladder.py mel_schedule): a lane per filter would run the widest
+// band's length while most lanes idle (38 bins for an average of 13 at 32
+// filters of nfft 512; at Kaldi's 40 filters a second pass on 8 lanes).
+// Instead the bank's nonzero (filter, bin) terms, filter-major with bins
+// ascending, are cut into 32 runs of L = msteps = ceil(terms / 32) (14 for
+// the FPGA bank, 15 for Kaldi's), lane l taking run l.  Entry i of lane l,
+// at i*32 + l (consecutive lanes on consecutive 16 bytes), is {weight,
+// offsets}: the FP64 weight, and in the other 8 bytes the byte offset of
+// the term's power in the row (low word) and 0 or, at the last term of a
+// segment (a run's stretch of one filter), the byte offset of the
+// segment's slot in the row's second half, past the power (high word).
+// The lane stores its sum there and starts the next segment's from 0:
+// every segment sums its own non-negative terms in bin order, never a
+// difference of running sums (in FP64 that would cancel where a loud
+// filter precedes a quiet one in a lane; band sums span FLT_EPSILON to
+// ~1e14 here).  After a __syncwarp the power is spent: lane j adds filter
+// j's slots, consecutive and in bin order (mgather[j] holds the first
+// one's byte offset and their count << 16: at most 4 in the FPGA bank, 3
+// in Kaldi's), and stores its log-mel at pw[j].  The slots, at most
+// nfilters + 31, have the row's M doubles past the power.  A filter
+// inside one segment is summed as a lane per filter sums it, bit for bit;
+// a split one moves by a few FP64 ulp.  Padding entries are 0 (weight 0
+// on bin 0, no store).
+//
+// The loop is unrolled to the table's capacity, kCap = M / kMelBinsPerStep
+// steps, and leaves at msteps by a uniform branch: with no counter, stride
+// or remainder to keep, K1 ran ~2% faster than on a loop unrolled by 2,
+// and without its 16-byte spill (one-process A/B, H100).
+//
+// Without a schedule (msteps 0: none given, or a bank over the table's
+// capacity or the row's) a lane per filter sums its band [lo, hi), the
+// weights from the block's melt table and past its rows from mel in
+// global memory, to the log-mel row pw + M.
+template <int kCap>
+__device__ __forceinline__ double* mel_log2(double* pw, const Smem& sm,
+                                            int nfilters,
+                                            const double* __restrict__ mel,
+                                            const int2* __restrict__ band,
+                                            double mel_floor) {
+  const int l = lane();
+  char* rb = reinterpret_cast<char*>(pw);
+  double* lm = sm.msteps ? pw : pw + sm.R;
+  if (sm.msteps) {
+    const double2* e = sm.msched + l;
+    double acc = 0.0;
+#pragma unroll
+    for (int i = 0; i < kCap; ++i) {
+      if (i == sm.msteps) break;
+      const double2 t = e[i * kLanes];
+      const long long o = __double_as_longlong(t.y);
+      acc = fma(*reinterpret_cast<const double*>(rb + static_cast<int>(o)),
+                t.x, acc);
+      const int slot_at = static_cast<int>(o >> 32);
+      if (slot_at) *reinterpret_cast<double*>(rb + slot_at) = acc;
+      acc = slot_at ? 0.0 : acc;
+    }
+    __syncwarp();
+  }
+  const int rows = sm.msteps ? 0 : kMelPerPoint * sm.R / nfilters;
+  for (int m = l; m < nfilters; m += kLanes) {
+    double acc = 0.0;
+    if (sm.msteps) {
+      const unsigned g = sm.mgather[m];
+      const double* s = reinterpret_cast<const double*>(rb + (g & 0xFFFF));
+      for (unsigned k = 0; k < g >> 16; ++k) acc += s[k];
+    } else {
+      const int2 bd = band[m];
+      for (int t = 0; t < bd.y - bd.x; ++t) {
+        const double w = t < rows ? sm.melt[t * nfilters + m]
+                                  : mel[(bd.x + t) * nfilters + m];
+        acc = fma(pw[bd.x + t], w, acc);
+      }
+    }
+    if (mel_floor != 0.0) acc = fmax(acc, mel_floor);
+    lm[m] = log2(acc);
+  }
+  return lm;
+}
+
+// The DCT of the log-mel row lm, read as a broadcast, lane c storing
+// cepstrum c at out[c]: a lane a cepstrum over every filter, in rounds of
+// 32.  Where ncep > 32 is not a multiple of 32 (Kaldi's 40), the r = ncep
+// mod 32 cepstra past the last full round are spread over groups of r
+// lanes (4 groups of 8 at r = 8), group g summing filters [g*share, (g+1)*
+// share), then log2(groups) shuffles join the groups and lanes 0..r-1
+// store: 40 + 10 steps at 40 x 40 where a second round on 8 lanes took 80.
+// A uniform branch on ncep; at ncep <= 32 only the first loop runs.
+__device__ __forceinline__ void dct_out(const double* lm, int nfilters,
+                                        int ncep,
+                                        const double* __restrict__ dct,
+                                        float* __restrict__ out) {
+  const int l = lane();
+  const int full = ncep > kLanes ? ncep & -kLanes : ncep;
+  for (int c = l; c < full; c += kLanes) {
+    double acc = 0.0;
+    for (int m = 0; m < nfilters; ++m) acc = fma(lm[m], dct[m * ncep + c], acc);
+    out[c] = static_cast<float>(acc);
+  }
+  if (full == ncep) return;
+  const int r = ncep - full;
+  int groups = 1;
+  while (2 * groups * r <= kLanes) groups *= 2;
+  const int g = l / r;
+  const int c = full + l - g * r;
+  const int share = (nfilters + groups - 1) / groups;
+  double acc = 0.0;
+  if (g < groups) {
+    const int m1 = min(nfilters, (g + 1) * share);
+    for (int m = g * share; m < m1; ++m)
+      acc = fma(lm[m], dct[m * ncep + c], acc);
+  }
+  for (int h = groups / 2; h > 0; h /= 2)
+    acc += __shfl_down_sync(0xffffffffu, acc, h * r);
+  if (l < r) out[c] = static_cast<float>(acc);
+}
+
 // The warp's frame through the FFT, |X|^2, mel, floor, log2 and the DCT,
 // from its packed points in registers, x[r] = z[lane + 32r], lane c
 // storing cepstrum c at out[c] (out points at the frame's ncep outputs).
@@ -328,27 +482,10 @@ __device__ __forceinline__ void ladder_tail(double2 (&x)[1 << LOG2P],
   }
   __syncwarp();
 
-  // mel over each band, floor, log2; the log-mel row after the power
-  double* lm = pw + M;
-  const int rows = kMelPerPoint * M / nfilters;
-  for (int m = l; m < nfilters; m += kLanes) {
-    const int2 bd = band[m];
-    double acc = 0.0;
-    for (int t = 0; t < bd.y - bd.x; ++t) {
-      const double w = t < rows ? sm.melt[t * nfilters + m]
-                                : mel[(bd.x + t) * nfilters + m];
-      acc = fma(pw[bd.x + t], w, acc);
-    }
-    if (mel_floor != 0.0) acc = fmax(acc, mel_floor);
-    lm[m] = log2(acc);
-  }
+  const double* lm = mel_log2<M / kMelBinsPerStep>(pw, sm, nfilters, mel,
+                                                   band, mel_floor);
   __syncwarp();
-
-  for (int c = l; c < ncep; c += kLanes) {
-    double acc = 0.0;
-    for (int m = 0; m < nfilters; ++m) acc = fma(lm[m], dct[m * ncep + c], acc);
-    out[c] = static_cast<float>(acc);
-  }
+  dct_out(lm, nfilters, ncep, dct, out);
   __syncwarp();   // the row is free for the warp's next frame
 }
 

@@ -56,7 +56,7 @@
 //
 // Design: a persistent grid (persistent.cuh) over the flat list of M = S*F
 // frame slots, as K1 and K3: a block of 8 warps loads its tables once
-// (float: K1's twiddles and mel table; INT: K3's ladder twiddles, window
+// (float: K1's twiddles and mel schedule; INT: K3's ladder twiddles, window
 // curve and balanced filterbank schedule), then each warp takes slots G =
 // s*F + g in a grid-stride loop (32-bit slot indices: a launch refuses S*F
 // >= 2^30), so a tile of 8 slots spans stream boundaries and no warp idles
@@ -298,14 +298,16 @@ stream_f32_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
                   int hop, int nfilters, int ncep, Strides st,
                   const double2* __restrict__ win, const double2* __restrict__ tw,
                   const double* __restrict__ mel, const double* __restrict__ dct,
-                  const int2* __restrict__ band, double mel_floor) {
+                  const int2* __restrict__ band,
+                  const double2* __restrict__ msched, int msteps,
+                  double mel_floor) {
   using namespace fladder_stages;
   extern __shared__ double2 smem[];
   constexpr int LOG2P = kLog2P;
   constexpr int log2m = 5 + LOG2P;
   constexpr int kP = 1 << LOG2P;
-  const Smem sm = carve(smem, log2m + 1);
-  load_constants(sm, log2m + 1, tw, mel, band, nfilters);
+  const Smem sm = carve(smem, log2m + 1, msteps);
+  load_constants(sm, log2m + 1, tw, mel, band, msched, nfilters);
   __syncthreads();
 
   // each warp takes frame slots G = s * F + g in a grid-stride loop, in
@@ -449,8 +451,8 @@ int launch_f32(const float* carry, const In* chunk, const StepState<float>& io,
                float* out, float* ncarry, long long S, int P, int C, int F,
                int hop, int nfft, int nfilters, int ncep, const Strides& st,
                const double* win, const double* tw, const double* mel,
-               const double* dct, const int* band, double mel_floor,
-               void* stream) {
+               const double* dct, const int* band, const void* msched,
+               int msteps, double mel_floor, void* stream) {
   using namespace fladder_stages;
   if (nfft != 64 << kLog2P || !shape_ok(S, P, C, F, hop, nfft) ||
       !state_ok(io) || nfilters < 1 || nfilters > nfft / 2 || ncep < 1)
@@ -463,7 +465,9 @@ int launch_f32(const float* carry, const In* chunk, const StepState<float>& io,
       smem_bytes(nfft), stream, carry, chunk, io, out, ncarry, M, P, C, F,
       hop, nfilters, ncep, st, reinterpret_cast<const double2*>(win),
       reinterpret_cast<const double2*>(tw), mel, dct,
-      reinterpret_cast<const int2*>(band), mel_floor);
+      reinterpret_cast<const int2*>(band),
+      static_cast<const double2*>(msched), mel_steps(msched, msteps, nfft),
+      mel_floor);
 }
 
 template <typename In>
@@ -519,9 +523,10 @@ int launch_int(const int* carry, const In* chunk, const StepState<int>& io,
 // (S,) and contiguous: count int32; reset bool or null (no reset); prev f32
 // for the float step, int32 for the INT step; then out (S, F, ncep)
 // contiguous, mask (S, F) bool, ncount (S,) int32 and nprev (S,) in prev's
-// dtype.  The tables are K1's (window/nfft, twiddles, mel, dct,
-// band: see fladder.cu) for the float step and K3's (curve, tw, dtw, the
-// balanced filterbank's schedule sched: see int_mfcc.cu) for the INT step.
+// dtype.  The tables are K1's (window/nfft, twiddles, mel, dct, band, the
+// mel schedule and its steps: see fladder.cu) for the float step and K3's
+// (curve, tw, dtw, the balanced filterbank's schedule sched: see
+// int_mfcc.cu) for the INT step.
 // Launches on `stream`, on the calling thread's current device (the caller
 // sets it), without synchronizing; returns a cudaError_t (0 = launched).
 extern "C" int mfcc_stream_f32_i16(const float* carry, const int16_t* chunk,
@@ -533,12 +538,13 @@ extern "C" int mfcc_stream_f32_i16(const float* carry, const int16_t* chunk,
                       long long chunk_s, long long chunk_t, long long ncarry_s,
                       long long ncarry_p, const double* win, const double* tw,
                       const double* mel, const double* dct, const int* band,
-                      double mel_floor, void* stream) {
+                      const void* msched, int msteps, double mel_floor,
+                      void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
   const StepState<float> io{count, reset, prev, mask, ncount, nprev};
   return launch_f32(carry, chunk, io, out, ncarry, S, P, C, F, hop, nfft,
-                    nfilters, ncep, st, win, tw, mel, dct, band, mel_floor,
-                    stream);
+                    nfilters, ncep, st, win, tw, mel, dct, band, msched,
+                    msteps, mel_floor, stream);
 }
 
 extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk,
@@ -550,12 +556,13 @@ extern "C" int mfcc_stream_f32_f32(const float* carry, const float* chunk,
                       long long chunk_s, long long chunk_t, long long ncarry_s,
                       long long ncarry_p, const double* win, const double* tw,
                       const double* mel, const double* dct, const int* band,
-                      double mel_floor, void* stream) {
+                      const void* msched, int msteps, double mel_floor,
+                      void* stream) {
   const Strides st{carry_s, carry_p, chunk_s, chunk_t, ncarry_s, ncarry_p};
   const StepState<float> io{count, reset, prev, mask, ncount, nprev};
   return launch_f32(carry, chunk, io, out, ncarry, S, P, C, F, hop, nfft,
-                    nfilters, ncep, st, win, tw, mel, dct, band, mel_floor,
-                    stream);
+                    nfilters, ncep, st, win, tw, mel, dct, band, msched,
+                    msteps, mel_floor, stream);
 }
 
 

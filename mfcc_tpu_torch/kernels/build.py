@@ -39,15 +39,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+# the FP64 tail's tables (ops/fladder.tail_tables): win, tw, mel, dct, band,
+# the mel schedule (pointer) and its steps a lane
+_TAIL_TABLES = [_P] * 6 + [_I]
 # mfcc_fladder_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
-#                        win, tw, mel, dct, band, mel_floor, stream)
-_FLADDER_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
-                 _P, _P, _P, _P, _P, ctypes.c_double, _P]
+#                        <tail tables>, mel_floor, stream)
+_FLADDER_ARGS = ([_P, _P, _LL, _LL, _I, _I, _I, _I, _I] + _TAIL_TABLES
+                 + [ctypes.c_double, _P])
 # mfcc_fladder_kaldi_{i16,f32}(audio, out, S, T, F, hop, nfft, wlen, emph,
-#                              nfilters, ncep, win, tw, mel, dct, band,
-#                              mel_floor, stream)
-_FLADDER_KALDI_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, ctypes.c_double, _I,
-                       _I, _P, _P, _P, _P, _P, ctypes.c_double, _P]
+#                              nfilters, ncep, <tail tables>, mel_floor,
+#                              stream)
+_FLADDER_KALDI_ARGS = ([_P, _P, _LL, _LL, _I, _I, _I, _I, ctypes.c_double,
+                        _I, _I] + _TAIL_TABLES + [ctypes.c_double, _P])
 # mfcc_int_{i16,i32}(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
 #                    log_precision, log_width, curve, tw, dtw, sched,
 #                    stream)
@@ -61,9 +64,9 @@ _INT_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _I, _I,
 # mfcc_stream_f32_{i16,f32}(carry, chunk, count, reset, prev, out, mask,
 #                           ncarry, ncount, nprev, S, P, C, F, hop, nfft,
 #                           nfilters, ncep, carry_s, carry_p, chunk_s,
-#                           chunk_t, ncarry_s, ncarry_p, win, tw, mel, dct,
-#                           band, mel_floor, stream)
-_STREAM_F32_ARGS = ([_P] * 10 + [_LL] + [_I] * 7 + [_LL] * 6 + [_P] * 5
+#                           chunk_t, ncarry_s, ncarry_p, <tail tables>,
+#                           mel_floor, stream)
+_STREAM_F32_ARGS = ([_P] * 10 + [_LL] + [_I] * 7 + [_LL] * 6 + _TAIL_TABLES
                     + [ctypes.c_double, _P])
 # mfcc_stream_int_{i16,i32}(carry, chunk, count, reset, prev, out, mask,
 #                           ncarry, ncount, nprev, S, P, C, F, hop, carry_s,
@@ -93,12 +96,12 @@ _FRAMES_FLOAT_ARGS = ([_P, _P, _LL] + [_I] * 4 + _ENGINE + _R2_TABLES
 _STREAM_R2_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_I]
                    + _ENGINE + _R2_TABLES + [ctypes.c_double, _P])
 # mfcc_f64ish_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
-#                       win, tw, mel, dct, band, wire_grid, stream)
-_F64ISH_ARGS = [_P, _P, _LL, _LL, _I, _I, _I, _I, _I,
-                _P, _P, _P, _P, _P, _I, _P]
-# mfcc_f64ish_frames_f32(frames, out, M, nfft, nfilters, ncep, win, tw, mel,
-#                        dct, band, wire_grid, stream)
-_F64ISH_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
+#                       <tail tables>, wire_grid, stream)
+_F64ISH_ARGS = ([_P, _P, _LL, _LL, _I, _I, _I, _I, _I] + _TAIL_TABLES
+                + [_I, _P])
+# mfcc_f64ish_frames_f32(frames, out, M, nfft, nfilters, ncep,
+#                        <tail tables>, wire_grid, stream)
+_F64ISH_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I] + _TAIL_TABLES + [_I, _P]
 # mfcc_int_front_i16(audio, power, S, T, F, hop, curve, tw, stream)
 _INT_FRONT_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P]
 # mfcc_int_epi(power, out, M, nfilters, ncep, fb_shift, log_precision,

@@ -151,13 +151,13 @@ def mfcc_f64ish(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(), *,
     S = x.shape[0]
     out = torch.empty((S, n_frames, cfg.nceptrums), dtype=torch.float32,
                       device=x.device)
-    tw = fladder.twiddles(cfg.nfft, x.device)
+    args = fladder.tail_tables(ops, cfg, x.device)
     lib = build.library()
     fn = lib.mfcc_f64ish_i16 if x.dtype == torch.int16 else lib.mfcc_f64ish_f32
     build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), S, T, n_frames,
-                 cfg.hop, cfg.nfft, cfg.nfilters, cfg.nceptrums,
-                 ops.window.data_ptr(), tw.data_ptr(), ops.mel.data_ptr(),
-                 ops.dct.data_ptr(), ops.band.data_ptr(), int(wire_grid))
+                 cfg.hop, cfg.nfft, cfg.nfilters, cfg.nceptrums, *args,
+                 int(wire_grid))
+    fladder.count_tail(args)
     LAUNCHES["K7"] += 1
     return out.reshape(lead + (n_frames, cfg.nceptrums))
 
@@ -182,12 +182,11 @@ def mfcc_f64ish_frames(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
     M = x.numel() // cfg.nfft
     out = torch.empty(x.shape[:-1] + (cfg.nceptrums,), dtype=torch.float32,
                       device=x.device)
-    tw = fladder.twiddles(cfg.nfft, x.device)
+    args = fladder.tail_tables(ops, cfg, x.device)
     build.launch(build.library().mfcc_f64ish_frames_f32, x.device,
                  x.data_ptr(), out.data_ptr(), M, cfg.nfft, cfg.nfilters,
-                 cfg.nceptrums, ops.window.data_ptr(), tw.data_ptr(),
-                 ops.mel.data_ptr(), ops.dct.data_ptr(), ops.band.data_ptr(),
-                 int(wire_grid))
+                 cfg.nceptrums, *args, int(wire_grid))
+    fladder.count_tail(args)
     LAUNCHES["K7-frames"] += 1
     return out
 

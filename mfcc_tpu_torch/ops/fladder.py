@@ -19,6 +19,15 @@ chain, on any device and any config of the recipe), family
 ``kaldi_config_ok``, tables ``kaldi_operators``, and launches counted in
 ``KALDI_LAUNCHES``.
 
+Every kernel on the shared FP64 tail (K1, K1-Kaldi, K6, K7, K7-frames and
+K4-float, ``csrc/fladder_stages.cuh`` ``ladder_tail``) sums the mel bank
+on the balanced schedule that ``mel_schedule`` builds: the bank's nonzero
+terms cut evenly over a warp's 32 lanes, where a lane per filter would run
+the widest band's length.  ``tail_tables`` derives it from the operators'
+mel at launch (``schedule_of``, cached per bank and built again when the
+bank changes in place); ``MEL_SCHEDULE_LAUNCHES`` counts the tail launches
+that ran it.
+
 Both compute the interior in float64 and round to f32 once, at the output
 (the TPU kernel stays in f32 because the TPU has no f64).  An f32 FFT
 resolves a frame's quiet low mel bands only to ~1e-7 of its energy, and
@@ -43,6 +52,9 @@ from . import framing
 
 LAUNCHES = 0     # kernel launches by mfcc_float_ladder (never the plain path)
 KALDI_LAUNCHES = 0   # launches of the Kaldi instantiation (mfcc_kaldi_*)
+# launches of any kernel on the FP64 tail that summed the mel bank on the
+# balanced schedule (steps > 0), whichever entry launched it
+MEL_SCHEDULE_LAUNCHES = 0
 
 
 class LadderOperators(NamedTuple):
@@ -51,6 +63,107 @@ class LadderOperators(NamedTuple):
     mel: torch.Tensor      # (nfft/2, nfilters) float64, Nyquist row dropped
     dct: torch.Tensor      # (nfilters, nceptrums) float64
     band: torch.Tensor     # (nfilters, 2) int32 mel_bands(mel)
+
+
+# The balanced mel schedule (csrc/fladder_stages.cuh): lanes a warp, the
+# int32 words of one entry {float64 weight, power byte offset, slot byte
+# offset}, and the table's capacity, a step a lane per kMelBinsPerStep bins
+# of the power row (nfft/32 steps: a triangular bank holds at most two
+# terms a bin, 2 * nfft/2 terms over 32 lanes).
+MEL_LANES = 32
+MEL_ENTRY_WORDS = 4
+MEL_BINS_PER_STEP = 16
+
+
+def mel_steps_fit(steps: int, nbins: int) -> bool:
+    """Whether a schedule of ``steps`` entries a lane fits the table of a
+    tail over ``nbins`` = nfft/2 power bins: the predicate of the kernels'
+    ``mel_steps`` (fladder_stages.cuh)."""
+    return 1 <= steps <= nbins // MEL_BINS_PER_STEP
+
+
+def mel_schedule(mel: np.ndarray) -> np.ndarray | None:
+    """The balanced mel schedule of the (nbins, nfilters) float64 mel bank
+    ``mel``, as every kernel on the FP64 tail reads it: the nonzero terms
+    (filter j, bin k), filter-major with ascending bins, cut into 32 runs
+    of L = ceil(terms / 32), lane l taking run l.  Returns int32 words: L x
+    32 entries of 4 words {weight (float64), 8k, slot}, entry i of lane l
+    at (i*32 + l)*4, then one gather word a filter; None where the bank
+    has no term or its schedule does not fit the table (``mel_steps_fit``)
+    or its segments the warp's row.
+
+    A segment is a run's stretch of one filter.  At its last term the
+    lane stores its sum to the segment's slot, a byte offset in the second
+    half of the warp's row (2 * nbins doubles), past the power, and starts
+    the next segment's sum from 0 (slot 0: no store); entries past a
+    lane's run are 0.  Filter j's segments take consecutive slots in bin
+    order; its gather word is the first one's byte offset | their count <<
+    16 (0 for a filter with no term).  Every segment sums its own terms
+    from 0, never as a difference of running sums: in float64 that would
+    cancel where a loud filter precedes a quiet one in a lane."""
+    mel = np.asarray(mel, np.float64)
+    nbins, nf = mel.shape
+    f, k = np.nonzero(mel.T)                  # filter-major, bins ascending
+    terms = len(f)
+    L = -(-terms // MEL_LANES)
+    if not mel_steps_fit(L, nbins):
+        return None
+    idx = np.arange(terms)
+    lane, step = idx // L, idx % L
+    last = np.ones(terms, bool)               # a segment's last term
+    last[:-1] = (f[1:] != f[:-1]) | (lane[1:] != lane[:-1])
+    seg = np.cumsum(last) - last
+    base = nbins                              # the slots' first double
+    if base + int(last.sum()) > 2 * nbins:    # the row holds 2 * nbins
+        return None
+    ent = np.zeros((L, MEL_LANES), [("w", "<f8"), ("k", "<i4"), ("s", "<i4")])
+    ent["w"][step, lane] = mel[k, f]
+    ent["k"][step, lane] = 8 * k
+    ent["s"][step, lane] = np.where(last, 8 * (base + seg), 0)
+    seg_filter = f[last]                      # each segment's filter
+    first = np.searchsorted(seg_filter, np.arange(nf))
+    count = np.bincount(seg_filter, minlength=nf)
+    gather = np.where(count > 0, 8 * (base + first) + (count << 16), 0)
+    return np.concatenate([ent.view(np.int32).reshape(-1),
+                           gather.astype(np.int32)])
+
+
+# the mel schedules of the banks the kernels were given, per the bank's
+# (device, address, shape, strides), with the _version it was built at;
+# each entry keeps its bank alive, so the address is not reused while the
+# entry stands.  _SCHEDULE_LAST is the entry last returned, found by the
+# bank's identity first (a serving step's cached operators).
+_SCHEDULE_CACHE: dict = {}
+_SCHEDULE_LAST: tuple = (None, None, None, 0)
+
+
+def schedule_of(mel: torch.Tensor) -> tuple[torch.Tensor | None, int]:
+    """The ``mel_schedule`` of the (nbins, nfilters) float64 bank ``mel``
+    as an int32 tensor on its device, and its steps a lane; (None, 0)
+    where the bank has none (the lane-per-filter loop).  Cached per bank,
+    and built again whenever the bank has changed in place (at every call
+    for an inference tensor, which keeps no version)."""
+    global _SCHEDULE_LAST
+    version = None if mel.is_inference() else mel._version
+    hit = _SCHEDULE_LAST
+    if hit[0] is mel and version is not None and hit[1] == version:
+        return hit[2], hit[3]
+    key = (mel.device, mel.data_ptr(), tuple(mel.shape), mel.stride())
+    hit = _SCHEDULE_CACHE.get(key)
+    if hit is None or version is None or hit[1] != version:
+        _SCHEDULE_CACHE.pop(key, None)
+        if len(_SCHEDULE_CACHE) >= 16:
+            _SCHEDULE_CACHE.pop(next(iter(_SCHEDULE_CACHE)))
+        words = mel_schedule(mel.detach().cpu().numpy())
+        if words is None:
+            sched, steps = None, 0
+        else:
+            sched = torch.as_tensor(words, device=mel.device)
+            steps = ((len(words) - mel.shape[1])
+                     // (MEL_LANES * MEL_ENTRY_WORDS))
+        hit = _SCHEDULE_CACHE[key] = (mel, version, sched, steps)
+    _SCHEDULE_LAST = hit
+    return hit[2], hit[3]
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,6 +281,25 @@ def check_operators(ops: LadderOperators, cfg: MFCCConfig,
                              f"{dtype} {shape} tensor on {device}")
 
 
+def tail_tables(ops: LadderOperators, cfg: MFCCConfig,
+                device: torch.device) -> tuple:
+    """The table arguments of every C entry on the FP64 tail, in their
+    order: window, twiddles, mel, dct, band, and the schedule of the
+    operators' mel (``schedule_of``) with its steps a lane (a null schedule
+    and 0 steps keep the lane-per-filter loop)."""
+    sched, steps = schedule_of(ops.mel)
+    return (ops.window.data_ptr(), twiddles(cfg.nfft, device).data_ptr(),
+            ops.mel.data_ptr(), ops.dct.data_ptr(), ops.band.data_ptr(),
+            None if sched is None else sched.data_ptr(), steps)
+
+
+def count_tail(args: tuple) -> None:
+    """Count a launch with the ``tail_tables`` ``args`` in
+    MEL_SCHEDULE_LAUNCHES where it ran the balanced schedule."""
+    global MEL_SCHEDULE_LAUNCHES
+    MEL_SCHEDULE_LAUNCHES += args[-1] > 0
+
+
 def ladder_tail_plain(frames64: torch.Tensor, ops: LadderOperators,
                       cfg: MFCCConfig, mel_floor: float = 0.0
                       ) -> torch.Tensor:
@@ -234,15 +366,14 @@ def launch_ladder(audio: torch.Tensor, cfg: MFCCConfig, mel_floor: float,
     S = x.shape[0]
     out = torch.empty((S, n_frames, ncep), dtype=torch.float32,
                       device=audio.device)
-    tw = twiddles(cfg.nfft, audio.device)
-
+    args = tail_tables(ops, cfg, audio.device)
     lib = build.library()
     fn = (lib.mfcc_fladder_i16 if audio.dtype == torch.int16
           else lib.mfcc_fladder_f32)
     build.launch(fn, audio.device, x.data_ptr(), out.data_ptr(), S, T,
-                 n_frames, cfg.hop, cfg.nfft, nfilters, ncep,
-                 ops.window.data_ptr(), tw.data_ptr(), ops.mel.data_ptr(),
-                 ops.dct.data_ptr(), ops.band.data_ptr(), float(mel_floor))
+                 n_frames, cfg.hop, cfg.nfft, nfilters, ncep, *args,
+                 float(mel_floor))
+    count_tail(args)
     return out.reshape(lead + (n_frames, ncep))
 
 
@@ -338,9 +469,9 @@ def launch_kaldi(x: torch.Tensor, n_frames: int, hop: int, cfg: MFCCConfig,
     lib = build.library()
     fn = (lib.mfcc_fladder_kaldi_i16 if x.dtype == torch.int16
           else lib.mfcc_fladder_kaldi_f32)
+    args = tail_tables(ops, cfg, x.device)
     build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), S, T, n_frames,
                  hop, cfg.nfft, cfg.windowlen, cfg.preemphasis_coefficient,
-                 cfg.nfilters, cfg.nceptrums, ops.window.data_ptr(),
-                 twiddles(cfg.nfft, x.device).data_ptr(), ops.mel.data_ptr(),
-                 ops.dct.data_ptr(), ops.band.data_ptr(), tables.FLT_EPSILON)
+                 cfg.nfilters, cfg.nceptrums, *args, tables.FLT_EPSILON)
+    count_tail(args)
     return out

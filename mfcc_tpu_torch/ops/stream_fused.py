@@ -276,16 +276,16 @@ def _float_launch(buffer, chunk, count, reset, prev, S, P, C, cfg,
     else:
         fladder.check_operators(operators, cfg, dev, "K4-float")
         ops = operators
-    tables = (ops.window.data_ptr(), fladder.twiddles(cfg.nfft,
-                                                      dev).data_ptr(),
-              ops.mel.data_ptr(), ops.dct.data_ptr(), ops.band.data_ptr())
+    tables = fladder.tail_tables(ops, cfg, dev)
     lib = build.library()
     fn = (lib.mfcc_stream_f32_i16 if chunk.dtype == torch.int16
           else lib.mfcc_stream_f32_f32)
-    return _launch("K4-float", fn, buffer, chunk, count, reset, prev, S, P,
-                   C, cfg, cfg.nceptrums, torch.float32, transposed_state,
-                   layout, (cfg.nfft, cfg.nfilters, cfg.nceptrums),
-                   (*tables, float(mel_floor)))
+    out = _launch("K4-float", fn, buffer, chunk, count, reset, prev, S, P,
+                  C, cfg, cfg.nceptrums, torch.float32, transposed_state,
+                  layout, (cfg.nfft, cfg.nfilters, cfg.nceptrums),
+                  (*tables, float(mel_floor)))
+    fladder.count_tail(tables)
+    return out
 
 
 def stream_step_float(buffer, chunk, start, prev,

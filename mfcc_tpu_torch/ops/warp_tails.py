@@ -1,18 +1,19 @@
 """Torch models of the warp schedules of the two shared kernel tails.
 
 K2's INT tail (``csrc/int_stages.cuh``: K2, K3, K4-INT, K9, K3-v1, K10) and
-K1's float tail (``csrc/fladder_stages.cuh``: K1, K6, K4-float, K7) give
-each frame to one warp of 32 lanes and keep its points in registers; between
-passes the warp exchanges them through the frame's shared row.  The batch
-kernels' warps walk the frames in a persistent grid (``persistent_walk``;
-the serving step's writes: ``step_walk``),
-K2's and K3-v1's ingest loads each frame from the samples
-(``int_audio_ingest_model``), and every INT kernel sums the filterbank
-on the balanced schedule (``int_fb_balanced``).  This module states those schedules with the
-kernels' own index formulas -- which lane and register holds which point in
-each pass, which stages run in each pass, where each point sits in the row,
-which table entry is each twiddle -- and runs a batch of frames through them
-in torch.  The CPU tests use it to check
+K1's float tail (``csrc/fladder_stages.cuh``: K1, K1-Kaldi, K6, K4-float,
+K7) give each frame to one warp of 32 lanes and keep its points in
+registers; between passes the warp exchanges them through the frame's
+shared row.  The batch kernels' warps walk the frames in a persistent grid
+(``persistent_walk``; the serving step's writes: ``step_walk``), K2's and
+K3-v1's ingest loads each frame from the samples
+(``int_audio_ingest_model``), every INT kernel sums the filterbank on the
+balanced schedule (``int_fb_balanced``), and every float kernel its mel on
+the same kind of schedule in FP64 (``float_mel_balanced``).  This module
+states those schedules with the kernels' own index formulas -- which lane
+and register holds which point in each pass, which stages run in each
+pass, where each point sits in the row, which table entry is each twiddle
+-- and runs a batch of frames through them in torch.  The CPU tests use it to check
 that every exchange is a permutation, that the passes perform each butterfly
 of the standard plan once, and that the scheduled arithmetic equals the
 ``int_ops`` chain element for element (INT) and the float64 FFT and
@@ -30,7 +31,7 @@ import torch
 
 from .. import tables
 from ..config import FILTERBANK_WIDTH, MFCCConfig
-from . import int_ops
+from . import fladder, int_ops
 from .fladder import LadderOperators
 from .int_fused import FB_STEPS, LANES, int_operators
 
@@ -575,18 +576,11 @@ def float_spectrum_model(z: torch.Tensor, nfft: int) -> torch.Tensor:
     return X
 
 
-def float_tail_model(frames64: torch.Tensor, ops: LadderOperators,
-                     cfg: MFCCConfig, mel_floor: float = 0.0
-                     ) -> torch.Tensor:
-    """K1's tail through the warp schedule on (N, nfft) float64
-    pre-emphasized frames: window * 1/nfft, packing, the spectrum model,
-    |X|^2, the mel sums a lane per filter over its band (band offsets,
-    ascending bins), floor, log2, the DCT a lane per cepstrum.  (N, ncep)
-    f32."""
-    y = frames64 * ops.window
-    z = torch.complex(y[:, 0::2], y[:, 1::2])
-    X = float_spectrum_model(z, cfg.nfft)
-    power = X.real * X.real + X.imag * X.imag
+def float_mel_lanes(power: torch.Tensor, ops: LadderOperators
+                    ) -> torch.Tensor:
+    """The mel a lane per filter over its band (band offsets, ascending
+    bins), the tail's loop without a schedule, on (N, M) float64 power.
+    Returns (N, nfilters) float64."""
     nf = ops.mel.shape[1]
     lo, hi = ops.band[:, 0].long(), ops.band[:, 1].long()
     acc = torch.zeros((power.shape[0], nf), dtype=torch.float64)
@@ -595,6 +589,88 @@ def float_tail_model(frames64: torch.Tensor, ops: LadderOperators,
         kk = torch.clamp(lo + t, max=power.shape[1] - 1)
         term = power[:, kk] * ops.mel[kk, torch.arange(nf)]
         acc = torch.where(live, acc + term, acc)
+    return acc
+
+
+def float_mel_balanced(power: torch.Tensor, words: np.ndarray,
+                       nfilters: int) -> torch.Tensor:
+    """The mel on the balanced schedule (``fladder_stages.cuh``
+    ``mel_log2``) on (N, M) float64 power rows, reading the int32 words
+    of ``fladder.mel_schedule`` with the kernel's index formulas: for step
+    i, lane l reads entry i*32 + l {weight, power byte offset, slot byte
+    offset}, adds power * weight to its sum and, where the slot offset is
+    not 0, stores the sum to that double of its row and restarts it from 0;
+    then lane j adds the (g >> 16) slots from byte g & 0xFFFF on, g its
+    gather word.  Returns (N, nfilters) float64."""
+    N, M = power.shape
+    steps = (len(words) - nfilters) // (fladder.MEL_LANES
+                                        * fladder.MEL_ENTRY_WORDS)
+    ent = words[: steps * LANES * 4].view(
+        [("w", "<f8"), ("k", "<i4"), ("s", "<i4")]).reshape(steps, LANES)
+    gather = words[steps * LANES * 4:].astype(np.int64)
+    row = torch.zeros((N, 2 * M), dtype=torch.float64)
+    row[:, :M] = power
+    acc = torch.zeros((N, LANES), dtype=torch.float64)
+    for i in range(steps):
+        w = torch.from_numpy(ent["w"][i].copy())
+        k = torch.from_numpy(ent["k"][i] // 8).long()
+        at = torch.from_numpy(ent["s"][i] // 8).long()
+        acc = acc + row[:, k] * w
+        store = at != 0
+        row[:, at[store]] = acc[:, store]
+        acc = torch.where(store, torch.zeros((), dtype=torch.float64), acc)
+    out = torch.zeros((N, nfilters), dtype=torch.float64)
+    for j, g in enumerate(gather.tolist()):
+        for q in range(g >> 16):
+            out[:, j] = out[:, j] + row[:, (g & 0xFFFF) // 8 + q]
+    return out
+
+
+def float_dct_model(lm: torch.Tensor, dct: torch.Tensor) -> torch.Tensor:
+    """The tail's DCT (``fladder_stages.cuh`` ``dct_out``) on (N, nfilters)
+    float64 log-mel rows: a lane a cepstrum over every filter in rounds of
+    32, and past the last full round of an ncep > 32 the r left on groups of
+    r lanes, each a share of the filters in order, joined as the shuffles
+    join them.  Returns (N, ncep) f32."""
+    nf, ncep = dct.shape
+    full = ncep & -LANES if ncep > LANES else ncep
+    out = torch.empty((lm.shape[0], ncep), dtype=torch.float64)
+    out[:, :full] = lm @ dct[:, :full]
+    r = ncep - full
+    if r:
+        groups = 1
+        while 2 * groups * r <= LANES:
+            groups *= 2
+        share = -(-nf // groups)
+        part = [lm[:, g * share:(g + 1) * share]
+                @ dct[g * share:(g + 1) * share, full:] for g in range(groups)]
+        h = groups // 2
+        while h:                      # group g adds group g + h
+            part = [part[g] + part[g + h] for g in range(h)]
+            h //= 2
+        out[:, full:] = part[0]
+    return out.to(torch.float32)
+
+
+def float_tail_model(frames64: torch.Tensor, ops: LadderOperators,
+                     cfg: MFCCConfig, mel_floor: float = 0.0,
+                     balanced: bool = True) -> torch.Tensor:
+    """K1's tail through the warp schedule on (N, nfft) float64
+    pre-emphasized frames: window * 1/nfft, packing, the spectrum model,
+    |X|^2, the mel on the balanced schedule where ``ops.mel`` has one
+    (``float_mel_balanced``), else, or without ``balanced``, a lane per
+    filter (``float_mel_lanes``), as the kernels choose; floor, log2, the
+    DCT (``float_dct_model``).  (N, ncep) f32."""
+    y = frames64 * ops.window
+    z = torch.complex(y[:, 0::2], y[:, 1::2])
+    X = float_spectrum_model(z, cfg.nfft)
+    power = X.real * X.real + X.imag * X.imag
+    nf = ops.mel.shape[1]
+    words = fladder.mel_schedule(ops.mel.numpy()) if balanced else None
+    if words is not None:
+        acc = float_mel_balanced(power, words, nf)
+    else:
+        acc = float_mel_lanes(power, ops)
     if mel_floor:
         acc = torch.clamp_min(acc, mel_floor)
-    return (torch.log2(acc) @ ops.dct).to(torch.float32)
+    return float_dct_model(torch.log2(acc), ops.dct)

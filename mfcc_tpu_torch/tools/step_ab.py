@@ -322,10 +322,7 @@ def host_breakdown(kind: str, sm, state, chunk, sargs) -> dict:
         fn = lib.mfcc_stream_f32_i16
         ops = fladder.default_operators(cfg, dev)
         mid = (cfg.nfft, cfg.nfilters, cfg.nceptrums)
-        rest = (ops.window.data_ptr(),
-                fladder.twiddles(cfg.nfft, dev).data_ptr(),
-                ops.mel.data_ptr(), ops.dct.data_ptr(), ops.band.data_ptr(),
-                0.0)
+        rest = (*fladder.tail_tables(ops, cfg, dev), 0.0)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def c_args(n):

@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from mfcc_tpu_torch import (MFCC, MFCCConfig, MIC_CONFIG, FeatureServer,
-                            StreamingMFCC)
+from mfcc_tpu_torch import (MFCC, MFCCConfig, MIC_CONFIG, KALDI_MFCC_HIRES,
+                            FeatureServer, StreamingMFCC)
 from mfcc_tpu_torch.kernels import build
 from mfcc_tpu_torch.ops import (dense_fused, dmma_product, f64ish, fladder,
                                 float_fused, float_ops, framing, int_fused,
@@ -162,6 +162,122 @@ def test_wrapper_checks_on_card(dev):
     with pytest.raises(ValueError, match="operator band"):
         fladder.mfcc_float_ladder(x, operators=ops._replace(
             band=ops.band.long()))
+
+
+def test_mel_schedule_on_every_tail_kernel(dev, monkeypatch):
+    """Every kernel on the FP64 tail sums its mel on the balanced schedule:
+    ``fladder.MEL_SCHEDULE_LAUNCHES`` counts one a launch of K1
+    (``MFCC()(audio)``), K1-Kaldi (``MFCC(KALDI_MFCC_HIRES)(audio)``), K6,
+    K7, K7-frames and K4-float, and none where a loaded bank exceeds the
+    table or where the schedule is withheld (the lane-per-filter loop,
+    here on the same banks); the loop's output is within TOL of the
+    schedule's and of the plain version."""
+    sig = _tonal(3, 6000, seed=21)
+    x16 = torch.from_numpy(sig.astype(np.int16)).to(dev)
+
+    def runs(fn):
+        before = fladder.MEL_SCHEDULE_LAUNCHES
+        out = fn()
+        torch.cuda.synchronize()
+        return fladder.MEL_SCHEDULE_LAUNCHES - before, out
+
+    frames = framing.extract_frames(framing.preemphasis(
+        x16.float()), 512, 170).contiguous()
+    for fn in (lambda: MFCC()(x16), lambda: MFCC(KALDI_MFCC_HIRES)(x16),
+               lambda: MFCC(MFCCConfig(step=171))(x16),
+               lambda: MFCC(precision="f64ish")(x16),
+               lambda: f64ish.mfcc_f64ish_frames(frames, MFCCConfig())):
+        assert runs(fn)[0] == 1
+    sm = StreamingMFCC()
+    state = sm.init(3)
+    assert runs(lambda: sm.step(x16[:, :1024], state))[0] == 1
+    cfg = MFCCConfig()
+    balanced = fladder.mfcc_float_ladder(x16, cfg)
+    kbalanced = fladder.mfcc_kaldi_ladder(x16, KALDI_MFCC_HIRES)
+    mel = torch.zeros(257, 32, dtype=torch.float64)
+    mel[:256] = 1.0 / 256                  # 8,192 terms: over the table
+    fe = MFCC().to(dev)
+    state = fe.state_dict()
+    state["mel"] = mel
+    fe.load_state_dict(state)
+    n, full = runs(lambda: fe(x16))
+    assert n == 0
+    want = fladder.mfcc_float_ladder_plain(x16, cfg,
+                                           operators=fe._ladder_ops())
+    assert (full - want).abs().max().item() <= TOL
+    monkeypatch.setattr(fladder, "schedule_of", lambda mel: (None, 0))
+    k1 = fladder.LAUNCHES
+    n, lanes = runs(lambda: fladder.mfcc_float_ladder(x16, cfg))
+    assert n == 0 and fladder.LAUNCHES == k1 + 1
+    assert (lanes - balanced).abs().max().item() <= TOL
+    want = fladder.mfcc_float_ladder_plain(x16, cfg)
+    assert (lanes - want).abs().max().item() <= TOL
+    n, klanes = runs(lambda: fladder.mfcc_kaldi_ladder(x16, KALDI_MFCC_HIRES))
+    assert n == 0
+    assert (klanes - kbalanced).abs().max().item() <= TOL
+
+
+def _k4_float_once(x16, ops, cfg):
+    """One K4-float step of fresh streams over x16 with the operators
+    ``ops`` and its plain version: (kernel feats, plain feats)."""
+    S, C = x16.shape
+    P = cfg.nfft - 1
+    buf = torch.zeros(S, P, dtype=torch.float32, device=x16.device)
+    start = torch.full((S,), P, dtype=torch.int32, device=x16.device)
+    prev = torch.zeros(S, dtype=torch.float32, device=x16.device)
+    got, _ = stream_fused.stream_step_float(buf, x16, start, prev, cfg,
+                                            operators=ops)
+    want, _ = stream_fused.stream_step_float_plain(buf, x16, start, prev,
+                                                   cfg, operators=ops)
+    return got, want
+
+
+def test_tail_follows_the_bank(dev):
+    """K1 and K4-float read the schedule of the bank they are given: after
+    an in-place edit of the module's mel, of caller-given operators' mel,
+    and with a bank swapped in by ``_replace``, each call is within TOL of
+    the plain version on the bank as it is then, not on the bank a schedule
+    was first built from; 128 filters at nfft 512 and 1024 run on the
+    schedule too."""
+    cfg = MFCCConfig()
+    x16 = torch.from_numpy(_tonal(3, 6000, seed=23).astype(np.int16)).to(dev)
+    fe = MFCC().to(dev)
+    d = fladder.default_operators(cfg, dev)
+    ops = d._replace(mel=d.mel.clone())
+    for _ in range(2):
+        got = fe(x16)
+        want = fladder.mfcc_float_ladder_plain(x16, cfg,
+                                               operators=fe._ladder_ops())
+        assert (got - want).abs().max().item() <= TOL
+        got = fladder.mfcc_float_ladder(x16, cfg, operators=ops)
+        want = fladder.mfcc_float_ladder_plain(x16, cfg, operators=ops)
+        assert (got - want).abs().max().item() <= TOL
+        got, want = _k4_float_once(x16[:, :1024], ops, cfg)
+        assert (got - want).abs().max().item() <= TOL
+        fe.mel[:, 3].mul_(0.25)
+        ops.mel[:, 5].mul_(4.0)
+    assert (fe(x16) - MFCC().to(dev)(x16)).abs().max().item() > 1e-3
+    bank = torch.roll(d.mel, 3, 0) * 1.5
+    swapped = d._replace(mel=bank, band=fladder.mel_bands(bank))
+    before = fladder.MEL_SCHEDULE_LAUNCHES
+    got = fladder.mfcc_float_ladder(x16, cfg, operators=swapped)
+    want = fladder.mfcc_float_ladder_plain(x16, cfg, operators=swapped)
+    assert (got - want).abs().max().item() <= TOL
+    got, want = _k4_float_once(x16[:, :1024], swapped, cfg)
+    assert (got - want).abs().max().item() <= TOL
+    torch.cuda.synchronize()
+    assert fladder.MEL_SCHEDULE_LAUNCHES == before + 2
+    # 13 of the 128 filters at nfft 512 hold no bin: a floor keeps them
+    # finite
+    for wide in (MFCCConfig(nfilters=128, nceptrums=32),
+                 MFCCConfig(nfft=1024, step=340, nfilters=128,
+                            nceptrums=32)):
+        before = fladder.MEL_SCHEDULE_LAUNCHES
+        got = fladder.mfcc_float_ladder(x16, wide, mel_floor=1.0)
+        torch.cuda.synchronize()
+        assert fladder.MEL_SCHEDULE_LAUNCHES == before + 1
+        want = fladder.mfcc_float_ladder_plain(x16, wide, mel_floor=1.0)
+        assert (got - want).abs().max().item() <= TOL
 
 
 @pytest.mark.parametrize("passes", [3, 4, 6])

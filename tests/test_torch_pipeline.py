@@ -221,6 +221,9 @@ def test_load_state_dict_rebuilds_derived_operators(sig2):
     assert torch.equal(fe.ladder_window, fe.window / 512)
     assert torch.equal(fe.mel_band, fladder.mel_bands(fe.mel[:256]))
     assert fe.mel_band[:, 0].eq(0).all() and fe.mel_band[:, 1].eq(256).all()
+    # 8,192 terms: over the mel schedule's table, so the kernels take the
+    # lane-per-filter loop
+    assert fladder.schedule_of(fe._ladder_ops().mel) == (None, 0)
     x = torch.from_numpy(sig2)
     frames = torch.from_numpy(np.random.default_rng(3).normal(
         size=(2, 3, 512)))

@@ -25,7 +25,8 @@ import jax
 
 import mfcc_tpu
 
-from mfcc_tpu_torch import MFCCConfig, MIC_CONFIG, tables
+from mfcc_tpu_torch import MFCC, MFCCConfig, MIC_CONFIG, tables
+from mfcc_tpu_torch.config import KALDI_MFCC_HIRES, KaldiConfig
 from mfcc_tpu_torch.ops import fladder, int_fused, int_ops, warp_tails as wt
 from mfcc_tpu_torch.ops.int_fused import FB_STEPS
 
@@ -265,6 +266,257 @@ def test_float_schedule_cepstra_match_plain(nfft):
     silent = torch.zeros(2, nfft, dtype=torch.float64)
     got = wt.float_tail_model(silent, ops, cfg, mel_floor=1.0)
     assert torch.equal(got, fladder.ladder_tail_plain(silent, ops, cfg, 1.0))
+
+
+# -- the balanced mel schedule (every kernel on the FP64 tail) -----------------
+
+MEL_BANKS = {
+    "fpga256": MFCCConfig(nfft=256, step=86),
+    "fpga512": MFCCConfig(),
+    "fpga1024": MFCCConfig(nfft=1024, step=340),
+    "fpga16": MFCCConfig(nfilters=16, nceptrums=16),
+    "kaldi16k": KALDI_MFCC_HIRES,
+    "kaldi8k": KaldiConfig(samplerate=8000, nfft=256, window_samples=200,
+                           step=80, nfilters=23, nceptrums=13,
+                           high_freq=-200.0),
+    "kaldi8k40": KaldiConfig(samplerate=8000, nfft=256, window_samples=200,
+                             step=80, nfilters=40, nceptrums=40,
+                             high_freq=-200.0),
+}
+MEL_ENTRY = [("w", "<f8"), ("k", "<i4"), ("s", "<i4")]
+
+
+def _mel_bank(cfg):
+    return fladder.fladder_operators(cfg)[1]
+
+
+def _decode_mel(words, nfilters):
+    """(entries (L, 32) {w, k, s}, gather words) of mel_schedule words."""
+    L = (len(words) - nfilters) // (32 * 4)
+    assert len(words) == L * 128 + nfilters
+    ent = words[: L * 128].view(MEL_ENTRY).reshape(L, 32)
+    return ent, words[L * 128:].astype(np.int64)
+
+
+def _schedule_sums(power, words, nfilters):
+    """A float64 numpy evaluation of the schedule, as the kernel runs it:
+    each lane's sum stored at a segment's last term and restarted from 0,
+    then each filter's slots added in order.  (N, nfilters)."""
+    ent, gather = _decode_mel(words, nfilters)
+    N, M = power.shape
+    row = np.zeros((N, 2 * M))
+    row[:, :M] = power
+    for lane in range(32):
+        acc = np.zeros(N)
+        for e in ent[:, lane]:
+            acc = acc + row[:, e["k"] // 8] * e["w"]
+            if e["s"]:
+                row[:, e["s"] // 8] = acc
+                acc = np.zeros(N)
+    out = np.zeros((N, nfilters))
+    for j, g in enumerate(gather):
+        for q in range(g >> 16):
+            out[:, j] = out[:, j] + row[:, (g & 0xFFFF) // 8 + q]
+    return out
+
+
+def _lane_sums(power, mel):
+    """A lane per filter over its nonzero bins in ascending order."""
+    out = np.zeros((power.shape[0], mel.shape[1]))
+    for j in range(mel.shape[1]):
+        for k in np.flatnonzero(mel[:, j]):
+            out[:, j] = out[:, j] + power[:, k] * mel[k, j]
+    return out
+
+
+def _wide_power(N, M, seed):
+    """Power rows spanning ~1e-8 to 1e14, loud and quiet bands side by
+    side, as band sums of pre-emphasized int16 audio do."""
+    rng = np.random.default_rng(seed)
+    return 10.0 ** rng.uniform(-8, 14, (N, M))
+
+
+@pytest.mark.parametrize("name", sorted(MEL_BANKS))
+def test_mel_schedule_covers_every_term_once(name):
+    """``fladder.mel_schedule`` read as the kernel reads it: every nonzero
+    (filter, bin) term once with its weight, L = ceil(terms / 32) steps a
+    lane, padding entries 0 (weight 0 on bin 0, no store), each lane's run
+    over consecutive filters and ending at a store, the slots disjoint, on
+    8-byte words in the second half of the warp's row (2 x nfft/2 doubles),
+    past the power, and each filter's gather range its segments' slots in
+    bin order."""
+    cfg = MEL_BANKS[name]
+    mel = _mel_bank(cfg)
+    M, nf = mel.shape
+    words = fladder.mel_schedule(mel)
+    ent, gather = _decode_mel(words, nf)
+    terms = int((mel != 0).sum())
+    assert len(ent) == -(-terms // 32) == fladder.schedule_of(
+        torch.from_numpy(mel))[1]
+    owner = {}                                  # slot byte -> filter
+    for j, g in enumerate(gather.tolist()):
+        for q in range(g >> 16):
+            at = (g & 0xFFFF) + 8 * q
+            assert at not in owner
+            owner[at] = j
+    base = 8 * M
+    assert all(base <= at < 16 * M and at % 8 == 0 for at in owner)
+    seen, bins_of = [], {}
+    for lane in range(32):
+        pending, filters = [], []
+        for e in ent[:, lane]:
+            w, k, at = float(e["w"]), int(e["k"]), int(e["s"])
+            if w == 0.0:
+                assert k == 0 and at == 0
+                continue
+            assert k % 8 == 0 and k < 8 * M
+            pending.append((k // 8, w))
+            if at:
+                j = owner[at]
+                filters.append(j)
+                bins_of[at] = [b for b, _ in pending]
+                seen += [(j, b, w_) for b, w_ in pending]
+                pending = []
+        assert not pending, lane
+        assert filters == list(range(filters[0], filters[0] + len(filters))) \
+            if filters else True
+    want = sorted((int(j), int(k), float(mel[k, j]))
+                  for k, j in zip(*np.nonzero(mel)))
+    assert sorted(seen) == want and len(seen) == len(set(seen))
+    for j, g in enumerate(gather.tolist()):
+        bins = [b for q in range(g >> 16)
+                for b in bins_of[(g & 0xFFFF) + 8 * q]]
+        assert bins == sorted(bins) == list(np.flatnonzero(mel[:, j]))
+
+
+@pytest.mark.parametrize("name", sorted(MEL_BANKS))
+def test_mel_schedule_sums_are_the_lane_per_filter_sums(name):
+    """On power rows from ~1e-8 to 1e14, the schedule's float64 sums (each
+    segment from 0, then gathered) equal the lane-per-filter sums bit for
+    bit for every filter inside one segment and within 1e-14 relative for
+    a split one; ``warp_tails.float_mel_balanced`` (the kernel's index
+    formulas) gives the same bits.  A difference of running sums would
+    lose a quiet filter behind a loud one."""
+    cfg = MEL_BANKS[name]
+    mel = _mel_bank(cfg)
+    M, nf = mel.shape
+    words = fladder.mel_schedule(mel)
+    power = _wide_power(64, M, seed=M + nf)
+    got = _schedule_sums(power, words, nf)
+    want = _lane_sums(power, mel)
+    one = (_decode_mel(words, nf)[1] >> 16) == 1
+    assert 0 < one.sum() and (~one).sum() > 0
+    assert np.array_equal(got[:, one], want[:, one])
+    assert np.all(np.abs(got - want) <= 1e-14 * want)
+    model = wt.float_mel_balanced(torch.from_numpy(power), words, nf)
+    assert np.array_equal(model.numpy(), got)
+
+
+def test_mel_schedule_capacity_keeps_the_fallback():
+    """A bank over the table (every filter on every bin: 32 x 256 terms,
+    256 steps a lane against the table's nfft/32 = 16) has no schedule and
+    its operators take the lane-per-filter loop (a null table, 0 steps); a
+    bank whose segments overflow the row's second half has none either;
+    the densest triangular bank, two terms a bin, fits, and so do 128
+    filters at nfft 512.  The predicate and its constant are the kernels'
+    (fladder_stages.cuh)."""
+    cpu = torch.device("cpu")
+    full = np.full((256, 32), 1.0 / 256)
+    assert fladder.mel_schedule(full) is None
+    assert not fladder.mel_steps_fit(256, 256)
+    ops = fladder.default_operators(MFCCConfig(), cpu)
+    wide = ops._replace(mel=torch.from_numpy(full))
+    assert fladder.tail_tables(wide, MFCCConfig(), cpu)[-2:] == (None, 0)
+    sched, steps = fladder.schedule_of(ops.mel)
+    assert steps == 14 and fladder.tail_tables(ops, MFCCConfig(), cpu)[
+        -2:] == (sched.data_ptr(), 14)
+    assert fladder.mel_steps_fit(16, 256) and not fladder.mel_steps_fit(
+        17, 256) and not fladder.mel_steps_fit(0, 256)
+    over = np.zeros((128, 128))   # 255 terms, 8 steps; every lane's run
+    over[0, 0] = 1.0              # splits a filter: 128 + 31 slots past
+    for j in range(1, 128):       # the 128 doubles of power
+        over[j - 1:j + 1, j] = 1.0
+    assert fladder.mel_schedule(over) is None
+    two = np.zeros((256, 32))
+    for k in range(256):                   # every bin in two filters
+        two[k, (k // 8) % 32] = two[k, (k // 8 + 1) % 32] = 1.0
+    assert fladder.schedule_of(torch.from_numpy(two))[1] == 16
+    cfg128 = MFCCConfig(nfilters=128, nceptrums=32)
+    assert fladder.schedule_of(torch.from_numpy(_mel_bank(cfg128)))[1] > 0
+    head = (Path(wt.__file__).resolve().parent.parent / "csrc"
+            / "fladder_stages.cuh").read_text()
+    assert (f"constexpr int kMelBinsPerStep = {fladder.MEL_BINS_PER_STEP};"
+            in head)
+    assert ("msched && msteps >= 1 && msteps <= nfft / 2 / kMelBinsPerStep"
+            in head)
+    assert "constexpr int kLanes = 32;" in head and fladder.MEL_LANES == 32
+
+
+def test_schedule_follows_the_bank():
+    """``fladder.schedule_of`` builds the schedule from the bank the
+    kernels are given: once for a bank however many views of it are taken
+    (the module's ``mel[:nfft/2]``), again after an in-place edit of it,
+    and of its own for a swapped bank; an inference tensor's is built at
+    every call.  Each equals ``mel_schedule`` of the bank as it is."""
+    fe = MFCC(device="cpu")
+    first, steps = fladder.schedule_of(fe._ladder_ops().mel)
+    assert steps == 14
+    assert fladder.schedule_of(fe._ladder_ops().mel)[0] is first
+    fe.mel.mul_(0.25)
+    edited = fladder.schedule_of(fe._ladder_ops().mel)[0]
+    assert edited is not first and np.array_equal(
+        edited.numpy(), fladder.mel_schedule(fe.mel[:256].numpy()))
+    assert not np.array_equal(edited.numpy(), first.numpy())
+    ops = fe._ladder_ops()
+    bank = torch.roll(ops.mel, 3, 0) * 1.5
+    swapped = fladder.tail_tables(ops._replace(mel=bank), fe.cfg,
+                                  torch.device("cpu"))
+    mine = fladder.schedule_of(bank)[0]
+    assert swapped[-2:] == (mine.data_ptr(), 14) and np.array_equal(
+        mine.numpy(), fladder.mel_schedule(bank.numpy()))
+    with torch.inference_mode():
+        frozen = fe.mel[:256].clone()
+        once = fladder.schedule_of(frozen)[0]
+        frozen.mul_(2.0)
+        again = fladder.schedule_of(frozen)[0]
+    assert again is not once and np.array_equal(
+        again.numpy(), fladder.mel_schedule(frozen.numpy()))
+
+
+@pytest.mark.parametrize("name", ["kaldi16k", "kaldi8k", "fpga16"])
+def test_balanced_tail_model_matches_plain(name):
+    """The tail's model on the schedule (the balanced mel and, at Kaldi's
+    40 cepstra, the DCT's remainder on lane groups) within KERNEL_TOL of
+    ``ladder_tail_plain`` and of the lane-per-filter model, for Kaldi's
+    recipe and 16 filters."""
+    cfg = MEL_BANKS[name]
+    cpu = torch.device("cpu")
+    ops = fladder.default_operators(cfg, cpu)
+    frames = torch.round(_unit_frames(cfg.nfft, seed=cfg.nfft + 7) * 30000)
+    floor = tables.FLT_EPSILON if cfg.recipe == "kaldi" else 0.0
+    got = wt.float_tail_model(frames, ops, cfg, mel_floor=floor)
+    want = fladder.ladder_tail_plain(frames, ops, cfg, floor)
+    lanes = wt.float_tail_model(frames, ops, cfg, mel_floor=floor,
+                                balanced=False)
+    assert got.shape == want.shape == (len(frames), cfg.nceptrums)
+    assert float((got - want).abs().max()) <= KERNEL_TOL
+    assert float((got - lanes).abs().max()) <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("ncep,nf", [(40, 40), (45, 45), (33, 40), (64, 64),
+                                     (32, 32), (13, 23)])
+def test_dct_model_groups_the_remainder(ncep, nf):
+    """The DCT's model equals the product within float64 rounding, and at
+    ncep <= 32 or a multiple of 32 it is a lane a cepstrum over every
+    filter (the products' own order)."""
+    rng = np.random.default_rng(ncep * nf)
+    lm = torch.from_numpy(rng.normal(size=(5, nf)) * 20)
+    dct = torch.from_numpy(rng.normal(size=(nf, ncep)))
+    got = wt.float_dct_model(lm, dct)
+    want = (lm @ dct).to(torch.float32)
+    assert float((got - want).abs().max()) <= 1e-5
+    if ncep <= 32 or ncep % 32 == 0:
+        assert torch.equal(got, want)
 
 
 # -- the balanced filterbank (K3, K10's epilogue) ------------------------------
