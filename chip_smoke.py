@@ -2127,7 +2127,7 @@ def fast_phases(dev, card: str) -> list[dict]:
 
 def k7_flops_per_frame(cfg, band: torch.Tensor, wire_grid: bool = True
                        ) -> int:
-    """FP64 operations of csrc/f64ish.cu per frame: K1's count
+    """FP64 operations of K7 (csrc/fladder.cu) per frame: K1's count
     (``k1_flops_per_frame``) with the ingest taken as K7 does it: per
     sample the grid step (multiply, rint, multiply) when ``wire_grid`` and
     the window, 8 (2) per packed point instead of K1's 6.  The batch
@@ -2432,7 +2432,7 @@ def f64ish_phases(dev, card: str) -> list[dict]:
           f"ms ({kf_b[1]})")
 
     return [kernel_entry(
-        f"f64ish {what} ({key})", "mfcc_tpu_torch/csrc/f64ish.cu",
+        f"f64ish {what} ({key})", "mfcc_tpu_torch/csrc/fladder.cu",
         "mfcc_tpu/ops/pallas_df32.py:351", launches, errs[key],
         times[("headline", f"{key} kernel")],
         times[("headline", f"{key} plain version")], b)
@@ -3381,12 +3381,11 @@ def cli_phases(dev, card: str) -> list[dict]:
 
 ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
                   "stream_r2_kernel")
-# the tails' persistent batch kernels: K1 (and K6) and its Kaldi
-# instantiation, K7 and K7-frames, K2 and
+# the tails' persistent batch kernels: the FP64 tail's walk (K1 and K6,
+# K1-Kaldi, K7 and K7-frames: one instantiation an ingest), K2 and
 # K3-v1 (int16 and int32 instantiations), K3, K10's epilogue
-TAIL_KERNELS = ("fladder_kernel", "fladder_kaldi_kernel", "f64ish_kernel", "f64ish_frames_kernel",
-                "int_audio_kernel", "int_frames_kernel", "int_epi_kernel",
-                "stream_f32_kernel", "stream_int_kernel")
+TAIL_KERNELS = ("tail_walk", "int_audio_kernel", "int_frames_kernel",
+                "int_epi_kernel", "stream_f32_kernel", "stream_int_kernel")
 # the tail kernels whose SASS is counted: (name, library, a substring of
 # the mangled name); the FP64 tail's at nfft 512 on int16
 TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
@@ -3395,10 +3394,10 @@ TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
              ("K10-front", "int_split2", "int_front_kernel"),
              ("K10-epi", "int_split2", "int_epi_kernel"),
              ("K4-INT", "stream_step", "stream_int_kernelIsE"),
-             ("K1", "fladder", "fladder_kernelIsLi3E"),
-             ("K1-Kaldi", "fladder", "fladder_kaldi_kernelIsLi3E"),
-             ("K7", "f64ish", "f64ish_kernelIsLi3E"),
-             ("K7-frames", "f64ish", "f64ish_frames_kernelILi3E"),
+             ("K1", "fladder", "10FpgaIngestIsEELi3E"),
+             ("K1-Kaldi", "fladder", "11KaldiIngestIsEELi3E"),
+             ("K7", "fladder", "12F64ishIngestIsEELi3E"),
+             ("K7-frames", "fladder", "18F64ishFramesIngestELi3E"),
              ("K4-float", "stream_step", "stream_f32_kernelIsE"))
 # K2's static SASS instructions as PERF.md records them (on the balanced
 # filterbank): K2's kernel also runs K9, so a change to the count is a
@@ -3410,7 +3409,8 @@ _TYPES = {"s": "i16", "i": "i32", "f": "f32"}
 def ptxas_registers(build_log: str, kernels) -> list[str]:
     """"name<template args> R regs B B spilled" for every instantiation of
     the named kernels that ``nvcc -Xptxas=-v`` reports in ``build_log``
-    (type arguments as i16, i32, f32)."""
+    (type arguments as i16, i32, f32; the walk's ingest by its name, as
+    ``tail_walk<FpgaIngest<i16>,3>``)."""
     regs, name, spill = [], None, 0
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -3419,9 +3419,12 @@ def ptxas_registers(build_log: str, kernels) -> list[str]:
             for k in kernels:
                 hit = re.search(rf"\d+{k}(?:I(.*?)EEv|E)", m.group(1))
                 if hit:
-                    args = re.findall(r"L[a-z](-?\d+)E|([a-z])",
-                                      hit.group(1) or "")
-                    targs = [n or _TYPES.get(t, t) for n, t in args]
+                    args = re.findall(
+                        r"\d+(\w+Ingest)(?:I([a-z])E)?|L[a-z](-?\d+)E|([a-z])",
+                        hit.group(1) or "")
+                    targs = [(f"{c}<{_TYPES[t]}>" if t else c) if c
+                             else n or _TYPES.get(u, u)
+                             for c, t, n, u in args]
                     name = k + (f"<{','.join(targs)}>" if targs else "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if name and m:
@@ -3528,9 +3531,9 @@ def main() -> int:
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(engine_resources(log.getvalue(), dev))
-    print("tail kernels (nvcc -Xptxas=-v; K1 fladder, K7 f64ish, K2/K3-v1 "
-          "int_audio, K3 int_frames, K10's epilogue int_epi, K4 stream_f32 "
-          "and stream_int): "
+    print("tail kernels (nvcc -Xptxas=-v; K1, K1-Kaldi, K7 tail_walk, "
+          "K2/K3-v1 int_audio, K3 int_frames, K10's epilogue int_epi, K4 "
+          "stream_f32 and stream_int): "
           + "; ".join(ptxas_registers(log.getvalue(), TAIL_KERNELS)))
     print(tail_sass(build.build()))
 

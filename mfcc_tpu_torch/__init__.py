@@ -25,7 +25,7 @@ Ported so far:
     (``ops/float_fused.py``, ``csrc/float_fused.cu``), the split-DFT
     serving step, and K6 on K1's kernel;
   * the ``precision="f64ish"`` dial (the max(1e-5, 2 ulp) contract) in
-    FP64: K7 and K7-frames (``ops/f64ish.py``, ``csrc/f64ish.cu``) behind
+    FP64: K7 and K7-frames (``ops/f64ish.py``, ``csrc/fladder.cu``) behind
     ``MFCC``, ``float_ops`` and ``StreamingMFCC``; and the ``"split"``
     precision and ``method="segmented"`` of the ``float_ops`` chain;
   * the entries that no route of ``MFCC`` reaches, the counterparts of the

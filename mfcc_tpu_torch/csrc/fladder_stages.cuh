@@ -1,9 +1,9 @@
 // Device functions of the float MFCC tail, in FP64: the packed nfft/2-point
 // FFT, the real-spectrum unpack and power, the mel sum on the balanced
 // schedule with floor and log2, and the DCT product with the f32 store.
-// Shared by K1, K1-Kaldi and K6 (fladder.cu, from raw audio), K7 and
-// K7-frames (f64ish.cu) and the float serving step K4 (stream_step.cu,
-// from carry and chunk).  Each kernel has
+// Shared by the FP64 tail's walk (fladder.cu: K1, K6, K1-Kaldi and K7
+// from raw audio, K7-frames from frames) and the float serving step K4
+// (stream_step.cu, from carry and chunk).  Each has
 // its own ingest: the warp loads its frame's packed points z[m] = y[2m] +
 // i*y[2m+1] after the window * 1/nfft straight into registers, lane l
 // holding z[l + 32r], and calls ladder_tail.  The tail is the same
@@ -204,7 +204,7 @@ __device__ __forceinline__ double2 window_pair(double ye, double yo, double2 w) 
   return make_double2(__dmul_rn(ye, w.x), __dmul_rn(yo, w.y));
 }
 
-// Kaldi's ingest (fladder.cu's fladder_kaldi_kernel; the recipe of
+// Kaldi's ingest (fladder.cu's KaldiIngest; the recipe of
 // config.KaldiConfig, kaldi-asr/kaldi src/feat/feature-window.cc): the
 // warp's frame of L = wlen raw samples x_0..x_(L-1) (wlen even, at most
 // nfft), its packed points z[m] = y'[2m] + i*y'[2m+1] in registers as the

@@ -42,15 +42,11 @@ _LL = ctypes.c_longlong
 # the FP64 tail's tables (ops/fladder.tail_tables): win, tw, mel, dct, band,
 # the mel schedule (pointer) and its steps a lane
 _TAIL_TABLES = [_P] * 6 + [_I]
-# mfcc_fladder_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
-#                        <tail tables>, mel_floor, stream)
-_FLADDER_ARGS = ([_P, _P, _LL, _LL, _I, _I, _I, _I, _I] + _TAIL_TABLES
-                 + [ctypes.c_double, _P])
-# mfcc_fladder_kaldi_{i16,f32}(audio, out, S, T, F, hop, nfft, wlen, emph,
-#                              nfilters, ncep, <tail tables>, mel_floor,
-#                              stream)
-_FLADDER_KALDI_ARGS = ([_P, _P, _LL, _LL, _I, _I, _I, _I, ctypes.c_double,
-                        _I, _I] + _TAIL_TABLES + [ctypes.c_double, _P])
+# mfcc_tail_walk(ingest, in_i16, in, out, S, T, F, hop, nfft, wlen, emph,
+#                nfilters, ncep, <tail tables>, mel_floor, wire_grid, stream)
+_TAIL_WALK_ARGS = ([_I, _I, _P, _P, _LL, _LL, _I, _I, _I, _I,
+                    ctypes.c_double, _I, _I] + _TAIL_TABLES
+                   + [ctypes.c_double, _I, _P])
 # mfcc_int_{i16,i32}(audio, out, S, T, F, hop, nfilters, ncep, fb_shift,
 #                    log_precision, log_width, curve, tw, dtw, sched,
 #                    stream)
@@ -95,13 +91,6 @@ _FRAMES_FLOAT_ARGS = ([_P, _P, _LL] + [_I] * 4 + _ENGINE + _R2_TABLES
 #                          <engine>, <tables>, mel_floor, stream)
 _STREAM_R2_ARGS = ([_P] * 6 + [_LL] + [_I] * 7 + [_LL] * 6 + [_I]
                    + _ENGINE + _R2_TABLES + [ctypes.c_double, _P])
-# mfcc_f64ish_{i16,f32}(audio, out, S, T, F, hop, nfft, nfilters, ncep,
-#                       <tail tables>, wire_grid, stream)
-_F64ISH_ARGS = ([_P, _P, _LL, _LL, _I, _I, _I, _I, _I] + _TAIL_TABLES
-                + [_I, _P])
-# mfcc_f64ish_frames_f32(frames, out, M, nfft, nfilters, ncep,
-#                        <tail tables>, wire_grid, stream)
-_F64ISH_FRAMES_ARGS = [_P, _P, _LL, _I, _I, _I] + _TAIL_TABLES + [_I, _P]
 # mfcc_int_front_i16(audio, power, S, T, F, hop, curve, tw, stream)
 _INT_FRONT_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P]
 # mfcc_int_epi(power, out, M, nfilters, ncep, fb_shift, log_precision,
@@ -119,10 +108,7 @@ _DENSE_SMEM_ARGS = [_I] * 6 + _ENGINE + [_P, _P]
 #                  smem*, stages*)
 _RADIX2_SMEM_ARGS = [_I] * 5 + _ENGINE + [_P, _P]
 SIGNATURES = {
-    "mfcc_fladder_i16": _FLADDER_ARGS,
-    "mfcc_fladder_f32": _FLADDER_ARGS,
-    "mfcc_fladder_kaldi_i16": _FLADDER_KALDI_ARGS,
-    "mfcc_fladder_kaldi_f32": _FLADDER_KALDI_ARGS,
+    "mfcc_tail_walk": _TAIL_WALK_ARGS,
     "mfcc_radix2_i16": _RADIX2_ARGS,
     "mfcc_radix2_f32": _RADIX2_ARGS,
     "mfcc_frames_float_f32": _FRAMES_FLOAT_ARGS,
@@ -135,9 +121,6 @@ SIGNATURES = {
     "mfcc_stream_f32_f32": _STREAM_F32_ARGS,
     "mfcc_stream_int_i16": _STREAM_INT_ARGS,
     "mfcc_stream_int_i32": _STREAM_INT_ARGS,
-    "mfcc_f64ish_i16": _F64ISH_ARGS,
-    "mfcc_f64ish_f32": _F64ISH_ARGS,
-    "mfcc_f64ish_frames_f32": _F64ISH_FRAMES_ARGS,
     "mfcc_int_front_i16": _INT_FRONT_ARGS,
     "mfcc_int_epi": _INT_EPI_ARGS,
     "mfcc_dense_i16": _DENSE_ARGS,

@@ -6,7 +6,7 @@ the elementwise max(1e-5, 2 ulp) gate of the float64 oracle.  The TPU has
 no FP64, so the JAX package carries double-f32 limbs, TwoSums, limb
 matmuls and a LUT log2 to reach that gate; the H100 has FP64, so the port
 computes the same function in float64 and rounds to f32 once, at the
-output (``csrc/f64ish.cu``, on K1's FP64 tail ``csrc/fladder_stages.cuh``).
+output (K7's ingests on the FP64 tail's walk, ``csrc/fladder.cu``).
 None of the double-f32 machinery is carried, and neither is the JAX
 functions' ``group`` argument (a chunk length of the f32 accumulation,
 meaningless in FP64).
@@ -46,7 +46,6 @@ from __future__ import annotations
 import torch
 
 from ..config import MFCCConfig
-from ..kernels import build
 from . import fladder, framing
 
 # kernel launches per kernel (never the plain versions)
@@ -113,53 +112,26 @@ def mfcc_batch_f64ish_plain(audio: torch.Tensor,
 
 # -- the kernels ----------------------------------------------------------------
 
-def _kernel_device(x: torch.Tensor, cfg: MFCCConfig, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU tensor; raises for another
-    device or a config outside K7's family."""
-    if not f64ish_config_ok(cfg):
-        raise ValueError(f"config outside {what}'s family: {cfg}")
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
-    return True
-
-
-def _checked_operators(operators, cfg, device, what):
-    ops = (operators if operators is not None
-           else fladder.default_operators(cfg, device))
-    fladder.check_operators(ops, cfg, device, what)
-    return ops
-
-
 def mfcc_f64ish(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(), *,
                 wire_grid: bool = True,
                 operators: fladder.LadderOperators | None = None
                 ) -> torch.Tensor:
     """K7, the counterpart of ``pallas_df32.mfcc_f64ish_pallas``: (..., T)
     int16 or float audio (int16 stays int16, any other dtype becomes f32)
-    -> (..., F, ncep) f32.  A CUDA tensor launches ``mfcc_f64ish_{i16,f32}``
-    or raises; a CPU tensor takes ``mfcc_batch_f64ish_plain``."""
-    if not _kernel_device(audio, cfg, "K7"):
+    -> (..., F, ncep) f32.  A CUDA tensor launches the FP64 tail's walk
+    with K7's ingest (``fladder.launch_tail``) or raises; a CPU tensor
+    takes ``mfcc_batch_f64ish_plain``."""
+    if not f64ish_config_ok(cfg):
+        raise ValueError(f"config outside K7's family: {cfg}")
+    if audio.device.type == "cpu":
         return mfcc_batch_f64ish_plain(audio, cfg, wire_grid=wire_grid,
                                        operators=operators)
-    ops = _checked_operators(operators, cfg, audio.device, "K7")
-    x = _as_audio(audio).contiguous()
-    lead, T = x.shape[:-1], x.shape[-1]
-    n_frames = framing.num_frames(T, cfg.hop, cfg.nfft)
-    x = x.reshape(-1, T)
-    S = x.shape[0]
-    out = torch.empty((S, n_frames, cfg.nceptrums), dtype=torch.float32,
-                      device=x.device)
-    args = fladder.tail_tables(ops, cfg, x.device)
-    lib = build.library()
-    fn = lib.mfcc_f64ish_i16 if x.dtype == torch.int16 else lib.mfcc_f64ish_f32
-    build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), S, T, n_frames,
-                 cfg.hop, cfg.nfft, cfg.nfilters, cfg.nceptrums, *args,
-                 int(wire_grid))
-    fladder.count_tail(args)
+    F = framing.num_frames(audio.shape[-1], cfg.hop, cfg.nfft)
+    out = fladder.launch_tail(fladder.F64ISH, _as_audio(audio).contiguous(),
+                              F, cfg.hop, cfg, operators, what="K7",
+                              wire_grid=wire_grid)
     LAUNCHES["K7"] += 1
-    return out.reshape(lead + (n_frames, cfg.nceptrums))
+    return out
 
 
 def mfcc_f64ish_frames(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
@@ -168,27 +140,23 @@ def mfcc_f64ish_frames(frames: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
                        ) -> torch.Tensor:
     """K7-frames, the counterpart of ``pallas_df32.mfcc_f64ish_pallas_frames``:
     (..., F, nfft) pre-emphasized frames of any float dtype (taken as f32)
-    -> (..., F, ncep) f32.  A CUDA tensor launches
-    ``mfcc_f64ish_frames_f32`` or raises; a CPU tensor takes
-    ``mfcc_frames_f64ish_plain``."""
+    -> (..., F, ncep) f32.  A CUDA tensor launches the FP64 tail's walk
+    with K7-frames' ingest (``fladder.launch_tail``) or raises; a CPU
+    tensor takes ``mfcc_frames_f64ish_plain``."""
     if frames.dim() < 1 or frames.shape[-1] != cfg.nfft:
         raise ValueError(f"K7-frames takes (..., F, {cfg.nfft}) frames, got "
                          f"{tuple(frames.shape)}")
-    if not _kernel_device(frames, cfg, "K7-frames"):
+    if not f64ish_config_ok(cfg):
+        raise ValueError(f"config outside K7-frames's family: {cfg}")
+    if frames.device.type == "cpu":
         return mfcc_frames_f64ish_plain(frames, cfg, wire_grid=wire_grid,
                                         operators=operators)
-    ops = _checked_operators(operators, cfg, frames.device, "K7-frames")
-    x = frames.to(torch.float32).contiguous()
-    M = x.numel() // cfg.nfft
-    out = torch.empty(x.shape[:-1] + (cfg.nceptrums,), dtype=torch.float32,
-                      device=x.device)
-    args = fladder.tail_tables(ops, cfg, x.device)
-    build.launch(build.library().mfcc_f64ish_frames_f32, x.device,
-                 x.data_ptr(), out.data_ptr(), M, cfg.nfft, cfg.nfilters,
-                 cfg.nceptrums, *args, int(wire_grid))
-    fladder.count_tail(args)
+    out = fladder.launch_tail(fladder.F64ISH_FRAMES,
+                              frames.to(torch.float32).contiguous(), 1,
+                              cfg.hop, cfg, operators, what="K7-frames",
+                              wire_grid=wire_grid)
     LAUNCHES["K7-frames"] += 1
-    return out
+    return out.squeeze(-2)
 
 
 # -- routes (any config) ---------------------------------------------------------

@@ -1,26 +1,32 @@
-"""K1: the fused float MFCC kernel of the float batch path.
+"""K1: the fused float MFCC kernel of the float batch path, and the one
+launch of every batch kernel on the FP64 tail.
 
 The counterpart of ``mfcc_tpu.ops.pallas_fladder`` (the radix-2 ladder
 kernel): (S, T) int16 or f32 audio -> (S, F, nceptrums) f32, with
 pre-emphasis, framing, window * 1/nfft, an FFT, power on bins [0, nfft/2),
 the mel product, an optional ``mel_floor``, log2 and the DCT product in one
-CUDA kernel (``csrc/fladder.cu``).
+CUDA kernel.
 
 ``mfcc_float_ladder`` is the wrapper: a CUDA tensor launches the kernel (or
 the wrapper raises), a CPU tensor takes ``mfcc_float_ladder_plain``, the
 same function as a chain of torch ops.  ``LAUNCHES`` counts kernel
 launches.
 
-Kaldi's recipe (``config.KaldiConfig``) runs on the same kernel's second
-instantiation, ``fladder_kaldi_kernel``: ``mfcc_kaldi_ladder`` from audio
-and ``mfcc_kaldi_frames`` from frames, their plain versions
-``mfcc_kaldi_ladder_plain`` and ``mfcc_kaldi_frames_plain`` (the recipe's
-chain, on any device and any config of the recipe), family
-``kaldi_config_ok``, tables ``kaldi_operators``, and launches counted in
-``KALDI_LAUNCHES``.
+K1, K6, K1-Kaldi, K7 and K7-frames are one persistent walk over frames,
+``tail_walk`` in ``csrc/fladder.cu``, with four ingests (``FPGA``,
+``KALDI``, ``F64ISH``, ``F64ISH_FRAMES``); ``launch_tail`` is their one
+launch (checks, operators, output, tables) behind one C entry,
+``mfcc_tail_walk``.
 
-Every kernel on the shared FP64 tail (K1, K1-Kaldi, K6, K7, K7-frames and
-K4-float, ``csrc/fladder_stages.cuh`` ``ladder_tail``) sums the mel bank
+Kaldi's recipe (``config.KaldiConfig``) runs on the walk with Kaldi's
+ingest: ``mfcc_kaldi_ladder`` from audio and ``mfcc_kaldi_frames`` from
+frames, their plain versions ``mfcc_kaldi_ladder_plain`` and
+``mfcc_kaldi_frames_plain`` (the recipe's chain, on any device and any
+config of the recipe), family ``kaldi_config_ok``, tables
+``kaldi_operators``, and launches counted in ``KALDI_LAUNCHES``.
+
+Every kernel on the shared FP64 tail (the walk's and K4-float,
+``csrc/fladder_stages.cuh`` ``ladder_tail``) sums the mel bank
 on the balanced schedule that ``mel_schedule`` builds: the bank's nonzero
 terms cut evenly over a warp's 32 lanes, where a lane per filter would run
 the widest band's length.  ``tail_tables`` derives it from the operators'
@@ -40,6 +46,7 @@ are not carried over.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -51,7 +58,7 @@ from ..kernels import build
 from . import framing
 
 LAUNCHES = 0     # kernel launches by mfcc_float_ladder (never the plain path)
-KALDI_LAUNCHES = 0   # launches of the Kaldi instantiation (mfcc_kaldi_*)
+KALDI_LAUNCHES = 0   # launches with Kaldi's ingest (mfcc_kaldi_*)
 # launches of any kernel on the FP64 tail that summed the mel bank on the
 # balanced schedule (steps > 0), whichever entry launched it
 MEL_SCHEDULE_LAUNCHES = 0
@@ -340,41 +347,55 @@ def mfcc_float_ladder(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
         raise ValueError(f"config outside K1's family: {cfg}")
     if audio.device.type == "cpu":
         return mfcc_float_ladder_plain(audio, cfg, mel_floor, operators)
-    if audio.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {audio.device}")
-    if audio.dtype not in (torch.int16, torch.float32):
-        raise TypeError(f"K1 takes int16 or float32 audio, got {audio.dtype}")
-    if not audio.is_contiguous():
-        raise ValueError("K1 needs contiguous audio")
-    ops = _resolve(operators, cfg, audio.device)
-    check_operators(ops, cfg, audio.device, "K1")
-    out = launch_ladder(audio, cfg, mel_floor, ops)
+    F = framing.num_frames(audio.shape[-1], cfg.hop, cfg.nfft)
+    out = launch_tail(FPGA, audio, F, cfg.hop, cfg, operators, what="K1",
+                      mel_floor=mel_floor)
     LAUNCHES += 1
     return out
 
 
-def launch_ladder(audio: torch.Tensor, cfg: MFCCConfig, mel_floor: float,
-                  ops: LadderOperators) -> torch.Tensor:
-    """Launch ``mfcc_fladder_{i16,f32}`` on contiguous (..., T) int16 or
-    f32 CUDA audio with checked operators, at ``cfg``'s hop (the kernel
-    frames by address, so any hop >= 1); counts nothing.  Shared by K1 and
-    K6 (``float_fused.mfcc_recomp_t``), each counting its own launches."""
-    nfilters, ncep = cfg.nfilters, cfg.nceptrums
-    lead, T = audio.shape[:-1], audio.shape[-1]
-    n_frames = framing.num_frames(T, cfg.hop, cfg.nfft)
-    x = audio.reshape(-1, T)
-    S = x.shape[0]
-    out = torch.empty((S, n_frames, ncep), dtype=torch.float32,
-                      device=audio.device)
-    args = tail_tables(ops, cfg, audio.device)
-    lib = build.library()
-    fn = (lib.mfcc_fladder_i16 if audio.dtype == torch.int16
-          else lib.mfcc_fladder_f32)
-    build.launch(fn, audio.device, x.data_ptr(), out.data_ptr(), S, T,
-                 n_frames, cfg.hop, cfg.nfft, nfilters, ncep, *args,
-                 float(mel_floor))
+# the ingests of the FP64 tail's walk (csrc/fladder.cu mfcc_tail_walk): K1
+# and K6, K1-Kaldi, K7, K7-frames
+FPGA, KALDI, F64ISH, F64ISH_FRAMES = range(4)
+
+
+def launch_tail(ingest: int, x: torch.Tensor, F: int, hop: int,
+                cfg: MFCCConfig, ops: LadderOperators | None, *, what: str,
+                mel_floor: float = 0.0, wire_grid: bool = False
+                ) -> torch.Tensor:
+    """Launch the FP64 tail's walk (``mfcc_tail_walk``) with ``ingest`` on
+    the rows of (..., T) CUDA input ``x``, F frames a row at ``hop`` (the
+    frames ingests: rows of nfft, F = 1); (..., F, nceptrums) f32 out.
+    Raises, naming the kernel ``what``, unless ``x`` is a contiguous
+    int16 or f32 (frames ingest: f32) CUDA tensor and ``ops`` (None:
+    ``default_operators``) pass ``check_operators``.  The one launch of
+    K1, K6, K1-Kaldi, K7 and K7-frames; counts only
+    MEL_SCHEDULE_LAUNCHES, each caller its own launches."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    if ingest == F64ISH_FRAMES:
+        dtypes, names = (torch.float32,), "float32"
+    else:
+        dtypes, names = (torch.int16, torch.float32), "int16 or float32"
+    if x.dtype not in dtypes:
+        raise TypeError(f"{what} takes {names}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous input")
+    ops = _resolve(ops, cfg, x.device)
+    check_operators(ops, cfg, x.device, what)
+    lead, T = x.shape[:-1], x.shape[-1]
+    out = torch.empty(lead + (F, cfg.nceptrums), dtype=torch.float32,
+                      device=x.device)
+    emph = cfg.preemphasis_coefficient if ingest == KALDI else 0.0
+    args = tail_tables(ops, cfg, x.device)
+    build.launch(build.library().mfcc_tail_walk, x.device, ingest,
+                 int(x.dtype == torch.int16), x.data_ptr(), out.data_ptr(),
+                 math.prod(lead), T, F, hop, cfg.nfft, cfg.windowlen, emph,
+                 cfg.nfilters, cfg.nceptrums, *args, float(mel_floor),
+                 int(wire_grid))
     count_tail(args)
-    return out.reshape(lead + (n_frames, ncep))
+    return out
 
 
 # -- Kaldi's recipe --------------------------------------------------------------
@@ -405,38 +426,23 @@ def mfcc_kaldi_ladder_plain(audio: torch.Tensor, cfg: MFCCConfig,
     return mfcc_kaldi_frames_plain(frames, cfg, operators)
 
 
-def _kaldi_checks(x: torch.Tensor, cfg: MFCCConfig, operators, what: str
-                  ) -> LadderOperators:
-    if not kaldi_config_ok(cfg):
-        raise ValueError(f"config outside K1-Kaldi's family: {cfg}")
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or CPU tensors, got "
-                         f"{x.device}")
-    if x.dtype not in (torch.int16, torch.float32):
-        raise TypeError(f"{what} takes int16 or float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous input")
-    ops = _resolve(operators, cfg, x.device)
-    check_operators(ops, cfg, x.device, what)
-    return ops
-
-
 def mfcc_kaldi_ladder(audio: torch.Tensor, cfg: MFCCConfig,
                       operators: LadderOperators | None = None
                       ) -> torch.Tensor:
     """K1 on Kaldi's recipe: (..., T) int16 or f32 raw samples -> (..., F,
-    nceptrums) f32.  On a CUDA tensor one launch of
-    ``fladder_kaldi_kernel`` (or the wrapper raises); a CPU tensor takes
+    nceptrums) f32.  On a CUDA tensor one launch of the walk with Kaldi's
+    ingest (or the wrapper raises); a CPU tensor takes
     ``mfcc_kaldi_ladder_plain``."""
     global KALDI_LAUNCHES
     if audio.device.type == "cpu":
         return mfcc_kaldi_ladder_plain(audio, cfg, operators)
-    ops = _kaldi_checks(audio, cfg, operators, "K1-Kaldi")
-    lead, T = audio.shape[:-1], audio.shape[-1]
-    F = framing.num_frames(T, cfg.hop, cfg.windowlen)
-    out = launch_kaldi(audio.reshape(-1, T), F, cfg.hop, cfg, ops)
+    if not kaldi_config_ok(cfg):
+        raise ValueError(f"config outside K1-Kaldi's family: {cfg}")
+    F = framing.num_frames(audio.shape[-1], cfg.hop, cfg.windowlen)
+    out = launch_tail(KALDI, audio, F, cfg.hop, cfg, operators,
+                      what="K1-Kaldi", mel_floor=tables.FLT_EPSILON)
     KALDI_LAUNCHES += 1
-    return out.reshape(lead + (F, cfg.nceptrums))
+    return out
 
 
 def mfcc_kaldi_frames(frames: torch.Tensor, cfg: MFCCConfig,
@@ -449,29 +455,12 @@ def mfcc_kaldi_frames(frames: torch.Tensor, cfg: MFCCConfig,
     global KALDI_LAUNCHES
     if frames.device.type == "cpu":
         return mfcc_kaldi_frames_plain(frames, cfg, operators)
-    ops = _kaldi_checks(frames, cfg, operators, "K1-Kaldi frames")
+    if not kaldi_config_ok(cfg):
+        raise ValueError(f"config outside K1-Kaldi's family: {cfg}")
     if frames.shape[-1] != cfg.nfft:
         raise ValueError(f"frames of {frames.shape[-1]} samples; K1-Kaldi "
                          f"takes nfft={cfg.nfft}")
-    out = launch_kaldi(frames.reshape(-1, cfg.nfft), 1, cfg.hop, cfg, ops)
+    out = launch_tail(KALDI, frames, 1, cfg.hop, cfg, operators,
+                      what="K1-Kaldi frames", mel_floor=tables.FLT_EPSILON)
     KALDI_LAUNCHES += 1
-    return out.reshape(frames.shape[:-1] + (cfg.nceptrums,))
-
-
-def launch_kaldi(x: torch.Tensor, n_frames: int, hop: int, cfg: MFCCConfig,
-                 ops: LadderOperators) -> torch.Tensor:
-    """Launch ``mfcc_fladder_kaldi_{i16,f32}`` on contiguous (S, T) CUDA
-    rows, ``n_frames`` frames a row at ``hop``; (S, n_frames, nceptrums)
-    f32 out.  Counts nothing."""
-    S, T = x.shape
-    out = torch.empty((S, n_frames, cfg.nceptrums), dtype=torch.float32,
-                      device=x.device)
-    lib = build.library()
-    fn = (lib.mfcc_fladder_kaldi_i16 if x.dtype == torch.int16
-          else lib.mfcc_fladder_kaldi_f32)
-    args = tail_tables(ops, cfg, x.device)
-    build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), S, T, n_frames,
-                 hop, cfg.nfft, cfg.windowlen, cfg.preemphasis_coefficient,
-                 cfg.nfilters, cfg.nceptrums, *args, tables.FLT_EPSILON)
-    count_tail(args)
-    return out
+    return out.squeeze(-2)

@@ -15,7 +15,7 @@ reach it:
   * ``mfcc_recomp_t`` (K6): the float MFCC at any hop.  On the TPU it is a
     dense f32 DFT because the split-DFT and ladder layouts need an even
     hop; on the card K1's kernel (``csrc/fladder.cu``) frames by address,
-    so K6 launches ``mfcc_fladder_{i16,f32}`` with the odd hop, and its
+    so K6 launches it (``mfcc_tail_walk``) with the odd hop, and its
     FP64 interior holds the 5e-4 contract.
 
 ``dft_passes`` (3, 4 or 6, per call) selects the DFT product's form.  At 6
@@ -420,16 +420,16 @@ def mfcc_recomp_t(audio: torch.Tensor, cfg: MFCCConfig = MFCCConfig(),
                   ) -> torch.Tensor:
     """K6, the counterpart of ``pallas_mfcc.mfcc_pallas_recomp_t``: the
     float MFCC of (..., T) int16 or float audio at any hop, on K1's kernel
-    (FP64 inside, f32 out).  A CUDA tensor launches
-    ``mfcc_fladder_{i16,f32}`` or raises; a CPU tensor takes
-    ``mfcc_recomp_t_plain``."""
+    (FP64 inside, f32 out).  A CUDA tensor launches the FP64 tail's walk
+    with K1's ingest (``fladder.launch_tail``) or raises; a CPU tensor
+    takes ``mfcc_recomp_t_plain``."""
     if not float_config_ok(cfg):
         raise ValueError(f"config outside K6's family: {cfg}")
-    if not _device_ok(audio, "K6"):
+    if audio.device.type == "cpu":
         return mfcc_recomp_t_plain(audio, cfg, mel_floor, operators)
-    ops = operators or fladder.default_operators(cfg, audio.device)
-    fladder.check_operators(ops, cfg, audio.device, "K6")
-    out = fladder.launch_ladder(_as_audio(audio).contiguous(), cfg,
-                                mel_floor, ops)
+    F = framing.num_frames(audio.shape[-1], cfg.hop, cfg.nfft)
+    out = fladder.launch_tail(fladder.FPGA, _as_audio(audio).contiguous(),
+                              F, cfg.hop, cfg, operators, what="K6",
+                              mel_floor=mel_floor)
     LAUNCHES["K6"] += 1
     return out

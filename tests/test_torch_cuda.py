@@ -217,6 +217,49 @@ def test_mel_schedule_on_every_tail_kernel(dev, monkeypatch):
     assert (klanes - kbalanced).abs().max().item() <= TOL
 
 
+def test_tail_walk_instantiations_on_card(dev):
+    """Each of the FP64 tail walk's seven instantiations, (ingest, input
+    dtype), launched once through its entry at nfft 512: the entry's own
+    counter moves by one and no other entry's does, every launch runs the
+    mel schedule (``MEL_SCHEDULE_LAUNCHES`` + 1), and each output is
+    within TOL of its plain version."""
+    x16 = torch.from_numpy(_tonal(3, 6000, seed=22).astype(np.int16)).to(dev)
+    xf = x16.float()
+    frames = framing.extract_frames(framing.preemphasis(xf), 512,
+                                    170).contiguous()
+    kframes = framing.extract_frames(xf, 512, 160, 400).contiguous()
+    cfg, odd, kaldi = MFCCConfig(), MFCCConfig(step=171), KALDI_MFCC_HIRES
+
+    def counters():
+        return {"K1": fladder.LAUNCHES, "K1-Kaldi": fladder.KALDI_LAUNCHES,
+                "K6": float_fused.LAUNCHES["K6"], **f64ish.LAUNCHES}
+
+    cases = (
+        ("K1", lambda: fladder.mfcc_float_ladder(x16, cfg),
+         lambda: fladder.mfcc_float_ladder_plain(x16, cfg)),
+        ("K6", lambda: float_fused.mfcc_recomp_t(xf, odd),
+         lambda: float_fused.mfcc_recomp_t_plain(xf, odd)),
+        ("K1-Kaldi", lambda: fladder.mfcc_kaldi_ladder(x16, kaldi),
+         lambda: fladder.mfcc_kaldi_ladder_plain(x16, kaldi)),
+        ("K1-Kaldi", lambda: fladder.mfcc_kaldi_frames(kframes, kaldi),
+         lambda: fladder.mfcc_kaldi_frames_plain(kframes, kaldi)),
+        ("K7", lambda: f64ish.mfcc_f64ish(x16, cfg),
+         lambda: f64ish.mfcc_batch_f64ish_plain(x16, cfg)),
+        ("K7", lambda: f64ish.mfcc_f64ish(xf / 32768, cfg, wire_grid=False),
+         lambda: f64ish.mfcc_batch_f64ish_plain(xf / 32768, cfg,
+                                                wire_grid=False)),
+        ("K7-frames", lambda: f64ish.mfcc_f64ish_frames(frames, cfg),
+         lambda: f64ish.mfcc_frames_f64ish_plain(frames, cfg)))
+    for key, kernel, plain in cases:
+        before, sched = counters(), fladder.MEL_SCHEDULE_LAUNCHES
+        got = kernel()
+        torch.cuda.synchronize()
+        after = counters()
+        assert after == {**before, key: before[key] + 1}, key
+        assert fladder.MEL_SCHEDULE_LAUNCHES == sched + 1, key
+        assert (got - plain()).abs().max().item() <= TOL, key
+
+
 def _k4_float_once(x16, ops, cfg):
     """One K4-float step of fresh streams over x16 with the operators
     ``ops`` and its plain version: (kernel feats, plain feats)."""

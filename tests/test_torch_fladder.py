@@ -17,8 +17,8 @@ from mfcc_tpu import MFCCConfig as JaxConfig
 from mfcc_tpu.ops import pallas_fladder
 from mfcc_tpu.ref import float_ref
 
-from mfcc_tpu_torch import MFCCConfig
-from mfcc_tpu_torch.ops import fladder
+from mfcc_tpu_torch import KALDI_MFCC_HIRES, MFCCConfig
+from mfcc_tpu_torch.ops import f64ish, fladder, float_fused
 
 # The JAX K1 runs an f32 FFT (~1e-5 from the float64 oracle on these
 # fixtures, its own test asserts 5e-5); the port computes in float64 and
@@ -198,3 +198,59 @@ def test_wrapper_rejects_configs_outside_family(sig2):
                 MFCCConfig(step=160, window_samples=400)):
         with pytest.raises(ValueError, match="outside K1's family"):
             fladder.mfcc_float_ladder(torch.from_numpy(sig2), cfg)
+
+
+# The entries on the FP64 tail's walk: (entry, its ingest, a config in its
+# family, one outside it, whether it takes frames).
+WALK_ENTRIES = {
+    "K1": (fladder.mfcc_float_ladder, fladder.FPGA, MFCCConfig(),
+           MFCCConfig(window_samples=400), False),
+    "K6": (float_fused.mfcc_recomp_t, fladder.FPGA, MFCCConfig(step=171),
+           MFCCConfig(step=160, window_samples=400), False),
+    "K1-Kaldi": (fladder.mfcc_kaldi_ladder, fladder.KALDI, KALDI_MFCC_HIRES,
+                 MFCCConfig(), False),
+    "K1-Kaldi frames": (fladder.mfcc_kaldi_frames, fladder.KALDI,
+                        KALDI_MFCC_HIRES, MFCCConfig(), True),
+    "K7": (f64ish.mfcc_f64ish, fladder.F64ISH, MFCCConfig(),
+           MFCCConfig(window_samples=400), False),
+    "K7-frames": (f64ish.mfcc_f64ish_frames, fladder.F64ISH_FRAMES,
+                  MFCCConfig(), MFCCConfig(window_samples=400), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WALK_ENTRIES))
+def test_walk_entries_check_through_the_shared_launcher(name, monkeypatch):
+    """Each entry on the walk keeps its own family error and its frames'
+    shape error (audio: a signal shorter than one frame) before any
+    launch, and reaches ``launch_tail`` with its ingest, whose device
+    check names the entry; no counter moves on the way."""
+    fn, ingest, cfg, outside, takes_frames = WALK_ENTRIES[name]
+    meta = torch.zeros((2, 3, 512) if takes_frames else (2, 2000),
+                       device="meta")
+    counts = (fladder.LAUNCHES, fladder.KALDI_LAUNCHES,
+              fladder.MEL_SCHEDULE_LAUNCHES, dict(f64ish.LAUNCHES),
+              dict(float_fused.LAUNCHES))
+    seen = []
+    launch = fladder.launch_tail
+
+    def spy(ing, *args, **kwargs):
+        seen.append(ing)
+        return launch(ing, *args, **kwargs)
+
+    monkeypatch.setattr(fladder, "launch_tail", spy)
+    with pytest.raises(ValueError, match="family"):
+        fn(meta, outside)
+    short, shape_error = ((torch.zeros(2, 3, 500, device="meta"), "frames")
+                          if takes_frames else
+                          (torch.zeros(2, 300, device="meta"),
+                           "shorter than one frame"))
+    with pytest.raises(ValueError, match=shape_error):
+        fn(short, cfg)
+    assert seen == []
+    with pytest.raises(ValueError, match=f"^{name} runs on CUDA or CPU "
+                                         "tensors, got meta"):
+        fn(meta, cfg)
+    assert seen == [ingest]
+    assert counts == (fladder.LAUNCHES, fladder.KALDI_LAUNCHES,
+                      fladder.MEL_SCHEDULE_LAUNCHES, dict(f64ish.LAUNCHES),
+                      dict(float_fused.LAUNCHES))

@@ -161,16 +161,19 @@ def test_persistent_walk_takes_every_frame_once(name, sms, per_sm):
         assert max(counts) - (min(counts) if len(counts) == warps else 0) <= 1
 
 
-@pytest.mark.parametrize("source,loops", [("fladder.cu", 2), ("f64ish.cu", 2),
-                                          ("int_mfcc.cu", 2)])
-def test_persistent_walk_is_the_kernels_loop(source, loops):
-    """The model's loop is the kernels' own: each persistent kernel of K1
-    (the FPGA's and Kaldi's instantiations), K7 (audio and frames) and
-    K2/K3-v1/K3 walks G from blockIdx.x * kFrames
-    + the warp by gridDim.x * kFrames, and K1's and K7's batch kernels and
-    K2's take (s, g) = (G / F, G - s*F) and the frame before the start as 0
-    where g == 0; every launch goes through ``launch_persistent``
-    (persistent.cuh), whose grid is ``persistent_grid``'s."""
+@pytest.mark.parametrize("source,loops,framing", [
+    ("fladder.cu", 1, "audio"), ("fladder.cu", 1, "rows"),
+    ("int_mfcc.cu", 2, "audio")])
+def test_persistent_walk_is_the_kernels_loop(source, loops, framing):
+    """The model's loop is the kernels' own: the FP64 tail's one walk
+    (``tail_walk``: K1, K1-Kaldi, K7 and K7-frames) and K2/K3-v1/K3's two
+    persistent kernels walk G from blockIdx.x * kFrames + the warp by
+    gridDim.x * kFrames, and every launch goes through
+    ``launch_persistent`` (persistent.cuh), whose grid is
+    ``persistent_grid``'s.  The audio kernels take (s, g) = (G / F, G -
+    s*F) and the frame before the start as 0 where g == 0: in the walk the
+    FPGA, Kaldi and K7 ingests, each through ``Scalars::frame``, the one
+    division; the frames ingest reads row G, with no division."""
     csrc = Path(wt.__file__).resolve().parent.parent / "csrc"
     text = (csrc / source).read_text()
     assert re.search(r"persistent_grid\(kernel, threads, smem, tiles, &grid\)",
@@ -181,12 +184,25 @@ def test_persistent_walk_is_the_kernels_loop(source, loops):
         r"static_cast<long long>\(gridDim\.x\) \* kFrames\)", text)
     assert len(head) == loops, head
     assert "launch_persistent(" in text
-    if source != "int_mfcc.cu":
-        assert "const long long s = G / F;" in text
-        assert "g > 0 || m > 0" in text
-    else:
+    if source == "int_mfcc.cu":
         assert "const long long s = G / F;" in text
         assert "g == 0" in text
+        return
+    assert text.count("__global__") == 1
+    assert text.count("const long long s = G / F;") == 1
+    body = {name: text.split(f"struct {name} {{", 1)[1].split("\n};", 1)[0]
+            for name in re.findall(r"struct (\w+Ingest) \{", text)}
+    audio = ["FpgaIngest", "KaldiIngest", "F64ishIngest"]
+    assert sorted(body) == sorted(audio + ["F64ishFramesIngest"])
+    if framing == "audio":
+        for name in audio:
+            assert "a.frame(audio, G, g)" in body[name], name
+        assert "g > 0 || m > 0" in body["FpgaIngest"]
+        assert "g > 0 || m > 0" in body["F64ishIngest"]
+    else:
+        rows = body["F64ishFramesIngest"]
+        assert "frame(" not in rows and "/ F" not in rows
+        assert "frames + G * (64 << LOG2P)" in rows
 
 
 # -- float --------------------------------------------------------------------
