@@ -80,7 +80,8 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      at S=4096 x C=1024 int16, with real-time streams, and prints each
      step's host issue ms beside its device ms and the operations one
      full-chunk step runs on the card (``torch.profiler``: K4's kernel
-     alone, checked);
+     alone, checked; the launch takes K4's staged window,
+     ``stream_fused.STAGED_LAUNCHES``, checked);
      and serves 8 concurrent TCP clients from an INT and a float
      ``FeatureServer`` on the card, each client's frames held equal to the
      INT oracle, resp. to ``StreamingMFCC(mel_floor=1.0)`` on its signal,
@@ -1268,10 +1269,17 @@ def serving_phases(dev, card: str) -> list[dict]:
             for c in chunks[2:]:
                 _, _, st = sm.step(c, st)
         step_ms, step_host = (v / steps for v in time_dev_host(chain))
+        key = f"K4-{kind}"
+        n_staged, n_k4 = stream_fused.STAGED_LAUNCHES[key], \
+            stream_fused.LAUNCHES[key]
         card_ops = device_ops(lambda: sm.step(chunks[2], state))
         check(len(card_ops) == 1 and "stream_" in card_ops[0],
               f"StreamingMFCC({kind}).step ran {len(card_ops)} operations "
               f"on the card, not K4's kernel alone: {card_ops[:8]}")
+        check(stream_fused.STAGED_LAUNCHES[key] - n_staged
+              == stream_fused.LAUNCHES[key] - n_k4 == 1,
+              f"StreamingMFCC({kind}).step at S={S_SERVE} x C={C_SERVE} "
+              f"did not take K4's staged window")
         for name, ms in ((f"K4-{kind} kernel, step-level entry (16 back "
                           f"to back)", k_ms),
                          (f"K4-{kind} kernel, step-level entry, one call "
@@ -3383,9 +3391,11 @@ ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
                   "stream_r2_kernel")
 # the tails' persistent batch kernels: the FP64 tail's walk (K1 and K6,
 # K1-Kaldi, K7 and K7-frames: one instantiation an ingest), K2 and
-# K3-v1 (int16 and int32 instantiations), K3, K10's epilogue
+# K3-v1 (int16 and int32 instantiations), K3, K10's epilogue; K4's staged
+# kernels and its per-point kernels (the other layouts)
 TAIL_KERNELS = ("tail_walk", "int_audio_kernel", "int_frames_kernel",
-                "int_epi_kernel", "stream_f32_kernel", "stream_int_kernel")
+                "int_epi_kernel", "stream_f32_kernel", "stream_int_kernel",
+                "stream_f32_pointwise_kernel", "stream_int_pointwise_kernel")
 # the tail kernels whose SASS is counted: (name, library, a substring of
 # the mangled name); the FP64 tail's at nfft 512 on int16
 TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),

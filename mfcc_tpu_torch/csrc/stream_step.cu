@@ -57,42 +57,72 @@
 // Design: a persistent grid (persistent.cuh) over the flat list of M = S*F
 // frame slots, as K1 and K3: a block of 8 warps loads its tables once
 // (float: K1's twiddles and mel schedule; INT: K3's ladder twiddles, window
-// curve and balanced filterbank schedule), then each warp takes slots G =
-// s*F + g in a grid-stride loop (32-bit slot indices: a launch refuses S*F
-// >= 2^30), so a tile of 8 slots spans stream boundaries and no warp idles
-// where F is not a multiple of 8 (F = 7 at C = 1024).  The float kernel runs
-// at K1's residency (3 blocks an SM at nfft 512), the INT kernel at K3's (3,
-// its window curve read from shared memory through a volatile pointer).
-// Framing is addressing into the carry and the chunk, read in place through
-// a stream stride and a position stride, so the (S, P) and (P, S) carries
-// and the (S, C) and (C, S) chunks need no relayout pass (the (C, S) chunk
-// is read with a stride of S per point, uncoalesced).  Each point is read
-// through branches on its region, carry, chunk or pad (the float step reads
-// a frame wholly inside the chunk at constant offsets instead); where the
-// carry and the chunk have unit position strides (the (S, P) carry and
-// (S, C) chunk) the frame is read with those strides as constants.  The
-// step's other outputs are written by the warps that already hold the
-// stream, with no extra pass and no barrier in the loop: the warp on slot g
-// writes carry positions [g * share, (g + 1) * share) of its stream, share
-// = ceil(P / F), and mask[s, g]; the warp on slot 0 writes the new count and
-// prev.  The new carry is a separate output (other warps still read the old
-// one).  Offsets are 64-bit: S*C passes 2^31 at S=4096 x C=2^19.
+// curve and balanced filterbank schedule), then walks tiles of 8 slots G =
+// s*F + g, one a warp, in a grid-stride loop (32-bit slot indices: a launch
+// refuses S*F >= 2^30), so a tile spans stream boundaries and no warp idles
+// where F is not a multiple of 8 (F = 7 at C = 1024: a tile spans 2
+// streams).  The float kernel runs at K1's residency (3 blocks an SM at
+// nfft 512), the INT kernel at K3's (3, its window curve read from shared
+// memory through a volatile pointer).
+//
+// The staged window (stream_f32_kernel, stream_int_kernel: the main path).
+// A block copies the rows of its next tile's streams -- each stream's
+// carry row, chunk row and state (count, prev, the word holding its reset
+// flag) -- into one of its two row buffers with cp.async while the
+// current tile's tails run (rows_issue), so no global load and no address
+// arithmetic stands in front of a frame.  One barrier a tile: the tile's
+// rows are in (each thread waits for its own copies) and the tile before's
+// buffer is read.  Then the block issues the next tile's copies; the
+// thread of a stream whose slot 0 is in the tile writes its new count and
+// prev, and the block its new carry E[C : C+P) (position p by thread p mod
+// 256); each warp writes its mask entry and reads its frame from the rows,
+// emphasizing as it reads: a frame wholly inside the chunk at a lane base
+// and constant offsets, the others through predicated reads of the carry
+// row or the chunk row (e_at), each read a shared-memory load.  A buffer
+// holds the tile's streams at a fixed stride, rows_stride(P, C, in_bytes)
+// bytes: 4,128 at the serving shape (C = 1024 int16), whose tiles span two
+// streams (F = 7), so 8,256 of a buffer's bytes.  The buffers are what
+// keeps 3 blocks an SM: 2 x 11,776 bytes beside the float block's 53,232 of
+// K1's arrays, 2 x 21,952 beside the INT block's 32,880, 76,784 a block.
+// The per-point kernels (stream_*_pointwise_kernel) take every other step:
+// a carry or chunk without unit position strides (the (P, S) carry, the
+// (C, S) chunk: read in place through their strides, uncoalesced for the
+// (C, S) chunk) or a tile's rows over a buffer (at hop 170: the float
+// step's f32 chunks and its int16 chunks outside 341-436, 511-924 and
+// 1,021-1,908 samples; the INT step's int32 chunks of 167-170 and over
+// 2,226 samples).  There each warp reads its stream's
+// state, writes carry positions [g * share, (g + 1) * share) of its stream
+// (share = ceil(P / F)), mask[s, g] and on slot 0 the new count and prev,
+// and reads each point from global memory through branches on its region,
+// carry, chunk or pad (the float kernel reads a frame wholly inside the
+// chunk at constant offsets instead; with unit position strides the frame
+// is read with those strides as constants).  The new carry is a separate
+// output (other warps still read the old one).  Offsets are 64-bit: S*C
+// passes 2^31 at S=4096 x C=2^19.
 //
 // What bounds it at the serving shape (S=4096 x C=1024 int16, hop 170: 7
 // frame slots, ~6 valid per stream): ~8.4 MB of chunk, ~16.7 MB of carry in
 // and out, ~3.7 MB of features, ~9 us of HBM time; the tails' operations
 // (chip_smoke.py counts them per valid frame) bound it: ~14 us of FP64 for
-// the float step, ~41 us of int32 issue for the INT step; the split-DFT
-// step's limb products bound it at the bf16 tensor-core rate, and its
-// FP64 product loop bounds this design (see radix2_stages.cuh).
+// the float step, ~41 us of int32 issue for the INT step.  With the window
+// a slot's own work is close to its tail's; what is left above the batch
+// kernels' rate a frame is the emphasis on read, the barrier a tile, and
+// the grid's last rounds, where an SM's first blocks have finished and its
+// last runs alone (3,584 tiles over 396 blocks at the serving shape: 9 or
+// 10 a block).  The split-DFT step's limb products bound it at the bf16
+// tensor-core rate, and its FP64 product loop bounds this design (see
+// radix2_stages.cuh).
 //
-// Not carried from the TPU kernels: the [carry | chunk] scratch concat, the
-// barrel-shifter alignment (_barrel_sublane), the even/odd and sigma frame
-// rebuilds, the (X, bs) 128-lane stream blocks and their narrow-lane
-// fallback.
+// Not carried from the TPU kernels: the barrel-shifter alignment
+// (_barrel_sublane), the even/odd and sigma frame rebuilds, the (X, bs)
+// 128-lane stream blocks and their narrow-lane fallback.  The row buffers
+// take the place of the [carry | chunk] scratch concat (pallas_stream.py's
+// VMEM scratch), filled a tile ahead and emphasized as they are read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "fladder_stages.cuh"
 #include "int_stages.cuh"
@@ -290,9 +320,352 @@ __device__ __forceinline__ void step_outputs(const StepState<T>& io,
   }
 }
 
+// -- The staged window (the main path) ---------------------------------------
+
+// A tile: a block's frame slots, one a warp.
+constexpr int kSlots = 8;
+static_assert(kSlots == fladder_stages::kFrames &&
+              kSlots == int_stages::kFrames, "one frame slot a warp");
+// Bytes of one of a block's two row buffers: what keeps 3 blocks an SM in
+// the SM's 233,472 bytes (1,024 reserved a block) beside the float block's
+// 53,232 bytes of K1's arrays and the INT block's 32,880 of K3's.
+constexpr int kRowsF32 = 11776;
+constexpr int kRowsInt = 21952;
+
+__host__ __device__ constexpr long long align16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+// The most streams a tile's kSlots slots span: ceil((kSlots - 1) / F) + 1.
+__host__ __device__ inline int tile_streams(int F) {
+  const int n = (kSlots - 2 + F) / F + 1;
+  return n < kSlots ? n : kSlots;
+}
+
+// A row buffer, for tiles of at most n streams: their carry rows (P values
+// of 4 bytes each) and their chunk rows (C samples of in_bytes each), each
+// a run of rows back to back copied as the aligned 16-byte blocks that
+// cover it (at most 30 bytes more), then kStateBytes of state: kSlots
+// counts, kSlots prevs and the (at most 3) words holding the tile's reset
+// flags.
+constexpr int kStateBytes = 8 * kSlots + 16;
+struct RowsLayout {
+  int chunk, state;   // byte offsets of the chunk rows and the state
+  long long bytes;    // the buffer's bytes
+  __host__ __device__ RowsLayout(int n, int P, int C, int in_bytes) {
+    const long long c = align16(4LL * P * n + 31);
+    const long long x = align16(static_cast<long long>(in_bytes) * C * n + 31);
+    bytes = c + x + kStateBytes;
+    chunk = static_cast<int>(c < (1LL << 30) ? c : 0);
+    state = static_cast<int>(c + x < (1LL << 30) ? c + x : 0);
+  }
+};
+
+// Whether a step takes the staged window: the carry and the chunk are the
+// (S, P) carry and (S, C) chunk, rows of unit position stride back to back,
+// and the rows of a tile's streams fit a row buffer of `buffer` bytes.
+// ops/stream_fused.py staged mirrors it.
+inline bool staged(int F, int P, int C, int in_bytes, int buffer,
+                   const Strides& st) {
+  return st.carry_p == 1 && st.chunk_t == 1 && st.carry_s == P &&
+         st.chunk_s == C && F >= 1 &&
+         RowsLayout(tile_streams(F), P, C, in_bytes).bytes <= buffer;
+}
+
+// Frames a stream of count buffered samples completes with a C-sample
+// chunk: an explicit floor division.
+__device__ __forceinline__ int valid_frames(int count, int P, int C,
+                                            int hop) {
+  return max(floor_div(count + C - (P + 1), hop) + 1, 0);
+}
+
+// Tile t: slots [G0, G1) of the flat (stream, slot) list, over streams s0
+// .. s0 + ns - 1; stream i of them holds its slots from ga(i) on here.
+struct Tile {
+  int G0, G1, s0, ns, F;
+  __device__ __forceinline__ Tile(int t, int M, int F_)
+      : G0(t * kSlots), G1(min(t * kSlots + kSlots, M)), s0(G0 / F_),
+        ns((G1 - 1) / F_ - G0 / F_ + 1), F(F_) {}
+  __device__ __forceinline__ int ga(int i) const {
+    return max(G0 - (s0 + i) * F, 0);
+  }
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// A pointer's aligned 2^k-byte block and its byte offset in it.
+template <int kAlign, typename X>
+__device__ __forceinline__ const char* block_of(const X* p) {
+  return reinterpret_cast<const char*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~uintptr_t(kAlign - 1));
+}
+template <int kAlign, typename X>
+__device__ __forceinline__ int byte_in_block(const X* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & (kAlign - 1));
+}
+
+// The block's copies of `bytes` bytes from p into dst as the aligned
+// 16-byte blocks that cover them (the first at dst): whole aligned blocks
+// around the run, never outside its pages.
+__device__ __forceinline__ void run_issue(char* dst, const void* p,
+                                          long long bytes) {
+  const char* a = block_of<16>(static_cast<const char*>(p));
+  const int n = static_cast<int>((byte_in_block<16>(static_cast<const char*>(p)) +
+                                  bytes + 15) / 16);
+  for (int k = threadIdx.x; k < n; k += kSlots * 32)
+    cp_async16(dst + 16 * k, a + 16 * k);
+}
+
+// The block's copies of tile tl's streams into a row buffer (RowsLayout):
+// their carry rows and chunk rows, each a run of global memory (the tile's
+// streams are consecutive rows), and their counts, prevs and reset words,
+// issued as one cp.async group that nothing waits for here.
+template <typename T, typename In>
+__device__ __forceinline__ void rows_issue(char* buf, const RowsLayout& lay,
+                                           const Tile& tl,
+                                           const T* __restrict__ carry,
+                                           const In* __restrict__ chunk,
+                                           const StepState<T>& io, int P,
+                                           int C) {
+  run_issue(buf, carry + static_cast<long long>(tl.s0) * P,
+            4LL * P * tl.ns);
+  run_issue(buf + lay.chunk, chunk + static_cast<long long>(tl.s0) * C,
+            static_cast<long long>(sizeof(In)) * C * tl.ns);
+  char* sb = buf + lay.state;
+  const int i = threadIdx.x;
+  if (i < tl.ns) {
+    cp_async4(sb + 4 * i, io.count + tl.s0 + i);
+    cp_async4(sb + 4 * (kSlots + i), io.prev + tl.s0 + i);
+  } else if (i >= kSlots && io.reset != nullptr &&
+             i - kSlots < (byte_in_block<4>(io.reset + tl.s0) + tl.ns + 3) / 4) {
+    const int k = i - kSlots;
+    cp_async4(sb + 4 * (2 * kSlots + k), block_of<4>(io.reset + tl.s0) + 4 * k);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Stream i's rows in a row buffer: its carry row c[0, P) and chunk row x[0,
+// C) (x[-1] is readable: the block before, or the stream before's last
+// sample), and its count and prev with the reset merged.
+template <typename T, typename In>
+struct Rows {
+  const T* c;
+  const In* x;
+  int count;
+  T prev;
+};
+
+template <typename T, typename In>
+__device__ __forceinline__ Rows<T, In> rows_of(const char* buf,
+                                               const RowsLayout& lay, int i,
+                                               const Tile& tl, const T* carry,
+                                               const In* chunk,
+                                               const StepState<T>& io, int P,
+                                               int C) {
+  const char* sb = buf + lay.state;
+  const int* count = reinterpret_cast<const int*>(sb);
+  bool reset = false;
+  if (io.reset != nullptr)
+    reset = sb[4 * 2 * kSlots + byte_in_block<4>(io.reset + tl.s0) + i] != 0;
+  Rows<T, In> w;
+  w.c = reinterpret_cast<const T*>(
+            buf + byte_in_block<16>(carry + static_cast<long long>(tl.s0) * P)) +
+        i * P;
+  w.x = reinterpret_cast<const In*>(
+            buf + lay.chunk +
+            byte_in_block<16>(chunk + static_cast<long long>(tl.s0) * C)) +
+        i * C;
+  w.count = reset ? 0 : count[i];
+  w.prev = reset ? T(0) : reinterpret_cast<const T*>(sb + 4 * kSlots)[i];
+  return w;
+}
+
+// E[q] of a stream from its rows (emph(x, p): the emphasized sample from
+// it and the one before): predicated reads of the carry row or the chunk
+// row, 0 outside [0, P + C).
+template <typename T, typename In, typename Emph>
+__device__ __forceinline__ T e_at(const Rows<T, In>& w, int q, int P, int C,
+                                  Emph emph) {
+  const bool inc = q >= 0 && q < P;
+  const bool inx = q >= P && q < P + C;
+  const T c = inc ? w.c[q] : T(0);
+  const T x = inx ? static_cast<T>(w.x[q - P]) : T(0);
+  const T p = inx && q > P ? static_cast<T>(w.x[q - P - 1]) : w.prev;
+  return inc ? c : inx ? emph(x, p) : T(0);
+}
+
+// The float frame starting at E[q0] from a stream's rows, as ingest_f32: a
+// frame wholly inside the chunk reads three samples a pair at constant
+// offsets from the lane's base, any other each point by e_at.
+template <int LOG2P, typename In>
+__device__ __forceinline__ void rows_f32(double2 (&z)[1 << LOG2P],
+                                         const Rows<float, In>& w, int q0,
+                                         int P, int C, const double2* win,
+                                         int l) {
+  const auto emph = [](float x, float p) {
+    return __fsub_rn(x, __fmul_rn(kEmphF, p));
+  };
+  constexpr int kN = 64 << LOG2P;
+  const int t0 = q0 - P;
+  if (t0 >= 1 && t0 + kN <= C) {
+    const In* x = w.x + t0 + 2 * l;
+#pragma unroll
+    for (int r = 0; r < (1 << LOG2P); ++r) {
+      const In* y = x + 64 * r;
+      const float p = to_f32(y[-1]), a = to_f32(y[0]), b = to_f32(y[1]);
+      z[r] = fladder_stages::window_pair(static_cast<double>(emph(a, p)),
+                                         static_cast<double>(emph(b, a)),
+                                         win[l + 32 * r]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < (1 << LOG2P); ++r) {
+    const int m = l + 32 * r;
+    z[r] = fladder_stages::window_pair(
+        static_cast<double>(e_at(w, q0 + 2 * m, P, C, emph)),
+        static_cast<double>(e_at(w, q0 + 2 * m + 1, P, C, emph)), win[m]);
+  }
+}
+
+// The INT frame starting at E[q0] from a stream's rows, windowed, in the
+// ladder's first layout (as ingest_int); the same two cases as rows_f32.
+template <typename In>
+__device__ __forceinline__ void rows_int(int (&re)[int_stages::kPts],
+                                         const Rows<int, In>& w, int q0,
+                                         int P, int C,
+                                         const volatile int* cv) {
+  const auto emph = [](int x, int p) { return int_stages::preemph32(x, p); };
+  const int b = int_stages::bitrev(int_stages::lane(), 5);
+  const int t0 = q0 - P;
+  if (t0 >= 1 && t0 + int_stages::kNfft <= C) {
+    const In* x = w.x + t0 + b;
+#pragma unroll
+    for (int r = 0; r < int_stages::kPts; ++r) {
+      const int p = 32 * int_stages::rev4(r);
+      re[r] = int_stages::window(
+          emph(static_cast<int>(x[p]), static_cast<int>(x[p - 1])),
+          cv[b + p]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < int_stages::kPts; ++r) {
+    const int p = b + 32 * int_stages::rev4(r);
+    re[r] = int_stages::window(e_at(w, q0 + p, P, C, emph), cv[p]);
+  }
+}
+
+// Each block walks tiles t = blockIdx.x, + gridDim.x, ... of kSlots
+// slots.  The rows of a tile's streams are copied (rows_issue) into one of
+// the block's two row buffers while the tile before runs; after one
+// barrier a tile (its rows are in, the tile before's buffer is read) the
+// block issues the next tile's copies, then thread i of a stream whose
+// slot 0 is here writes its new count and prev, the block its new carry
+// E[C : C+P), and warp w takes slot G = t * kSlots + w as the per-point
+// kernels do: its mask entry, then `slot(G, rows, q0)` on its frame
+// starting at E[q0].
+template <typename T, typename In, typename Emph, typename Slot>
+__device__ __forceinline__ void staged_walk(char* rows, int buffer,
+                                            const StepState<T>& io,
+                                            const T* carry, const In* chunk,
+                                            T* ncarry, int M, int P, int C,
+                                            int F, int hop,
+                                            const Strides& st, Emph emph,
+                                            Slot slot) {
+  const int tiles = (M + kSlots - 1) / kSlots;
+  const RowsLayout lay(tile_streams(F), P, C, sizeof(In));
+  if (static_cast<int>(blockIdx.x) < tiles)
+    rows_issue(rows, lay, Tile(blockIdx.x, M, F), carry, chunk, io, P, C);
+  int par = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, par ^= 1) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();   // the tile's rows are in; the tile before's are read
+    const int tn = t + static_cast<int>(gridDim.x);
+    if (tn < tiles)
+      rows_issue(rows + (par ^ 1) * buffer, lay, Tile(tn, M, F), carry,
+                 chunk, io, P, C);
+    const char* buf = rows + par * buffer;
+    const Tile tl(t, M, F);
+    for (int i = 0; i < tl.ns; ++i) {
+      if (tl.ga(i) != 0) continue;   // slot 0 is in an earlier tile
+      const long long s = tl.s0 + i;
+      const Rows<T, In> w = rows_of(buf, lay, i, tl, carry, chunk, io, P, C);
+      if (threadIdx.x == i) {
+        io.ncount[s] = w.count + C - valid_frames(w.count, P, C, hop) * hop;
+        io.nprev[s] = static_cast<T>(w.x[C - 1]);
+      }
+      T* nc = ncarry + s * st.ncarry_s;
+      if (C > P) {   // E[C + p] = emph(x[C + p - P], x[C + p - P - 1])
+        for (int p = threadIdx.x; p < P; p += kSlots * 32)
+          nc[p * st.ncarry_p] = emph(static_cast<T>(w.x[C - P + p]),
+                                     static_cast<T>(w.x[C - P + p - 1]));
+      } else {
+        for (int p = threadIdx.x; p < P; p += kSlots * 32)
+          nc[p * st.ncarry_p] = e_at(w, C + p, P, C, emph);
+      }
+    }
+    const int G = tl.G0 + static_cast<int>(threadIdx.x) / 32;
+    if (G < tl.G1) {
+      const int i = G / F - tl.s0;
+      const int g = G - (tl.s0 + i) * F;
+      const Rows<T, In> w = rows_of(buf, lay, i, tl, carry, chunk, io, P, C);
+      if ((threadIdx.x & 31) == 0)
+        io.mask[G] = g < valid_frames(w.count, P, C, hop);
+      slot(G, w, frame_start(P, w.count, g, hop, C));
+    }
+  }
+}
+
 template <typename In>
 __global__ void __launch_bounds__(fladder_stages::kThreads, kFloatResident)
 stream_f32_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
+                  StepState<float> io, float* __restrict__ out,
+                  float* __restrict__ ncarry, int M, int P, int C, int F,
+                  int hop, int nfilters, int ncep, Strides st,
+                  const double2* __restrict__ win, const double2* __restrict__ tw,
+                  const double* __restrict__ mel, const double* __restrict__ dct,
+                  const int2* __restrict__ band,
+                  const double2* __restrict__ msched, int msteps,
+                  double mel_floor) {
+  using namespace fladder_stages;
+  extern __shared__ double2 smem[];
+  constexpr int LOG2P = kLog2P;
+  constexpr int log2m = 5 + LOG2P;
+  constexpr int kP = 1 << LOG2P;
+  const Smem sm = carve(smem, log2m + 1, msteps);
+  load_constants(sm, log2m + 1, tw, mel, band, msched, nfilters);
+  // the row buffers past K1's arrays (smem_bytes(nfft) bytes: the mel
+  // table last); the walk's first barrier follows the tables' stores
+  char* rows = reinterpret_cast<char*>(sm.melt + kMelPerPoint * sm.R);
+  const int l = lane();
+  staged_walk(rows, kRowsF32, io, carry, chunk, ncarry, M, P, C, F, hop,
+              unit_positions(st),
+              [](float x, float p) { return __fsub_rn(x, __fmul_rn(kEmphF, p)); },
+              [&](int G, const Rows<float, In>& w, int q0) {
+                double2 z[kP];
+                rows_f32<LOG2P>(z, w, q0, P, C, win, l);
+                ladder_tail<LOG2P>(z, sm, nfilters, ncep, mel, dct, band,
+                                   mel_floor,
+                                   out + static_cast<long long>(G) * ncep);
+              });
+}
+
+template <typename In>
+__global__ void __launch_bounds__(fladder_stages::kThreads, kFloatResident)
+stream_f32_pointwise_kernel(const float* __restrict__ carry, const In* __restrict__ chunk,
                   StepState<float> io, float* __restrict__ out,
                   float* __restrict__ ncarry, int M, int P, int C, int F,
                   int hop, int nfilters, int ncep, Strides st,
@@ -402,7 +775,7 @@ stream_r2_kernel(radix2_stages::Geometry geo, long long M,
 
 template <typename In>
 __global__ void __launch_bounds__(int_stages::kThreads, kIntResident)
-stream_int_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
+stream_int_pointwise_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
                   StepState<int> io, int* __restrict__ out,
                   int* __restrict__ ncarry, int M, int P, int C, int F,
                   int hop, Strides st, const int* __restrict__ curve,
@@ -436,6 +809,33 @@ stream_int_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
   }
 }
 
+template <typename In>
+__global__ void __launch_bounds__(int_stages::kThreads, kIntResident)
+stream_int_kernel(const int* __restrict__ carry, const In* __restrict__ chunk,
+                  StepState<int> io, int* __restrict__ out,
+                  int* __restrict__ ncarry, int M, int P, int C, int F,
+                  int hop, Strides st, const int* __restrict__ curve,
+                  const int2* __restrict__ tw, const uint2* __restrict__ sched,
+                  int_stages::Tail c) {
+  using namespace int_stages;
+  __shared__ FbLadderSmem sm;
+  extern __shared__ __align__(16) char int_rows[];
+  load_ladder_tables(sm, tw);
+  load_fb_tables(sm.fb, sched, c);
+  for (int i = threadIdx.x; i < kNfft; i += blockDim.x) sm.curve[i] = curve[i];
+  // the curve is read each frame through a volatile pointer, as in K3; the
+  // walk's first barrier follows the tables' stores
+  const volatile int* cv = sm.curve;
+  staged_walk(int_rows, kRowsInt, io, carry, chunk, ncarry, M, P, C, F, hop,
+              unit_positions(st),
+              [](int x, int p) { return preemph32(x, p); },
+              [&](int G, const Rows<int, In>& w, int q0) {
+                int re[kPts];
+                rows_int(re, w, q0, P, C, cv);
+                tail_balanced(re, sm, c, out + static_cast<long long>(G) * c.ncep);
+              });
+}
+
 // Checks shared by both steps; returns the tiles per stream, or 0 (the
 // split-DFT step's grid is K5's over the S*F slots).
 long long tiles_for(long long S, int P, int C, int F, int hop, int nfft,
@@ -460,10 +860,13 @@ int launch_f32(const float* carry, const In* chunk, const StepState<float>& io,
   if (S == 0) return 0;
   if (S * F >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
   const int M = static_cast<int>(S * F);
+  const bool window = staged(F, P, C, sizeof(In), kRowsF32, st);
   return launch_persistent(
-      stream_f32_kernel<In>, kThreads, (M + kFrames - 1) / kFrames,
-      smem_bytes(nfft), stream, carry, chunk, io, out, ncarry, M, P, C, F,
-      hop, nfilters, ncep, st, reinterpret_cast<const double2*>(win),
+      window ? stream_f32_kernel<In> : stream_f32_pointwise_kernel<In>,
+      kThreads, (M + kFrames - 1) / kFrames,
+      smem_bytes(nfft) + (window ? 2 * kRowsF32 : 0), stream, carry,
+      chunk, io, out, ncarry, M, P, C, F, hop, nfilters, ncep, st,
+      reinterpret_cast<const double2*>(win),
       reinterpret_cast<const double2*>(tw), mel, dct,
       reinterpret_cast<const int2*>(band),
       static_cast<const double2*>(msched), mel_steps(msched, msteps, nfft),
@@ -507,11 +910,13 @@ int launch_int(const int* carry, const In* chunk, const StepState<int>& io,
   if (S == 0) return 0;
   if (S * F >= (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
   const int M = static_cast<int>(S * F);
-  return launch_persistent(stream_int_kernel<In>, kThreads,
-                           (M + kFrames - 1) / kFrames, 0, stream, carry,
-                           chunk, io, out, ncarry, M, P, C, F, hop, st, curve,
-                           reinterpret_cast<const int2*>(tw),
-                           reinterpret_cast<const uint2*>(sched), c);
+  const bool window = staged(F, P, C, sizeof(In), kRowsInt, st);
+  return launch_persistent(
+      window ? stream_int_kernel<In> : stream_int_pointwise_kernel<In>,
+      kThreads, (M + kFrames - 1) / kFrames,
+      window ? 2 * kRowsInt : 0, stream, carry, chunk, io, out, ncarry,
+      M, P, C, F, hop, st, curve, reinterpret_cast<const int2*>(tw),
+      reinterpret_cast<const uint2*>(sched), c);
 }
 
 }  // namespace
@@ -643,4 +1048,17 @@ extern "C" int mfcc_stream_int_i32(const int* carry, const int* chunk,
   return launch_int(carry, chunk, io, out, ncarry, S, P, C, F, hop, st,
                     nfilters, ncep, fb_shift, log_precision, log_width, curve,
                     tw, dtw, sched, stream);
+}
+
+// 1 where a step of F frame slots over a C-sample chunk of in_bytes
+// samples (P = nfft - 1), its carry and chunk read with these element
+// strides, takes the staged window of the float step (int_step 0) or the
+// INT step (1), else 0 (the per-point kernels): the launches' own test,
+// for the wrapper's mirror.
+extern "C" int mfcc_stream_staged(int int_step, int F, int C, int nfft,
+                                  int in_bytes, long long carry_s,
+                                  long long carry_p, long long chunk_s,
+                                  long long chunk_t) {
+  return staged(F, nfft - 1, C, in_bytes, int_step ? kRowsInt : kRowsF32,
+                Strides{carry_s, carry_p, chunk_s, chunk_t, 0, 1}) ? 1 : 0;
 }

@@ -121,6 +121,9 @@ SIGNATURES = {
     "mfcc_stream_f32_f32": _STREAM_F32_ARGS,
     "mfcc_stream_int_i16": _STREAM_INT_ARGS,
     "mfcc_stream_int_i32": _STREAM_INT_ARGS,
+    # mfcc_stream_staged(int_step, F, C, nfft, in_bytes, carry_s, carry_p,
+    #                    chunk_s, chunk_t): 1 where K4 takes the staged window
+    "mfcc_stream_staged": [_I, _I, _I, _I, _I, _LL, _LL, _LL, _LL],
     "mfcc_int_front_i16": _INT_FRONT_ARGS,
     "mfcc_int_epi": _INT_EPI_ARGS,
     "mfcc_dense_i16": _DENSE_ARGS,

@@ -34,7 +34,11 @@ carry, ``[carry | emph]``, a per-row aligned read, ``extract_frames``, then
 ``int_ops.mfcc_int_frames``), and ``stream_step_float_state_plain`` /
 ``stream_step_int_state_plain``, those inside ``state_step``'s torch
 bookkeeping.  ``LAUNCHES`` counts kernel launches per kernel:
-``"K4-float"``, ``"K4-split"`` and ``"K4-INT"``.
+``"K4-float"``, ``"K4-split"`` and ``"K4-INT"``; ``STAGED_LAUNCHES`` those
+of K4-float and K4-INT that took the staged window (``staged``: the carry
+and the chunk the (S, P) carry and (S, C) chunk, rows of unit position
+stride back to back, and a tile's streams' rows within a row buffer,
+``ROWS_BYTES``), the others the per-point kernels.
 
 Frame slots past a stream's valid count are computed from the zero-padded
 signal, by the kernel and the plain version alike; the caller masks them.
@@ -59,6 +63,12 @@ from . import fladder, float_fused, framing, int_fused, int_ops
 
 # kernel launches per kernel (never the plain versions)
 LAUNCHES = {"K4-float": 0, "K4-split": 0, "K4-INT": 0}
+# the K4-float and K4-INT launches that took the staged window
+STAGED_LAUNCHES = {"K4-float": 0, "K4-INT": 0}
+# the frame slots of a tile and the bytes of one of a block's two row
+# buffers, by kernel (stream_step.cu kSlots, kRowsF32, kRowsInt)
+TILE_SLOTS = 8
+ROWS_BYTES = {"K4-float": 11776, "K4-INT": 21952}
 
 LAYOUTS = ("time", "stream", "positions")
 
@@ -69,6 +79,41 @@ def stream_config_ok(cfg: MFCCConfig) -> bool:
     also needs ``fladder.fladder_config_ok``, the INT step
     ``int_fused.int_config_ok``."""
     return cfg.nfft == 512 and cfg.hop % 2 == 0 and cfg.windowlen == cfg.nfft
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def tile_streams(F: int) -> int:
+    """The most streams a tile of ``TILE_SLOTS`` slots spans, F slots a
+    stream: ceil((TILE_SLOTS - 1) / F) + 1."""
+    return min(TILE_SLOTS, -(-(TILE_SLOTS - 1) // F) + 1)
+
+
+def rows_bytes(n: int, P: int, C: int, in_bytes: int) -> int:
+    """Bytes of a row buffer for tiles of n streams (``stream_step.cu``
+    ``RowsLayout``): their carry rows (P values of 4 bytes) and their chunk
+    rows (C samples of ``in_bytes``), each run copied as the aligned
+    16-byte blocks that cover it, and the tile's state (counts, prevs,
+    reset words)."""
+    return (_align16(4 * P * n + 31) + _align16(in_bytes * C * n + 31)
+            + 8 * TILE_SLOTS + 16)
+
+
+@functools.lru_cache(maxsize=64)     # a serving step asks every step
+def staged(kernel: str, F: int, C: int, nfft: int, in_bytes: int,
+           strides: tuple) -> bool:
+    """Whether a launch of ``kernel`` (``"K4-float"`` or ``"K4-INT"``)
+    takes the staged window (the kernels' own test, ``stream_step.cu``
+    ``staged``): ``strides`` (carry_s, carry_p, chunk_s, chunk_t, ...) are
+    the (S, P) carry's and the (S, C) chunk's, rows of unit position stride
+    back to back, and the rows of a tile's streams fit the kernel's row
+    buffer (``ROWS_BYTES``); else the per-point kernels."""
+    P = nfft - 1
+    return (tuple(strides[:4]) == (P, 1, C, 1) and F >= 1
+            and rows_bytes(tile_streams(F), P, C, in_bytes)
+            <= ROWS_BYTES[kernel])
 
 
 def frames_per_step(C: int, cfg: MFCCConfig) -> int:
@@ -183,15 +228,16 @@ def _launch(kernel: str, fn, buffer, chunk, count, reset, prev, S, P, C,
     ncount = torch.empty((S,), dtype=torch.int32, device=dev)
     nprev = torch.empty((S,), dtype=prev.dtype, device=dev)
     count, prev = count.contiguous(), prev.contiguous()
+    strides = _strides(buffer, chunk, ncarry, transposed_state, layout)
     build.launch(fn, dev, buffer.data_ptr(), chunk.data_ptr(),
                  count.data_ptr(),
                  0 if reset is None else reset.contiguous().data_ptr(),
                  prev.data_ptr(), out.data_ptr(), mask.data_ptr(),
                  ncarry.data_ptr(), ncount.data_ptr(), nprev.data_ptr(), S,
-                 P, C, n_frames, cfg.hop, *mid,
-                 *_strides(buffer, chunk, ncarry, transposed_state, layout),
-                 *tail)
+                 P, C, n_frames, cfg.hop, *mid, *strides, *tail)
     LAUNCHES[kernel] += 1
+    if staged(kernel, n_frames, C, cfg.nfft, chunk.element_size(), strides):
+        STAGED_LAUNCHES[kernel] += 1
     return out, mask, ncarry, ncount, nprev
 
 

@@ -429,19 +429,36 @@ def epilogue_walk(M: int, grid: int) -> list:
     return out
 
 
-def step_walk(S: int, F: int, grid: int, P: int = INT_NFFT - 1) -> dict:
+def _tiles(M: int, F: int):
+    """Each tile of K4's staged walk (``stream_step.cu`` ``Tile``): (t, G0,
+    G1, s0, ns) for slots [G0, G1) over streams s0 .. s0 + ns - 1."""
+    for t in range(-(-M // FRAMES_PER_BLOCK)):
+        G0 = t * FRAMES_PER_BLOCK
+        G1 = min(G0 + FRAMES_PER_BLOCK, M)
+        yield t, G0, G1, G0 // F, (G1 - 1) // F - G0 // F + 1
+
+
+def step_walk(S: int, F: int, grid: int, P: int = INT_NFFT - 1, *,
+              staged: bool = True) -> dict:
     """The writes of the serving step K4's persistent kernels
-    (``stream_step.cu`` ``stream_f32_kernel``, ``stream_int_kernel``) over
-    S streams of F frame slots in ``grid`` blocks, by the kernels' loop
-    bounds and index formulas: warp w of block b takes flat slots G = b*8
-    + w, stepping by grid*8 while G < S*F; slot G is stream s = G // F,
-    slot g = G - s*F, and its warp writes the features of row G, carry
-    positions [g * share, min((g + 1) * share, P)) of stream s (share =
-    ceil(P / F)), mask entry G, and on slot 0 stream s's new count and new
-    prev.  Returns int64 arrays of the flat indices written, in the order
-    the warps take their slots: ``"feats"`` and ``"mask"`` G, ``"carry"``
-    s*P + position, ``"count"`` and ``"prev"`` s; and ``"warp"``, the
-    (block, warp) of each slot in ``"feats"``."""
+    (``stream_step.cu``) over S streams of F frame slots in ``grid``
+    blocks, by the kernels' loop bounds and index formulas.  Both paths:
+    block b walks tiles t = b, b + grid, ... of 8 slots and warp w takes
+    slot G = t*8 + w while G < S*F (the per-point kernels' G = b*8 + w
+    stepping by grid*8 is the same walk); slot G is stream s = G // F,
+    slot g = G - s*F, and its warp writes the features of row G and (lane
+    0) mask entry G.  The staged window (``staged``: the main path): the
+    block whose tile holds stream s's slot 0 writes all P carry positions
+    of s, position p by its thread p mod 256, and its thread s - s0 (s0
+    the tile's first stream) the new count and prev.  The per-point
+    kernels: the warp on slot g writes carry positions [g * share, min((g
+    + 1) * share, P)) of stream s (share = ceil(P / F)), its lanes striding
+    by 32, and on slot 0 lane 0 the new count and prev.  Returns int64
+    arrays of the flat indices written, in the order the warps or blocks
+    take them: ``"feats"`` and ``"mask"`` G, ``"carry"`` s*P + position,
+    ``"count"`` and ``"prev"`` s; ``"warp"``, the (block, warp) of each
+    slot in ``"feats"``; ``"carry_by"`` and ``"state_by"``, the (block,
+    thread) that writes each entry of ``"carry"`` and of ``"count"``."""
     step = grid * FRAMES_PER_BLOCK
     M = S * F
     firsts = np.arange(min(step, M))
@@ -449,17 +466,77 @@ def step_walk(S: int, F: int, grid: int, P: int = INT_NFFT - 1) -> dict:
                        or [np.zeros(0, np.int64)]).astype(np.int64)
     warp = np.concatenate([np.full(len(range(f, M, step)), f)
                            for f in firsts] or [np.zeros(0, np.int64)])
+    block = warp // FRAMES_PER_BLOCK
     s, g = G // F, G % F
+    first = g == 0
+    if staged:
+        threads = FRAMES_PER_BLOCK * LANES
+        carry, carry_by, count, state_by = [], [], [], []
+        for t, G0, G1, s0, ns in _tiles(M, F):
+            for i in range(ns):
+                if (s0 + i) * F < G0:
+                    continue               # slot 0 is in an earlier tile
+                carry.append((s0 + i) * P + np.arange(P))
+                carry_by.append(np.stack([np.full(P, t % grid),
+                                          np.arange(P) % threads], axis=1))
+                count.append(s0 + i)
+                state_by.append((t % grid, i))
+        none = np.zeros((0, 2), np.int64)
+        return {"feats": G, "mask": G,
+                "carry": np.concatenate(carry or [np.zeros(0, np.int64)]),
+                "count": np.array(count, np.int64),
+                "prev": np.array(count, np.int64),
+                "warp": np.stack([block, warp % FRAMES_PER_BLOCK], axis=1),
+                "carry_by": np.concatenate(carry_by or [none]),
+                "state_by": np.array(state_by, np.int64).reshape(-1, 2)}
     share = -(-P // F)
     lo = np.minimum(g * share, P)
     n = np.minimum((g + 1) * share, P) - lo
     starts = np.repeat(s * P + lo - np.cumsum(n) + n, n)
     carry = starts + np.arange(int(n.sum()))
-    first = g == 0
+    # the lane of each carry position: its offset in the warp's share mod 32
+    lane = (np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)) % LANES
+    wslot = np.repeat(warp % FRAMES_PER_BLOCK, n)
     return {"feats": G, "mask": G, "carry": carry, "count": s[first],
             "prev": s[first],
-            "warp": np.stack([warp // FRAMES_PER_BLOCK,
-                              warp % FRAMES_PER_BLOCK], axis=1)}
+            "warp": np.stack([block, warp % FRAMES_PER_BLOCK], axis=1),
+            "carry_by": np.stack([np.repeat(block, n),
+                                  wslot * LANES + lane], axis=1),
+            "state_by": np.stack([block[first],
+                                  (warp % FRAMES_PER_BLOCK)[first] * LANES],
+                                 axis=1)}
+
+
+def step_rows(S: int, F: int, C: int, in_bytes: int, base: int) -> list:
+    """How the staged kernels copy the rows of each tile's streams into a
+    row buffer (``stream_step.cu`` ``run_issue``, ``rows_of``), for the
+    chunk rows of an (S, C) chunk of ``in_bytes`` samples, rows back to
+    back, whose first sample is at byte address ``base`` (the carry rows
+    are copied the same way): [(s0, ns, xa, n, m)] a tile, its streams s0
+    .. s0 + ns - 1, the aligned 16-byte blocks [xa, xa + 16*n) copied (from
+    the block holding the first stream's first sample through the one
+    holding the last stream's last) and the byte m at which sample 0 of
+    stream s0 sits in the copy (stream s0 + i's sample t at m + (i*C + t) *
+    in_bytes)."""
+    out = []
+    for t, G0, G1, s0, ns in _tiles(S * F, F):
+        xb = base + s0 * C * in_bytes
+        xa = xb & ~15
+        out.append((s0, ns, xa, (xb - xa + in_bytes * C * ns + 15) // 16,
+                    xb & 15))
+    return out
+
+
+def step_e(carry_row, x_row, prev, q: int, P: int, C: int, emph):
+    """E[q] of a stream from its rows (``stream_step.cu`` ``e_at``, and
+    ``e_in`` inside [0, P + C)): the carry row below P, the chunk sample
+    and the one before (prev at the chunk's start) through ``emph`` in [P,
+    P + C), 0 elsewhere."""
+    if 0 <= q < P:
+        return carry_row[q]
+    if P <= q < P + C:
+        return emph(x_row[q - P], x_row[q - P - 1] if q > P else prev)
+    return 0
 
 
 # -- float: the packed FFT, unpack, mel and DCT (fladder_stages.cuh) ----------

@@ -1,7 +1,9 @@
 """The torch package's CUDA kernels on the card: K1 (float) against its
 plain version within TOL, K2 and K3 (INT) against theirs element for
 element (``torch.equal``), the serving step K4 (float within TOL, INT and
-every carry ``torch.equal``), K5, K5-frames and the split-DFT step (within
+every carry ``torch.equal``; its staged window bit for bit against its
+per-point kernels, and the launches each takes), K5, K5-frames and the
+split-DFT step (within
 TOL_R2), K6, K7 and K7-frames (within TOL; K7 on int16 equal to K1, on
 ragged shapes and at the headline size), K8's seven dense-DFT entries
 (within TOL), K9, K3-v1 and K10 (``torch.equal``; K3-v1 on int32 edges
@@ -748,6 +750,174 @@ def test_stream_state_floor_division_on_card(dev, int_path, C):
     n_valid = np.maximum((total - 512) // 170 + 1, 0)
     assert np.array_equal(mask.sum(dim=1).cpu().numpy(), n_valid)
     assert np.array_equal(new.count.cpu().numpy(), total - n_valid * 170)
+
+
+# -- K4's staged window against its per-point kernels -------------------------
+
+WINDOW_WIDTHS = [1, 169, 170, 171, 600, 1024, 1360, 1530, 2048]
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits, so that NaN slots compare as equal bits."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _k4_window_run(dev, int_path, S, C, steps=3, seed=0):
+    """The step-level K4 entry on (S, P) carries and (S, C) chunks (the
+    staged window) against the same entry on the same values read through
+    a chunk with a position stride of 2 (the per-point kernels) and its
+    plain version: random carries, counts 0, P and random, random resets
+    after the first step, chunks int16 then int32 (INT) or f32 with
+    fractions (float).  Features of every slot, masked included, bit for
+    bit between the two kernels (INT also equal to the plain version; float
+    within TOL of it on the valid slots); mask, carry, count and prev equal
+    among all three.  The JAX-signature entry takes the same routes.
+    ``STAGED_LAUNCHES`` rises by one for each (S, C) launch where
+    ``stream_fused.staged`` holds (the rows of a tile's streams fit the
+    kernel's row buffer: every INT width here, the float kernel's int16
+    widths 600 to 1530), by none for the strided ones."""
+    cfg = MFCCConfig()
+    rng = np.random.default_rng(seed)
+    P = cfg.nfft - 1
+    sdt = torch.int32 if int_path else torch.float32
+    kern = (stream_fused.stream_step_int_state if int_path
+            else stream_fused.stream_step_float_state)
+    plain = (stream_fused.stream_step_int_state_plain if int_path
+             else stream_fused.stream_step_float_state_plain)
+    jax_sig = (stream_fused.stream_step_int if int_path
+               else stream_fused.stream_step_float)
+    key = "K4-INT" if int_path else "K4-float"
+    carry = torch.from_numpy(rng.integers(-3000, 3000, (S, P))).to(dev, sdt)
+    count = rng.integers(0, P + 1, S)
+    count[::3], count[1::3] = 0, P
+    count = torch.as_tensor(count, dtype=torch.int32, device=dev)
+    prev = torch.from_numpy(rng.integers(-3000, 3000, S)).to(dev, sdt)
+    err = 0.0
+    for k in range(steps):
+        if k % 2 == 0:
+            x = rng.integers(-32768, 32768, (S, C)).astype(np.int16)
+        elif int_path:
+            x = rng.integers(-2 ** 31, 2 ** 31, (S, C)).astype(np.int32)
+        else:
+            x = (rng.integers(-25000, 25000, (S, C))
+                 + rng.random((S, C))).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        wide = torch.zeros((S, 2 * C), dtype=x.dtype, device=dev)
+        wide[:, ::2] = x
+        strided = wide[:, ::2]                 # chunk_t = 2: per-point
+        reset = (None if k == 0 else
+                 torch.from_numpy(rng.random(S) < 0.3).to(dev))
+        n, staged_n = dict(stream_fused.LAUNCHES), dict(
+            stream_fused.STAGED_LAUNCHES)
+        window = stream_fused.staged(key, (C - 1) // cfg.hop + 1, C,
+                                     cfg.nfft, x.element_size(),
+                                     (P, 1, C, 1))
+        got = kern(carry, x, count, prev, reset, cfg)
+        n[key] += 1
+        staged_n[key] += window
+        assert stream_fused.LAUNCHES == n
+        assert stream_fused.STAGED_LAUNCHES == staged_n
+        pointwise = kern(carry, strided, count, prev, reset, cfg)
+        n[key] += 1
+        assert stream_fused.LAUNCHES == n
+        assert stream_fused.STAGED_LAUNCHES == staged_n
+        torch.cuda.synchronize()
+        ref = plain(carry, x, count, prev, reset, cfg)
+        assert got[0].shape == (S, (C - 1) // cfg.hop + 1, cfg.nceptrums)
+        assert torch.equal(_bits(got[0]), _bits(pointwise[0])), (S, C, k)
+        for name, a, b, c in zip(("mask", "carry", "count", "prev"),
+                                 got[1:], pointwise[1:], ref[1:]):
+            assert a.dtype == c.dtype, name
+            assert torch.equal(a, b) and torch.equal(a, c), (S, C, k, name)
+        if int_path:
+            assert torch.equal(got[0], ref[0]), (S, C, k)
+        else:
+            m = got[1]
+            if bool(m.any()):
+                assert torch.isfinite(got[0][m]).all()
+                err = max(err, (got[0][m] - ref[0][m]).abs().max().item())
+        # the JAX-signature entry: the same kernels by the same test
+        merged = (count if reset is None
+                  else torch.where(reset, 0, count)).to(torch.int32)
+        pv = prev if reset is None else torch.where(
+            reset, torch.zeros_like(prev), prev)
+        start = (P - merged).to(torch.int32)
+        f1, c1 = jax_sig(carry, x, start, pv, cfg)
+        staged_n[key] += window
+        f2, c2 = jax_sig(carry, strided, start, pv, cfg)
+        assert stream_fused.STAGED_LAUNCHES == staged_n
+        assert torch.equal(_bits(f1), _bits(got[0]))
+        assert torch.equal(_bits(f2), _bits(got[0]))
+        assert torch.equal(c1, got[2]) and torch.equal(c2, got[2])
+        carry, count, prev = got[2], got[3], got[4]
+    assert err <= TOL
+
+
+@pytest.mark.parametrize("int_path", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("C", WINDOW_WIDTHS)
+def test_stream_window_matches_pointwise(dev, int_path, C):
+    """The staged window at S = 1, 3, 37 and 130 (a tile spans 1 to 8
+    streams: F = 1, 2, 4, 7, 8, 9, 13) against the per-point kernels and
+    the plain version (``_k4_window_run``)."""
+    for S in (1, 3, 37, 130):
+        _k4_window_run(dev, int_path, S, C, seed=S * 7919 + C)
+
+
+@pytest.mark.parametrize("int_path", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("C", [170, 1024, 2048])
+def test_stream_window_at_serving_streams(dev, int_path, C):
+    """The same at S = 4096, the serving cells' streams."""
+    _k4_window_run(dev, int_path, 4096, C, steps=2, seed=C)
+
+
+def test_stream_window_transposed_takes_pointwise(dev):
+    """A step on the (P, S) carry or the (C, S) chunk takes the per-point
+    kernels (``STAGED_LAUNCHES`` does not move, ``LAUNCHES`` does), on
+    both steps, with the staged step's bits."""
+    cfg, S, C = MFCCConfig(), 37, 1024
+    x = torch.from_numpy(_tonal(S, C, 5).astype(np.int16)).to(dev)
+    for int_path in (True, False):
+        sm = StreamingMFCC(int_path=int_path)
+        key = "K4-INT" if int_path else "K4-float"
+        state = sm.init(S)
+        n, staged_n = (dict(stream_fused.LAUNCHES),
+                       dict(stream_fused.STAGED_LAUNCHES))
+        want = sm.step(x, state)
+        n[key] += 1
+        staged_n[key] += 1
+        for ts, chunks in ((True, x), (False, x.T.contiguous()),
+                           (True, x.T.contiguous())):
+            other = StreamingMFCC(int_path=int_path, transposed_state=ts,
+                                  transposed_chunks=chunks.shape[0] != S)
+            st = other.init(S)
+            got = other.step(chunks, st)
+            n[key] += 1
+            assert stream_fused.LAUNCHES == n
+            assert stream_fused.STAGED_LAUNCHES == staged_n
+            assert torch.equal(_bits(got[0]), _bits(want[0]))
+            assert torch.equal(got[1], want[1])
+
+
+def test_stream_window_test_is_the_kernels(dev):
+    """``stream_fused.staged``, the wrapper's mirror of the kernels' test,
+    answers as the C entry ``mfcc_stream_staged`` for both steps over chunk
+    widths, hops, sample sizes and strides: rows over a buffer, rows not
+    back to back and the transposed layouts included."""
+    lib = build.library()
+    P = 511
+    for int_step, key in ((0, "K4-float"), (1, "K4-INT")):
+        for C in (1, 169, 170, 171, 600, 1024, 1360, 1530, 1550, 2048, 4000,
+                  9000):
+            for hop in (160, 170, 600):
+                F = (C - 1) // hop + 1
+                for b in (2, 4):
+                    for st in ((P, 1, C, 1), (P + 1, 1, C, 1),
+                               (P, 1, C + 2, 1), (1, 4096, C, 1),
+                               (P, 1, 1, 4096), (P, 2, C, 1)):
+                        want = bool(lib.mfcc_stream_staged(
+                            int_step, F, C, 512, b, *st))
+                        got = stream_fused.staged(key, F, C, 512, b, st)
+                        assert got == want, (key, C, hop, b, st)
 
 
 def test_streamed_frames_are_batch_bits_on_card(dev):

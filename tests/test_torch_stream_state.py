@@ -202,8 +202,10 @@ def test_state_step_entries_check_and_route(monkeypatch):
     with pytest.raises(TypeError, match="carry"):
         stream_fused.stream_step_int_state(buf, x, count, prev.int())
     before = dict(stream_fused.LAUNCHES)
+    staged = dict(stream_fused.STAGED_LAUNCHES)
     f, m, nb, nc, npv = step(buf, x, count, prev)
     assert stream_fused.LAUNCHES == before
+    assert stream_fused.STAGED_LAUNCHES == staged
     assert f.shape == (2, 2, 32) and m.dtype == torch.bool
     assert nc.dtype == torch.int32 and npv.dtype == torch.float32
     seen = []

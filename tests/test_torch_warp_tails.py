@@ -738,31 +738,54 @@ def test_step_walk_writes_every_output_once(S, F):
     """K4's persistent kernels (``warp_tails.step_walk``, the kernels' loop
     bounds and index formulas) write every (stream, frame slot)'s features
     and mask entry, every carry position of every stream, and every
-    stream's new count and prev exactly once; each warp takes its slots in
-    ascending order, and an 8-slot tile spans stream boundaries where F is
-    not a multiple of 8 (no warp idles while slots are left).  For the
-    grid the occupancy gives at 3 blocks an SM, a grid of 2 blocks, and a
-    grid larger than the tile count (idle blocks)."""
+    stream's new count and prev exactly once, on the staged window and on
+    the per-point kernels alike; each warp takes its slots in ascending
+    order, and an 8-slot tile spans stream boundaries where F is not a
+    multiple of 8 (no warp idles while slots are left).  On the staged
+    window a stream's carry, count and prev are written by the block whose
+    tile holds its slot 0 (the carry by all 256 threads, position p by
+    thread p mod 256; count and prev by thread s - s0, s0 the tile's first
+    stream).  For the grid the occupancy gives at 3 blocks an SM, a
+    grid of 2 blocks, and a grid larger than the tile count (idle
+    blocks)."""
     M = S * F
     tiles = -(-M // wt.FRAMES_PER_BLOCK)
-    for grid in (wt.persistent_grid(tiles, 132, 3), 2, tiles + 3):
-        walk = wt.step_walk(S, F, grid, STEP_P)
-        for name, n in (("feats", M), ("mask", M), ("carry", S * STEP_P),
-                        ("count", S), ("prev", S)):
-            idx = walk[name]
-            assert idx.min(initial=0) >= 0 and idx.max(initial=0) < n, name
-            assert (np.bincount(idx, minlength=n) == 1).all(), (name, grid)
-        b, w = walk["warp"][:, 0], walk["warp"][:, 1]
-        assert (b < grid).all() and (w < wt.FRAMES_PER_BLOCK).all()
-        per_warp = {}
-        for key, G in zip(b * wt.FRAMES_PER_BLOCK + w, walk["feats"]):
-            per_warp.setdefault(int(key), []).append(int(G))
-        for seq in per_warp.values():
-            assert seq == sorted(seq)
-            assert seq[0] < grid * wt.FRAMES_PER_BLOCK
-        busy = min(M, grid * wt.FRAMES_PER_BLOCK)
-        assert len(per_warp) == busy           # no warp idles early
-        assert sorted(walk["feats"].tolist()) == list(range(M))
+    for staged in (True, False):
+        for grid in (wt.persistent_grid(tiles, 132, 3), 2, tiles + 3):
+            walk = wt.step_walk(S, F, grid, STEP_P, staged=staged)
+            for name, n in (("feats", M), ("mask", M),
+                            ("carry", S * STEP_P), ("count", S),
+                            ("prev", S)):
+                idx = walk[name]
+                assert idx.min(initial=0) >= 0 and idx.max(initial=0) < n, name
+                assert (np.bincount(idx, minlength=n) == 1).all(), (name, grid)
+            b, w = walk["warp"][:, 0], walk["warp"][:, 1]
+            assert (b < grid).all() and (w < wt.FRAMES_PER_BLOCK).all()
+            per_warp = {}
+            for key, G in zip(b * wt.FRAMES_PER_BLOCK + w, walk["feats"]):
+                per_warp.setdefault(int(key), []).append(int(G))
+            for seq in per_warp.values():
+                assert seq == sorted(seq)
+                assert seq[0] < grid * wt.FRAMES_PER_BLOCK
+            busy = min(M, grid * wt.FRAMES_PER_BLOCK)
+            assert len(per_warp) == busy           # no warp idles early
+            assert sorted(walk["feats"].tolist()) == list(range(M))
+            cb, sb = walk["carry_by"], walk["state_by"]
+            assert len(cb) == S * STEP_P and len(sb) == S
+            assert (cb[:, 0] < grid).all() and (cb[:, 1] < 256).all()
+            # the block that writes a stream's carry, count and prev holds
+            # its slot 0
+            home = (walk["count"] * F // wt.FRAMES_PER_BLOCK) % grid
+            assert (sb[:, 0] == home).all()
+            if staged:
+                assert (cb[:, 0] == np.repeat(home, STEP_P)).all()
+                assert (cb[:, 1] == walk["carry"] % STEP_P % 256).all()
+                s0 = (walk["count"] * F // wt.FRAMES_PER_BLOCK
+                      * wt.FRAMES_PER_BLOCK) // F
+                assert (sb[:, 1] == walk["count"] - s0).all()
+                assert (sb[:, 1] < wt.FRAMES_PER_BLOCK).all()
+            else:
+                assert (sb[:, 1] % 32 == 0).all()   # lane 0 of slot 0's warp
     # the model against the persistent walk of the batch kernels
     grid = wt.persistent_grid(tiles, 132, 3)
     walk = wt.step_walk(S, F, grid, STEP_P)
@@ -772,15 +795,115 @@ def test_step_walk_writes_every_output_once(S, F):
     assert got == sorted(want)
 
 
+@pytest.mark.parametrize("kernel", ["K4-float", "K4-INT"])
+def test_step_walk_span_test_picks_the_path(kernel):
+    """``stream_fused.staged`` (the kernels' test) takes the staged window
+    where the carry and the chunk are the (S, P) carry and (S, C) chunk,
+    rows back to back, and the rows of a tile's streams (``tile_streams``
+    of them) fit the kernel's row buffer (``rows_bytes``): the serving
+    width (C = 1024 int16, F = 7, two streams a tile, 8,336 bytes) on both
+    kernels; the float kernel's smaller buffer leaves its widest and
+    narrowest int16 widths and its f32 chunks to the per-point kernels, the
+    INT kernel's only int32 widths over 2,214.  Either path writes every
+    output once (``step_walk``), and a carry or chunk of other strides
+    takes the per-point kernels at any width."""
+    from mfcc_tpu_torch.ops import stream_fused as sf
+    assert sf.tile_streams(7) == 2 and sf.tile_streams(1) == 8
+    assert sf.tile_streams(13) == 2 and sf.tile_streams(2) == 5
+    assert sf.rows_bytes(2, STEP_P, 1024, 2) == 8336
+    want = {("K4-float", 2): {600, 1024, 1360, 1530},
+            ("K4-float", 4): set(),
+            ("K4-INT", 2): {1, 169, 170, 171, 600, 1024, 1360, 1530, 2048},
+            ("K4-INT", 4): {1, 169, 170, 171, 600, 1024, 1360, 1530, 2048}}
+    for b in (2, 4):
+        got = set()
+        for C in (1, 169, 170, 171, 600, 1024, 1360, 1530, 2048):
+            F = (C - 1) // 170 + 1
+            if sf.staged(kernel, F, C, 512, b, (STEP_P, 1, C, 1)):
+                got.add(C)
+            for st in ((1, 130, C, 1), (STEP_P, 1, 1, 130),
+                       (STEP_P + 1, 1, C, 1), (STEP_P, 1, C + 2, 1)):
+                assert not sf.staged(kernel, F, C, 512, b, st)
+            for S in (1, 3, 130):
+                walk = wt.step_walk(S, F, 2, STEP_P, staged=C in got)
+                for name, n in (("feats", S * F), ("carry", S * STEP_P),
+                                ("count", S)):
+                    assert (np.bincount(walk[name], minlength=n) == 1).all()
+        assert got == want[kernel, b], (kernel, b, sorted(got))
+    assert not sf.staged("K4-INT", 14, 2215, 512, 4, (STEP_P, 1, 2215, 1))
+    assert sf.staged("K4-INT", 14, 2214, 512, 4, (STEP_P, 1, 2214, 1))
+
+
+@pytest.mark.parametrize("C", [1, 169, 170, 171, 600, 1024, 1360, 2048])
+@pytest.mark.parametrize("in_bytes", [2, 4])
+def test_step_rows_hold_each_frame(C, in_bytes):
+    """The staged kernels' row copies (``warp_tails.step_rows``: a tile's
+    chunk rows as one run of aligned 16-byte blocks, from the block holding
+    its first sample) give back every sample of every stream at byte m +
+    (i*C + t) * in_bytes, the blocks stay within the run's first and last
+    blocks, and the copy fits ``rows_bytes``; each frame read from the rows
+    (``step_e``; a frame
+    wholly inside the chunk at a base and constant offsets, t0 >= 1 and t0
+    + nfft <= C) is E[q0 : q0 + nfft] of the stream, for counts 0, P,
+    random and out of [0, P]."""
+    from mfcc_tpu_torch.ops import stream_fused as sf
+    P, nfft, hop, S = STEP_P, 512, 170, 5
+    F = (C - 1) // hop + 1
+    rng = np.random.default_rng(C * in_bytes)
+    dt = np.int16 if in_bytes == 2 else np.int32
+    emph = lambda x, p: int(x) * 32 - int(p)      # any function of (x, p)
+    for pad in ((0, 2, 6, 14) if in_bytes == 2 else (0, 4, 12)):
+        mem = np.zeros(16 + S * C * in_bytes + 32, np.uint8)
+        x = rng.integers(-30000, 30000, (S, C)).astype(dt)
+        base = 16 + pad
+        mem[base:base + x.nbytes] = np.frombuffer(x.tobytes(), np.uint8)
+        carry = rng.integers(-9, 9, (S, P))
+        prev = rng.integers(-9, 9, S)
+        for s0, ns, xa, nw, m in wt.step_rows(S, F, C, in_bytes, base):
+            xb = base + s0 * C * in_bytes
+            assert xa <= xb < xa + 16 and xa % 16 == 0
+            assert xa + 16 * nw - (xb + ns * C * in_bytes) < 16
+            assert ns <= sf.tile_streams(F)
+            carry_blocks = (12 + 4 * P * ns + 15) // 16   # its worst offset
+            assert (sf._align16(16 * carry_blocks) + 16 * nw + 8 * 8 + 16
+                    <= sf.rows_bytes(sf.tile_streams(F), P, C, in_bytes))
+            words = mem[xa:xa + 16 * nw]
+            for i in range(ns):
+                s = s0 + i
+                lo = m + i * C * in_bytes
+                row = np.frombuffer(words[lo:lo + C * in_bytes].tobytes(), dt)
+                assert np.array_equal(row, x[s]), (s, pad)
+                for count in (0, P, int(rng.integers(0, P + 1)), -3000, 3000):
+                    for g in range(F):
+                        q0 = int(np.clip(P - count + g * hop, -1024, P + C))
+                        want = [wt.step_e(carry[s], x[s], prev[s], q, P, C,
+                                          emph)
+                                for q in range(q0, q0 + nfft)]
+                        t0 = q0 - P
+                        if t0 >= 1 and t0 + nfft <= C:       # the fast path
+                            got = [emph(row[t0 + j], row[t0 + j - 1])
+                                   for j in range(nfft)]
+                            assert got == want, (s, count, g)
+
+
 def test_step_walk_is_the_kernels():
-    """``step_walk`` holds the kernels' formulas: both of stream_step.cu's
-    K4 kernels walk G from blockIdx.x * kFrames + the warp by gridDim.x *
-    kFrames over M = S*F slots in 32-bit indices (the launches refuse M >=
-    2^30) with (s, g) = (G / F, G - s*F), launch through
-    ``launch_persistent``, and write through ``step_outputs``: carry
-    positions [g * share, min(P, (g + 1) * share)) with share = ceil(P /
-    F), mask[G], and on slot 0 the count and prev; the valid count is an
-    explicit floor division."""
+    """``step_walk`` and ``step_rows`` hold the kernels' formulas: the
+    staged kernels (``stream_f32_kernel``, ``stream_int_kernel``) walk
+    tiles t from blockIdx.x by gridDim.x over ceil(M / 8) tiles through
+    ``staged_walk``: one barrier a tile after the tile's copies are waited
+    for, the next tile's copies issued into the other row buffer, the new
+    carry of a stream whose slot 0 is in the tile (position p by thread p
+    mod 256) and its count and prev (thread i), warp w on slot t * 8 + w;
+    ``rows_issue`` copies the tile's carry rows and chunk rows as two runs
+    of aligned 16-byte blocks from the block holding each run's first
+    value, ``rows_of`` reads stream i's row at the run's byte offset mod 16
+    plus i rows.  The per-point kernels walk G from blockIdx.x * kFrames + the warp
+    by gridDim.x * kFrames over M = S*F slots in 32-bit indices (the
+    launches refuse M >= 2^30) with (s, g) = (G / F, G - s*F), and write
+    through ``step_outputs``: carry positions [g * share, min(P, (g + 1) *
+    share)) with share = ceil(P / F), mask[G], and on slot 0 the count and
+    prev; the valid count is an explicit floor division; each launch takes
+    the staged kernel where ``staged`` holds."""
     text = (Path(wt.__file__).resolve().parent.parent / "csrc"
             / "stream_step.cu").read_text()
     heads = re.findall(
@@ -788,12 +911,17 @@ def test_step_walk_is_the_kernels():
         r"threadIdx\.x / kLanes;\s*G < M; G \+= "
         r"static_cast<int>\(gridDim\.x\) \* kFrames\)", text)
     assert len(heads) == 2, heads
-    for kernel in ("stream_f32_kernel", "stream_int_kernel"):
+    for kernel in ("stream_f32_pointwise_kernel",
+                   "stream_int_pointwise_kernel"):
         body = text[text.index(kernel + "("):]
         body = body[:body.index("\n}\n")]
         assert "const int s = G / F;" in body
         assert "const int g = G - s * F;" in body
         assert "step_outputs(io, ncarry, xs, s, G, g, count," in body
+    for kernel in ("stream_f32_kernel", "stream_int_kernel"):
+        body = text[text.index(kernel + "("):]
+        body = body[:body.index("\n}\n")]
+        assert "staged_walk(" in body and "unit_positions(st)," in body
     assert text.count("if (S * F >= (1LL << 30)) return") == 2
     for line in ("const int share = (P + F - 1) / F;",
                  "const int p1 = min(P, (g + 1) * share);",
@@ -803,12 +931,60 @@ def test_step_walk_is_the_kernels():
                  "+ 1, 0);",
                  "io.mask[G] = g < n_valid;",
                  "if (g == 0) {",
-                 "return q - (q * b > a ? 1 : 0);"):
+                 "return q - (q * b > a ? 1 : 0);",
+                 # the staged walk
+                 "constexpr int kSlots = 8;",
+                 "const int tiles = (M + kSlots - 1) / kSlots;",
+                 "for (int t = blockIdx.x; t < tiles; t += gridDim.x, "
+                 "par ^= 1) {",
+                 'asm volatile("cp.async.wait_all;\\n" ::: "memory");',
+                 "rows_issue(rows + (par ^ 1) * buffer, lay, Tile(tn, M, F), "
+                 "carry,",
+                 ": G0(t * kSlots), G1(min(t * kSlots + kSlots, M)), "
+                 "s0(G0 / F_),",
+                 "ns((G1 - 1) / F_ - G0 / F_ + 1), F(F_) {}",
+                 "return max(G0 - (s0 + i) * F, 0);",
+                 "if (tl.ga(i) != 0) continue;   // slot 0 is in an earlier "
+                 "tile",
+                 "if (threadIdx.x == i) {",
+                 "for (int p = threadIdx.x; p < P; p += kSlots * 32)",
+                 "const int G = tl.G0 + static_cast<int>(threadIdx.x) / 32;",
+                 "io.mask[G] = g < valid_frames(w.count, P, C, hop);",
+                 "slot(G, w, frame_start(P, w.count, g, hop, C));",
+                 "return max(floor_div(count + C - (P + 1), hop) + 1, 0);",
+                 "run_issue(buf, carry + static_cast<long long>(tl.s0) * P,",
+                 "run_issue(buf + lay.chunk, chunk + static_cast<long long>"
+                 "(tl.s0) * C,",
+                 "for (int k = threadIdx.x; k < n; k += kSlots * 32)",
+                 "cp_async16(dst + 16 * k, a + 16 * k);",
+                 "buf + byte_in_block<16>(carry + static_cast<long long>"
+                 "(tl.s0) * P)) +",
+                 "byte_in_block<16>(chunk + static_cast<long long>(tl.s0) * "
+                 "C)) +",
+                 "const long long c = align16(4LL * P * n + 31);",
+                 "const long long x = align16(static_cast<long long>"
+                 "(in_bytes) * C * n + 31);",
+                 "constexpr int kStateBytes = 8 * kSlots + 16;",
+                 "const int n = (kSlots - 2 + F) / F + 1;",
+                 "return st.carry_p == 1 && st.chunk_t == 1 && st.carry_s "
+                 "== P &&",
+                 "constexpr int kRowsF32 = 11776;",
+                 "constexpr int kRowsInt = 21952;",
+                 "return static_cast<int>(q0 < -1024 ? -1024 : q0 > P + C ? "
+                 "P + C : q0);"):
         assert line in text, line
-    assert text.count("launch_persistent(stream_") == 1      # INT
-    assert "launch_persistent(\n      stream_f32_kernel<In>, kThreads," in text
+    assert text.count("launch_persistent(\n      window ? stream_") == 2
+    assert ("window ? stream_int_kernel<In> : "
+            "stream_int_pointwise_kernel<In>") in text
+    assert ("window ? stream_f32_kernel<In> : "
+            "stream_f32_pointwise_kernel<In>") in text
+    assert "const bool window = staged(F, P, C, sizeof(In), kRowsF32, st);" in text
+    assert "const bool window = staged(F, P, C, sizeof(In), kRowsInt, st);" in text
     assert ("tail_balanced(re, sm, c, out + static_cast<long long>(G) * "
             "c.ncep);") in text
+    from mfcc_tpu_torch.ops import stream_fused as sf
+    assert sf.ROWS_BYTES == {"K4-float": 11776, "K4-INT": 21952}
+    assert sf.TILE_SLOTS == 8
 
 
 def test_step_floor_div_model():
