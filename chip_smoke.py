@@ -33,7 +33,14 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      floor) and at 16 kHz on the headline int16 input (every pass of the
      persistent walk), one launch a call at the headline shape (407,552 frames),
      against ``ref/kaldi_ref.py`` on 8 spread streams, the frames entry
-     bit for bit, and its time beside its plain version's;
+     bit for bit, and its time beside its plain version's; then K11 and
+     K11-norm (``MFCC(WHISPER_V3_LOG_MEL)``, ``whisper.log_mel``): against
+     their plain version on int16 and f32 30 s windows with speech cut
+     short, at T = 16,037 and 201 and at 80 mels, within ``WHISPER_TOL``;
+     at B=128 x 30 s (384,000 frames) two launches a call, its peak
+     allocation the output and the tile maxima,
+     against ``ref/whisper_ref.py`` on 8 spread windows; each kernel's time
+     (one call and back to back) beside the plain version's and the bound;
   4. INT path: compares K2 and K3 (``ops/int_fused.py``) with their plain
      versions element for element (``torch.equal``): K2 on tonal, full-range,
      silent and out-of-int16-range input, T = 512 and 512+169, MIC_CONFIG,
@@ -242,6 +249,13 @@ FAST_LONG_GATE = 2e-2
 # 2 ulp(oracle)) elementwise, read in gate units (<= 1.0 passes)
 F64ISH_GATE = 1e-5
 S_MAIN, T_MAIN = 1024, 63_922   # 4 s per stream at 16 kHz: 374 frames
+B_WHISPER = 128                 # 30 s windows a Whisper call: 384,000 frames
+# K11 + K11-norm vs their plain version: both FP64 to the log, L rounded
+# to f32 once (log10 as log2 * log10(2) in the kernel: an f32 ulp of L
+# apart at most, 4.8e-7 at |L| = 8, a quarter of it after the affine)
+WHISPER_TOL = 1e-6
+# the whisper_v3_logmel configuration's limit against whisper_ref
+WHISPER_GATE = 1e-5
 S_SERVE, C_SERVE = 4096, 1024   # the serving shape: streams x chunk samples
 S_BENCH, T_BENCH = 512, 512 + 93 * 170   # the JAX bench's f64ish shape
 INT32_EDGES = (2 ** 31 - 1, -(2 ** 31 - 1), -2 ** 31)
@@ -453,6 +467,21 @@ def kaldi_ops_per_frame(cfg, band: torch.Tensor) -> int:
     mel = 2 * int((band[:, 1] - band[:, 0]).sum())
     return (5 * cfg.windowlen + 1 + fft + 19 * m + mel + 2 * cfg.nfilters
             + 2 * cfg.nfilters * cfg.nceptrums)
+
+
+def whisper_ops_per_frame(cfg, mel) -> int:
+    """Float operations of Whisper's log-mel function per frame (K11 and
+    K11-norm), the recipe's own count: the window over the frame's nfft
+    samples (1 a sample, the 1/32768 folded in); the nfft/2 = 200-point
+    packed complex FFT as 8 x 5 x 5 (25 radix-8 butterflies of 56 real
+    operations, 2 x 40 radix-5 ones of 72 with their twiddles); the unpack
+    and power (19 a bin) over the 200 bins below Nyquist; the mel sums (2
+    a nonzero weight of ``mel``); a filter's floor, log, share of the
+    window's max, clamp and affine (6)."""
+    n = cfg.nfft // 2
+    fft = 25 * 56 + 2 * 40 * 72
+    weights = int((mel != 0).sum())
+    return cfg.nfft + fft + 19 * n + 2 * weights + 6 * cfg.nfilters
 
 
 def ladder_ops(log2n: int, nz_re, nz_im, live_re, live_im) -> int:
@@ -715,6 +744,136 @@ def kaldi_phase(dev, card: str) -> dict:
         times["K1-Kaldi kernel (mfcc_kaldi_ladder)"],
         times["K1-Kaldi plain version (float64 torch ops)"],
         (bound_ms, bound_by))
+
+
+def whisper_speech(S: int, T: int, seed: int) -> np.ndarray:
+    """(S, T) int16: ``make_audio``'s signal with each row's speech cut at
+    a length drawn from ``seed`` and zeros after it, as whisper's
+    ``pad_or_trim`` leaves an utterance (the floor and the clamp)."""
+    x = make_audio(S, T, seed=seed).astype(np.int16)
+    n = np.random.default_rng(seed).integers(T // 30, T + 1, S)
+    x[np.arange(T)[None, :] >= n[:, None]] = 0
+    return x
+
+
+def whisper_phase(dev, card: str) -> list[dict]:
+    """K11 and K11-norm against their plain version and the plain
+    reference, one call's device operations and allocations, and their
+    times; returns their entries of the kernels line."""
+    from mfcc_tpu_torch import MFCC
+    from mfcc_tpu_torch.config import WHISPER_V3_LOG_MEL, WhisperConfig
+    from mfcc_tpu_torch.kernels import build
+    from mfcc_tpu_torch.ops import fladder, whisper
+    from mfcc_tpu_torch.ref import whisper_ref
+
+    errs = []
+    cases = [(WHISPER_V3_LOG_MEL, "int16 4 x 30 s", 4, 480_000, False),
+             (WHISPER_V3_LOG_MEL, "f32 4 x 30 s", 4, 480_000, True),
+             (WHISPER_V3_LOG_MEL, "int16 T = 16,037", 7, 16_037, False),
+             (WHISPER_V3_LOG_MEL, "int16 T = 201", 3, 201, False),
+             (WhisperConfig(nfilters=80), "80 mels int16 4 x 30 s", 4,
+              480_000, False)]
+    for cfg, name, S, T, as_f32 in cases:
+        x = torch.from_numpy(whisper_speech(S, T, seed=T + S)).to(dev)
+        if as_f32:
+            x = x.float()
+        got = whisper.log_mel(x, cfg)
+        want = whisper.log_mel_plain(x, cfg)
+        torch.cuda.synchronize()
+        err = compare(got, want, f"K11 {name}")
+        print(f"K11 + K11-norm vs plain, {name} {tuple(x.shape)}: max-abs "
+              f"{err:.3e}")
+        check(err <= WHISPER_TOL, f"K11 {name}: {err}")
+        errs.append(err)
+
+    cfg = WHISPER_V3_LOG_MEL
+    B, T = B_WHISPER, cfg.n_samples
+    F = cfg.n_frames(T)
+    audio = torch.from_numpy(whisper_speech(B, T, seed=11)).to(dev)
+    fe = MFCC(cfg, device=dev)
+    fe(audio)                                  # builds the operators
+    torch.cuda.synchronize()
+    whisper.WHISPER_LAUNCHES = whisper.WHISPER_NORM_LAUNCHES = 0
+    fladder.LAUNCHES = fladder.KALDI_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    out = fe(audio)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(dev) - held
+    launches = (whisper.WHISPER_LAUNCHES, whisper.WHISPER_NORM_LAUNCHES)
+    check(launches == (1, 1) and fladder.LAUNCHES == fladder.KALDI_LAUNCHES
+          == 0, f"K11, K11-norm launches {launches} for a call")
+    check(tuple(out.shape) == (B, 128, F) and out.dtype == torch.float32,
+          f"output {tuple(out.shape)} {out.dtype}")
+    # the caching allocator rounds a large block up to 2 MB
+    need = out.nbytes + B * whisper.tiles_per_window(F) * 4
+    check(need <= grown < need + 2 ** 21,
+          f"a call's peak allocation {grown} bytes: not its output and its "
+          f"tile maxima ({need} bytes)")
+    check(bool(torch.isfinite(out).all()), "non-finite log-mel")
+    opts = whisper_ref.options()
+    spread = torch.as_tensor(np.linspace(0, B - 1, 8).astype(int)).to(dev)
+    want = whisper_ref.log_mel(audio[spread], opts)
+    gate_err = float((out[spread].double() - want).abs().max())
+    print(f"MFCC(WHISPER_V3_LOG_MEL)(audio) {tuple(audio.shape)} int16 -> "
+          f"{tuple(out.shape)}: launches {launches}, {grown} bytes "
+          f"allocated at the peak; max-abs vs whisper_ref on 8 spread "
+          f"windows {gate_err:.3e} (gate {WHISPER_GATE})")
+    check(gate_err <= WHISPER_GATE, f"Whisper gate: {gate_err}")
+    del want
+
+    # each kernel alone, through its C entry on the call's tensors
+    wops = fe._whisper_ops()
+    tmax = torch.empty((B, whisper.tiles_per_window(F)), device=dev)
+    lib = build.library()
+
+    def k11():
+        build.launch(lib.whisper_logmel, dev, 1, audio.data_ptr(),
+                     out.data_ptr(), tmax.data_ptr(), B, T, F, cfg.hop, 128,
+                     wops.window.data_ptr(), wops.twiddles.data_ptr(),
+                     wops.sched.data_ptr(), wops.steps)
+
+    def k11_norm():
+        build.launch(lib.whisper_norm, dev, out.data_ptr(), tmax.data_ptr(),
+                     B, 128, F, tmax.shape[1], 8.0)
+
+    rows = B * F
+    times = {
+        "K11 (whisper_logmel)": time_ms(k11),
+        "K11 back to back": time_b2b(k11),
+        "K11-norm (whisper_norm)": time_ms(k11_norm),
+        "K11-norm back to back": time_b2b(k11_norm),
+        "MFCC(WHISPER_V3_LOG_MEL)(audio), K11 + K11-norm": time_ms(
+            lambda: fe(audio)),
+        "MFCC(WHISPER_V3_LOG_MEL)(audio) back to back": time_b2b(
+            lambda: fe(audio)),
+        "plain version (float64 torch ops)": time_ms(
+            lambda: whisper.log_mel_plain(audio, cfg)),
+    }
+    for name, ms in times.items():
+        print(f"time {name}: {ms:.4f} ms, {rows / ms * 1e3:.4e} frames/s, "
+              f"{ms * 1e6 / rows:.3f} ns a frame (B={B} x T={T} int16, "
+              f"median of {ITERS}; {card})")
+    mel = whisper.default_operators(cfg, dev).mel
+    in_bytes, out_bytes = audio.nbytes, out.nbytes
+    flops = rows * whisper_ops_per_frame(cfg, mel.cpu())
+    b11 = bound(in_bytes + out_bytes, flops, FP32_FLOPS)
+    bnorm = bound(2 * out_bytes, rows * 3 * cfg.nfilters, FP32_FLOPS)
+    print(f"K11 + K11-norm bound: {in_bytes + out_bytes} bytes, {flops:.4e} "
+          f"operations -> {b11[0]:.4f} ms ({b11[1]}); K11-norm alone "
+          f"{bnorm[0]:.4f} ms ({bnorm[1]}, the output read and written)")
+    del out, tmax
+    return [
+        kernel_entry("whisper_logmel (K11)",
+                     "mfcc_tpu_torch/csrc/whisper_mel.cu",
+                     "none (Whisper's recipe has no TPU kernel)", launches[0],
+                     max(errs), times["K11 (whisper_logmel)"],
+                     times["plain version (float64 torch ops)"], b11),
+        kernel_entry("whisper_norm (K11-norm)",
+                     "mfcc_tpu_torch/csrc/whisper_mel.cu",
+                     "none (Whisper's recipe has no TPU kernel)", launches[1],
+                     max(errs), times["K11-norm (whisper_norm)"], None,
+                     bnorm)]
 
 
 def int_phases(dev, card: str) -> list[dict]:
@@ -3395,7 +3554,8 @@ ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
 # kernels and its per-point kernels (the other layouts)
 TAIL_KERNELS = ("tail_walk", "int_audio_kernel", "int_frames_kernel",
                 "int_epi_kernel", "stream_f32_kernel", "stream_int_kernel",
-                "stream_f32_pointwise_kernel", "stream_int_pointwise_kernel")
+                "stream_f32_pointwise_kernel", "stream_int_pointwise_kernel",
+                "whisper_logmel_kernel", "whisper_norm_kernel")
 # the tail kernels whose SASS is counted: (name, library, a substring of
 # the mangled name); the FP64 tail's at nfft 512 on int16
 TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
@@ -3408,7 +3568,9 @@ TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
              ("K1-Kaldi", "fladder", "11KaldiIngestIsEELi3E"),
              ("K7", "fladder", "12F64ishIngestIsEELi3E"),
              ("K7-frames", "fladder", "18F64ishFramesIngestELi3E"),
-             ("K4-float", "stream_step", "stream_f32_kernelIsE"))
+             ("K4-float", "stream_step", "stream_f32_kernelIsE"),
+             ("K11", "whisper_mel", "whisper_logmel_kernelIsE"),
+             ("K11-norm", "whisper_mel", "whisper_norm_kernel"))
 # K2's static SASS instructions as PERF.md records them (on the balanced
 # filterbank): K2's kernel also runs K9, so a change to the count is a
 # change to both
@@ -3550,6 +3712,8 @@ def main() -> int:
     kernels = [float_phases(dev, card)]
     torch.cuda.empty_cache()
     kernels.append(kaldi_phase(dev, card))
+    torch.cuda.empty_cache()
+    kernels += whisper_phase(dev, card)
     torch.cuda.empty_cache()
     kernels += int_phases(dev, card)
     torch.cuda.empty_cache()

@@ -47,6 +47,11 @@ Ported so far:
     Kaldi instantiation (``fladder.mfcc_kaldi_ladder``), ``StreamingMFCC``
     on the chain with that kernel as its features, against the plain
     reference ``ref/kaldi_ref.py``;
+  * a log-mel recipe, Whisper's front-end (``WhisperConfig``;
+    ``WHISPER_V3_LOG_MEL`` is large-v3's 128 bins): ``MFCC`` on K11 and
+    K11-norm (``ops/whisper.py``, ``csrc/whisper_mel.cu``), (..., T) ->
+    (..., nfilters, T // hop), against the plain reference
+    ``ref/whisper_ref.py``; whole windows only (no streaming);
   * the model family (``models/``: ``nn.Module`` feature extractors,
     differentiable through the float chain), the debug taps
     (``utils/debug.py``, ``MFCC.intermediates``), ``utils/vad.py``,
@@ -65,7 +70,7 @@ Importing the package builds nothing and never imports JAX.
 """
 
 from .config import (MFCCConfig, DEFAULT_CONFIG, MIC_CONFIG, KaldiConfig,
-                     KALDI_MFCC_HIRES)
+                     KALDI_MFCC_HIRES, WhisperConfig, WHISPER_V3_LOG_MEL)
 from .pipeline import MFCC
 from .streaming import StreamingMFCC, StreamState
 from .server import FeatureServer
@@ -73,5 +78,6 @@ from .server import FeatureServer
 __version__ = "0.1.0"
 
 __all__ = ["MFCC", "MFCCConfig", "DEFAULT_CONFIG", "MIC_CONFIG",
-           "KaldiConfig", "KALDI_MFCC_HIRES", "StreamingMFCC", "StreamState",
+           "KaldiConfig", "KALDI_MFCC_HIRES", "WhisperConfig",
+           "WHISPER_V3_LOG_MEL", "StreamingMFCC", "StreamState",
            "FeatureServer", "__version__"]

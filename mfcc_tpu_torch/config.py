@@ -125,7 +125,7 @@ class MFCCConfig:
     @property
     def recipe(self) -> str:
         """The front-end's recipe: "fpga", this core's (every field
-        above); ``KaldiConfig`` is "kaldi"."""
+        above); ``KaldiConfig`` is "kaldi", ``WhisperConfig`` "whisper"."""
         return "fpga"
 
 
@@ -189,6 +189,66 @@ class KaldiConfig(MFCCConfig):
         return "kaldi"
 
 
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig(MFCCConfig):
+    """OpenAI Whisper's log-mel front-end (``whisper/audio.py``
+    ``log_mel_spectrogram``, which Hugging Face's ``WhisperFeatureExtractor``
+    computes too) on the port.  The defaults are large-v3's: 16 kHz,
+    ``N_FFT`` 400, ``HOP_LENGTH`` 160, 128 mel bins (``num_mel_bins`` of
+    ``openai/whisper-large-v3``; 80 for v1-v2) and 30 s windows
+    (``CHUNK_LENGTH``).  Per window, a row of a (B, T) call:
+
+    1. the samples over 32768 (``load_audio``'s scale of int16);
+    2. reflect padding by nfft/2 at both ends (``torch.stft(center=True)``);
+    3. frames of nfft samples every ``step``, ``T // step`` of them (the
+       STFT's last frame dropped, ``stft[..., :-1]``);
+    4. the periodic Hann window and |DFT|^2, unscaled;
+    5. librosa's slaney mel bank over 0..sr/2, rounded to float32 (the form
+       of whisper's ``assets/mel_filters.npz``);
+    6. log10(max(E, 1e-10));
+    7. max(L, max(L) - 8), the max over the whole window (per utterance,
+       as HF's extractor and ``whisper.transcribe`` take it);
+    8. (L + 4) / 4, float32, laid out (..., nfilters, F).
+
+    No pre-emphasis and no DCT: ``nceptrums`` and the fixed-point fields
+    inherited from ``MFCCConfig`` are unused, and ``MFCC(WhisperConfig())``
+    has no INT path, no ``frames`` entry and no streaming (step 7's max
+    spans the whole window, so chunk-by-chunk output is undefined)."""
+
+    nfft: int = 400             # N_FFT
+    nfilters: int = 128         # n_mels
+    step: Optional[int] = 160   # HOP_LENGTH
+    chunk_length: int = 30      # CHUNK_LENGTH (s): the window pad_or_trim
+    #   pads or trims each utterance to
+    # the recipe's constants (whisper/audio.py)
+    log_floor: ClassVar[float] = 1e-10      # clamp(mel_spec, min=1e-10)
+    dynamic_range: ClassVar[float] = 8.0    # max(L, L.max() - 8)
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.window_samples not in (None, self.nfft) or self.nfft % 2:
+            raise ValueError(f"nfft={self.nfft}, window_samples="
+                             f"{self.window_samples}: Whisper's frame is "
+                             "the whole even nfft")
+        if not 1 <= self.nfilters <= self.nfft // 2:
+            raise ValueError(f"nfilters={self.nfilters} outside [1, "
+                             f"nfft/2={self.nfft // 2}]")
+
+    @property
+    def n_samples(self) -> int:
+        """Samples of one window (``N_SAMPLES``): 480,000 at 30 s."""
+        return self.chunk_length * self.samplerate
+
+    def n_frames(self, n_samples: int) -> int:
+        """Frames of a window of ``n_samples`` samples: ``T // step``
+        (1 + T // step from the centred STFT, the last dropped)."""
+        return n_samples // self.hop
+
+    @property
+    def recipe(self) -> str:
+        return "whisper"
+
+
 # Architectural constant: the mel filterbank's output width == the log2
 # stage's input width, hardcoded by the reference top-level independently of
 # the sample width (FilterBank(width_output=16) at mfcc/core/mfcc.py:69,
@@ -212,3 +272,5 @@ DEFAULT_CONFIG = MFCCConfig()
 MIC_CONFIG = MFCCConfig(nceptrums=16)
 # Kaldi's high-resolution recipe (conf/mfcc_hires.conf) at 16 kHz, dither 0.
 KALDI_MFCC_HIRES = KaldiConfig()
+# Whisper large-v3's 128-bin log-mel front-end (whisper/audio.py).
+WHISPER_V3_LOG_MEL = WhisperConfig()

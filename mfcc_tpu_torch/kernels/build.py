@@ -107,6 +107,12 @@ _DENSE_SMEM_ARGS = [_I] * 6 + _ENGINE + [_P, _P]
 # mfcc_radix2_smem(nfft, nfilters, ncep, mel length, passes, <engine>,
 #                  smem*, stages*)
 _RADIX2_SMEM_ARGS = [_I] * 5 + _ENGINE + [_P, _P]
+# whisper_logmel(in_i16, in, out, tile_max, B, T, F, hop, nfilters, win, tw,
+#                msched, msteps, stream)
+_WHISPER_LOGMEL_ARGS = [_I, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P, _I,
+                        _P]
+# whisper_norm(out, tile_max, B, nfilters, F, tpw, range, stream)
+_WHISPER_NORM_ARGS = [_P, _P, _LL, _I, _I, _I, ctypes.c_double, _P]
 SIGNATURES = {
     "mfcc_tail_walk": _TAIL_WALK_ARGS,
     "mfcc_radix2_i16": _RADIX2_ARGS,
@@ -130,6 +136,8 @@ SIGNATURES = {
     "mfcc_dense_f32": _DENSE_ARGS,
     "mfcc_dense_smem": _DENSE_SMEM_ARGS,
     "mfcc_radix2_smem": _RADIX2_SMEM_ARGS,
+    "whisper_logmel": _WHISPER_LOGMEL_ARGS,
+    "whisper_norm": _WHISPER_NORM_ARGS,
 }
 
 

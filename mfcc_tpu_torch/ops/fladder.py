@@ -89,15 +89,17 @@ def mel_steps_fit(steps: int, nbins: int) -> bool:
     return 1 <= steps <= nbins // MEL_BINS_PER_STEP
 
 
-def mel_schedule(mel: np.ndarray) -> np.ndarray | None:
+def mel_schedule(mel: np.ndarray, cap: int | None = None
+                 ) -> np.ndarray | None:
     """The balanced mel schedule of the (nbins, nfilters) float64 mel bank
     ``mel``, as every kernel on the FP64 tail reads it: the nonzero terms
     (filter j, bin k), filter-major with ascending bins, cut into 32 runs
     of L = ceil(terms / 32), lane l taking run l.  Returns int32 words: L x
     32 entries of 4 words {weight (float64), 8k, slot}, entry i of lane l
     at (i*32 + l)*4, then one gather word a filter; None where the bank
-    has no term or its schedule does not fit the table (``mel_steps_fit``)
-    or its segments the warp's row.
+    has no term or its schedule does not fit the table (``mel_steps_fit``;
+    ``cap``: a table of that many steps a lane instead, a kernel's own) or
+    its segments the warp's row.
 
     A segment is a run's stretch of one filter.  At its last term the
     lane stores its sum to the segment's slot, a byte offset in the second
@@ -113,7 +115,7 @@ def mel_schedule(mel: np.ndarray) -> np.ndarray | None:
     f, k = np.nonzero(mel.T)                  # filter-major, bins ascending
     terms = len(f)
     L = -(-terms // MEL_LANES)
-    if not mel_steps_fit(L, nbins):
+    if not (mel_steps_fit(L, nbins) if cap is None else 1 <= L <= cap):
         return None
     idx = np.arange(terms)
     lane, step = idx // L, idx % L

@@ -163,7 +163,11 @@ def mfcc_halo_fn(mesh: DeviceMesh, cfg: MFCCConfig = MFCCConfig(), *,
     past T): slice them off with ``[:, :cfg.n_frames(T)]``.
 
     ``int_path=True`` runs the bit-exact fixed-point pipeline under the
-    same halo schedule (the exchange carries emphasized int32 samples)."""
+    same halo schedule (the exchange carries emphasized int32 samples).
+    The FPGA recipe only: Kaldi's and Whisper's raise."""
+    if cfg.recipe != "fpga":
+        raise ValueError(f"mfcc_halo_fn runs the FPGA recipe, not "
+                         f"{cfg.recipe!r}")
     if int_path:
         features = MFCC(cfg, device=meshlib.mesh_device(mesh)).int_frames
     else:

@@ -108,7 +108,8 @@ def mfcc_sharded_fn(mesh: DeviceMesh, cfg: MFCCConfig = MFCCConfig(), *,
     the frames that cross a shard boundary come through ``halo.py``'s
     explicit exchange (``halo.chain_frames``) and the cepstra are
     (S/dp, F_loc, ncep) blocks, the frames each sp shard owns
-    (``layout="dp-sp"``).  The FPGA recipe only: Kaldi's raises."""
+    (``layout="dp-sp"``).  The FPGA recipe only: Kaldi's and Whisper's
+    raise."""
     if cfg.recipe != "fpga":
         raise ValueError(f"mfcc_sharded_fn runs the FPGA recipe, not "
                          f"{cfg.recipe!r}")

@@ -39,6 +39,14 @@ tensors in its family (``fladder.kaldi_config_ok``), their plain versions
 ``method="dft"``, ``precision="highest"``, float32 and no ``mel_floor`` (the
 recipe floors at FLT_EPSILON itself); the INT entries raise.
 
+Whisper's recipe (``config.WhisperConfig``): ``forward`` -> K11 then
+K11-norm (``whisper.log_mel``, two launches) on CUDA tensors in K11's
+family (``whisper.config_ok``), the plain version (``whisper.log_mel_plain``,
+the recipe's chain) on CPU tensors and other configs of the recipe, under
+the same dials as Kaldi's (it floors at 1e-10 itself); (..., T) in,
+(..., nfilters, T // hop) out, Whisper's layout.  ``frames`` and the INT
+entries raise: the clamp's maximum spans the whole window.
+
 INT path (``int``, ``int_frames``): a config in the fused kernels' family
 (``ops.int_fused.int_config_ok``) -> K2 / K3 (launched for CUDA tensors;
 their plain versions for CPU tensors); every other config (width != 16,
@@ -56,7 +64,8 @@ from torch import nn
 
 from . import tables
 from .config import MFCCConfig
-from .ops import f64ish, fladder, float_fused, float_ops, int_fused, int_ops
+from .ops import (f64ish, fladder, float_fused, float_ops, int_fused, int_ops,
+                  whisper)
 from .utils.debug import float_intermediates
 
 _STATE = ("window", "mel", "dct")    # the module's state_dict
@@ -132,6 +141,8 @@ class MFCC(nn.Module):
 
         if cfg.recipe == "kaldi":
             fladder.check_kaldi_dials(method, precision, dtype, mel_floor)
+        elif cfg.recipe == "whisper":
+            whisper.check_dials(method, precision, dtype, mel_floor)
 
         fast = precision == "fast"
         # the JAX package's split-DFT family: pallas_mfcc.pallas_float_config_ok
@@ -139,8 +150,8 @@ class MFCC(nn.Module):
                     and mel_floor == 0.0 and float_fused.float_config_ok(cfg))
         # the route of CUDA tensors; CPU tensors take the chain outside K1's
         # and K7's
-        if cfg.recipe == "kaldi":
-            self._route = "kaldi"           # K1-Kaldi, or its chain
+        if cfg.recipe in ("kaldi", "whisper"):
+            self._route = cfg.recipe        # K1-Kaldi / K11, or the chain
         elif precision == "f64ish":
             self._route = "f64ish"          # K7, or the float64 chain
         elif (method == "dft" and dtype == torch.float32
@@ -168,6 +179,12 @@ class MFCC(nn.Module):
             win, mel, dct = fladder.kaldi_operators(cfg)
             ops = dict(window=win, dct=dct, mel=np.concatenate(
                 [mel, np.zeros((1, cfg.nfilters))]))
+        elif cfg.recipe == "whisper":
+            # the Hann window and the f32-rounded bank; no DCT
+            ops = dict(window=tables.whisper_window(cfg.nfft),
+                       mel=tables.whisper_mel_matrix(
+                           cfg.samplerate, cfg.nfft, cfg.nfilters),
+                       dct=np.zeros((cfg.nfilters, 0)))
         else:
             ops = float_ops.operators_np(cfg)
         for name in _STATE:
@@ -266,8 +283,11 @@ class MFCC(nn.Module):
     # -- float path ----------------------------------------------------------
 
     def forward(self, audio) -> torch.Tensor:
-        """(..., T) raw samples -> (..., F, nceptrums) float cepstra."""
+        """(..., T) raw samples -> (..., F, nceptrums) float cepstra; for
+        Whisper's recipe (..., nfilters, T // hop) log-mel."""
         audio = self._as_input(audio)
+        if self._route == "whisper":
+            return self._whisper(audio)
         if self._route == "kaldi":
             return self._kaldi(fladder.mfcc_kaldi_ladder,
                                fladder.mfcc_kaldi_ladder_plain, audio)
@@ -295,7 +315,8 @@ class MFCC(nn.Module):
         """(..., F, nfft) pre-emphasized frames -> (..., F, nceptrums); for
         Kaldi's recipe, frames of raw samples (Kaldi removes each frame's
         DC offset and emphasizes inside it), positions past windowlen
-        ignored."""
+        ignored.  Whisper's recipe has none (raises)."""
+        whisper.refuse(self.cfg, "frames entry")
         frames = self._as_input(frames)
         if self._frames_route == "kaldi":
             return self._kaldi(fladder.mfcc_kaldi_frames,
@@ -319,12 +340,34 @@ class MFCC(nn.Module):
             x = x.to(torch.float32)          # never truncated to int16
         return fn(x.contiguous(), self.cfg, operators=self._ladder_ops())
 
+    def _whisper(self, x) -> torch.Tensor:
+        """Whisper's recipe: K11 and K11-norm in K11's family (two launches
+        on a CUDA tensor, the plain version on a CPU one), else the plain
+        version, on the module's tables."""
+        fn = (whisper.log_mel if whisper.config_ok(self.cfg)
+              else whisper.log_mel_plain)
+        if x.dtype != torch.int16 and x.device.type != "cpu":
+            x = x.to(torch.float32)          # never truncated to int16
+        return fn(x.contiguous(), self.cfg, operators=self._whisper_ops())
+
+    def _whisper_ops(self) -> whisper.WhisperOperators:
+        """K11's operators from the module's window and mel; the same
+        object until one of those buffers changes."""
+        key = tuple((t.data_ptr(), t._version, t.device)
+                    for t in (self.window, self.mel))
+        cached = getattr(self, "_whisper_cache", None)
+        if cached is None or cached[0] != key:
+            cached = self._whisper_cache = (
+                key, whisper.make_operators(self.window, self.mel))
+        return cached[1]
+
     def _no_int(self) -> None:
         if self.cfg.recipe != "fpga":
             raise ValueError(
                 f"the {self.cfg.recipe} recipe has no INT path: the "
-                "fixed-point pipeline is the FPGA core's, and Kaldi defines "
-                "none; call the module for float cepstra")
+                "fixed-point pipeline is the FPGA core's, and neither Kaldi "
+                "nor Whisper defines one; call the module for its float "
+                "features")
 
     # -- INT path (bit-exact RTL parity) ---------------------------------------
 

@@ -47,7 +47,9 @@ and emphasizes inside the frame, so nothing is emphasized across chunks and
 ``prev`` is unused), and its features are ``fladder.mfcc_kaldi_frames``: one
 launch of K1's Kaldi instantiation on the step's frames on the card, its
 plain version on the CPU.  Only ``method="dft"``, ``precision="highest"``,
-float32 and no ``mel_floor``; ``int_path`` raises.
+float32 and no ``mel_floor``; ``int_path`` raises.  Whisper's recipe
+(``config.WhisperConfig``) raises: its clamp's maximum spans the whole
+window, so chunk-by-chunk output is undefined.
 
 The JAX package's barrel shifter (``_barrel_align``) is a TPU device: here
 the per-row alignment is one indexed read.  Nothing is compiled per chunk
@@ -66,7 +68,7 @@ import torch
 
 from .config import MFCCConfig
 from .ops import (f64ish, fladder, float_ops, framing, int_fused, int_ops,
-                  stream_fused)
+                  stream_fused, whisper)
 from .pipeline import check_precision, resolve_device
 
 
@@ -176,6 +178,7 @@ class StreamingMFCC:
         -inf/NaN cepstra.  1.0 is the float analogue of the RTL's 0 -> 1
         clamp (the FeatureServer float path's default).  Ignored on the
         INT path."""
+        whisper.refuse(cfg, "streaming step")
         self.cfg = cfg
         self.int_path = int_path
         self.method = method

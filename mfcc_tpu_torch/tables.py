@@ -151,6 +151,28 @@ def kaldi_dct_matrix(nfilters: int, nceptrums: int,
 
 
 # ---------------------------------------------------------------------------
+# Whisper's recipe (config.WhisperConfig; openai/whisper whisper/audio.py),
+# from the librosa equations of compat/librosa_mfcc.py
+# ---------------------------------------------------------------------------
+
+def whisper_window(nfft: int) -> np.ndarray:
+    """The periodic Hann window of ``torch.hann_window(nfft)``:
+    0.5 - 0.5 cos(2 pi i / nfft)."""
+    from .compat import librosa_mfcc
+    return librosa_mfcc.hann_window(nfft)
+
+
+def whisper_mel_matrix(sample_rate: int, nfft: int,
+                       nfilters: int) -> np.ndarray:
+    """(nfft/2 + 1, nfilters) float64: ``librosa.filters.mel(sr, n_fft,
+    n_mels)`` (slaney scale and norm, 0 to sr/2) rounded to float32, the
+    form of whisper's ``assets/mel_filters.npz``, transposed."""
+    from .compat import librosa_mfcc
+    bank = librosa_mfcc.mel_filterbank(sample_rate, nfft, nfilters)
+    return np.ascontiguousarray(bank.astype(np.float32).astype(np.float64).T)
+
+
+# ---------------------------------------------------------------------------
 # Fixed-point (INT path) tables
 # ---------------------------------------------------------------------------
 

@@ -1,0 +1,64 @@
+"""The control of ``correct`` for the Whisper cell, and the reading that
+places its limit against Whisper's own precision: per seed, the reference
+in float32 with the mel product's operands rounded to TF32 (the control,
+which has to come out as not correct) and the reference wholly in float32
+with TF32 off, each on the cell's own inputs and sizes, judged by the
+cell's comparison (``drivers/window_batch.py``):
+
+    python3 -m perfbench.whisper_control --workload whisper.batch \\
+        --seeds 1,2,3
+
+Exits 0 when every seed's control came out not correct.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from . import harness
+
+
+def context(bench: dict, workload: str, seed: int, device,
+            traffic_overrides: dict | None = None) -> harness.Context:
+    cell, conf = harness.find_cell(bench, workload)
+    traffic = harness.read_json(harness.traffic_path(cell["traffic"]))
+    traffic.update(traffic_overrides or {})
+    return harness.Context(workload, harness.read_json(harness.ROOT
+                                                       / conf["file"]),
+                           traffic, seed, 0.0, False, device, 0.0)
+
+
+def readings(bench: dict, workload: str, seed: int, device,
+             traffic_overrides: dict | None = None) -> dict:
+    """{"control": checks, "float32": checks} of one seed."""
+    ctx = context(bench, workload, seed, device, traffic_overrides)
+    driver = harness.load_driver(ctx.traffic["driver"])
+    return {"control": driver.control(ctx),
+            "float32": driver.control(ctx, tf32=False)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", default="whisper.batch")
+    ap.add_argument("--seeds", required=True)
+    args = ap.parse_args(argv)
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    bench = harness.load_benchmark()
+    failed_all = True
+    for seed in (int(s) for s in args.seeds.split(",")):
+        got = readings(bench, args.workload, seed, device)
+        failed = not all(c.ok for c in got["control"])
+        failed_all &= failed
+        print(json.dumps({"workload": args.workload, "seed": seed,
+                          "control_correct": not failed,
+                          **{k: {c.name: c.value for c in v}
+                             for k, v in got.items()}}), flush=True)
+    return 0 if failed_all else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
