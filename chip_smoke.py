@@ -39,7 +39,9 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      short, at T = 16,037 and 201 and at 80 mels, within ``WHISPER_TOL``;
      at B=128 x 30 s (384,000 frames) two launches a call, its peak
      allocation the output and the tile maxima,
-     against ``ref/whisper_ref.py`` on 8 spread windows; each kernel's time
+     against ``ref/whisper_ref.py`` on 8 spread windows, the frames K11
+     took on its silent path (``whisper.silent_frames``) equal to those that
+     read only zeros, and their share; each kernel's time
      (one call and back to back) beside the plain version's and the bound;
   4. INT path: compares K2 and K3 (``ops/int_fused.py``) with their plain
      versions element for element (``torch.equal``): K2 on tonal, full-range,
@@ -822,6 +824,17 @@ def whisper_phase(dev, card: str) -> list[dict]:
     check(gate_err <= WHISPER_GATE, f"Whisper gate: {gate_err}")
     del want
 
+    # K11's silent path on the call: the frames it counted against those
+    # whose samples are all zero
+    silent = whisper.silent_frames(dev)
+    fe(audio)
+    silent = whisper.silent_frames(dev) - silent
+    want_silent = int(whisper.silent_frames_plain(audio, cfg).sum())
+    print(f"K11 silent path: {silent} of {B * F} frames "
+          f"({100 * silent / (B * F):.2f}%), {want_silent} read only zeros")
+    check(silent == want_silent,
+          f"K11 silent frames {silent}, all-zero frames {want_silent}")
+
     # each kernel alone, through its C entry on the call's tensors
     wops = fe._whisper_ops()
     tmax = torch.empty((B, whisper.tiles_per_window(F)), device=dev)
@@ -831,7 +844,8 @@ def whisper_phase(dev, card: str) -> list[dict]:
         build.launch(lib.whisper_logmel, dev, 1, audio.data_ptr(),
                      out.data_ptr(), tmax.data_ptr(), B, T, F, cfg.hop, 128,
                      wops.window.data_ptr(), wops.twiddles.data_ptr(),
-                     wops.sched.data_ptr(), wops.steps)
+                     wops.sched.data_ptr(), wops.steps,
+                     whisper.silent_counter(dev).data_ptr())
 
     def k11_norm():
         build.launch(lib.whisper_norm, dev, out.data_ptr(), tmax.data_ptr(),
@@ -853,7 +867,8 @@ def whisper_phase(dev, card: str) -> list[dict]:
     for name, ms in times.items():
         print(f"time {name}: {ms:.4f} ms, {rows / ms * 1e3:.4e} frames/s, "
               f"{ms * 1e6 / rows:.3f} ns a frame (B={B} x T={T} int16, "
-              f"median of {ITERS}; {card})")
+              f"{100 * silent / rows:.2f}% of frames silent, median of "
+              f"{ITERS}; {card})")
     mel = whisper.default_operators(cfg, dev).mel
     in_bytes, out_bytes = audio.nbytes, out.nbytes
     flops = rows * whisper_ops_per_frame(cfg, mel.cpu())

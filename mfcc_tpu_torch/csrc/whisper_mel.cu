@@ -43,6 +43,37 @@
 // window's values in place, four floats a thread where the window's
 // nfilters * F is a multiple of 4.
 //
+// The silent path.  Whisper pads each utterance with zeros to 30 s, so
+// most of a short clip's frames read nothing but zeros.  For such a frame
+// every stage above gives a known value: the window products and the FFT
+// are +0 or -0, the power and the mel sums +0, the floor 1e-10, so L is
+// log2(fmax(+0, 1e-10)) * log10(2) rounded to f32 for each filter, the same
+// bits every time.  K11 stores that value, computed once a block through
+// the same fmax, log2, product and rounding as mel_log2 and the store
+// (silent_level), and skips the FFT, the unpack, the mel and the log:
+//  * per frame: the ingest ORs the raw bits of the 400 samples it loads (an
+//    int16's every bit, an f32's all but the sign: -0.0 is zero, NaN and Inf
+//    are not); after the window products, one __any_sync sends the warp
+//    either on to the FFT or to the store of the value into the tile's
+//    column and the tile max.  Deciding before the products cost speech
+//    frames 2-3% (their conversions waited for every load); a frame that
+//    reaches past neither end reads its samples without the reflection's
+//    64-bit compares and selects, which more than pays for the OR and vote;
+//  * per tile: the block first reads the first 256 samples of the tile's
+//    span [f0*hop - 200, (f0 + nf - 1)*hop + 200), clipped to the window,
+//    with one __syncthreads_or; only where all are zero does it read the
+//    rest (block_nonzero), and a tile whose span is all zero is written
+//    whole with the value, its max the value, without the frame loop.  The
+//    span holds every sample its frames reflect to: the right end's lie
+//    below T, the left end's at 1 .. 200, so the first tile's span reaches
+//    at least to sample 200 (frame 0 reads x[200] for x[-200], and is the
+//    tile's only frame where F = 1).
+// Silent frames feed the tile max as stored frames do, so each tile max,
+// the window's clamp and K11-norm's output are those of the full path bit
+// for bit.  The block counts the frames it took on the silent path and adds
+// them once, at its end, to the device int64 `silent` (ops/whisper.py
+// silent_frames reads it).
+//
 // Precision: FP64 from the samples to the log, as the FP64 tail's stages it
 // shares; L is rounded to f32 once, and the clamp and the affine run in f32
 // on it, as the plain version computes them.
@@ -50,12 +81,15 @@
 // What bounds it at the cell's size (B = 128 x T = 480,000: 384,000 frames):
 // 123 MB of int16 read and 197 MB of f32 written once, 0.095 ms at 3.35
 // TB/s; K11-norm reads and writes the output once more (0.137 ms a call
-// back to back against 0.117 for those bytes).  K11 takes 1.306 ms, 3.40 ns
-// a frame (K1-Kaldi: 3.30), bound by instruction issue as K1 is: the FFT's
-// shared-memory butterflies (three quarters of the lanes idle in the
-// radix-5 stages' second round), the unpack, the mel schedule and four
-// rounds of FP64 log2.  Its row padding (sl) took it from 2.110 to 1.425
-// ms, three blocks an SM to 1.306 (one process, H100 80GB HBM3, 700 W).
+// back to back against 0.117 for those bytes).  A speech frame takes 3.33 ns
+// (1.277 ms a call of speech only; 3.44 before the silent path), bound by
+// instruction issue as K1 is: the FFT's shared-memory butterflies (three
+// quarters of the lanes idle in the radix-5 stages' second round), the
+// unpack, the mel schedule and four rounds of FP64 log2.  A call of zeros
+// takes 0.163 ms (against 1.319), so at the cell's padding (45.6% of the
+// frames silent) K11 takes 0.819 ms against 1.319 (one process, on the same
+// tensors, H100 80GB HBM3, 700 W).  Its row padding (sl) took it from 2.110
+// to 1.425 ms, three blocks an SM to 1.306.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,6 +125,7 @@ constexpr int kMelCap = 16;            // schedule steps a lane (MEL_CAP)
 constexpr int kResident = 3;
 constexpr double kLogFloor = 1e-10;
 constexpr double kLog10of2 = 0.30102999566398119521;
+constexpr int kRounds = (kN + kLanes - 1) / kLanes;   // ingest rounds a lane
 
 // Dynamic shared memory of K11's block: the warps' rows, the twiddles, the
 // window pairs, the mel schedule and its gather words, the tile and the
@@ -170,6 +205,61 @@ __device__ __forceinline__ void dft5(double2 (&v)[5]) {
   v[3] = make_double2(a2.x - b2.y, a2.y + b2.x);
 }
 
+// A sample's raw bits for the silent test: an int16's 16, an f32's 32.
+__device__ __forceinline__ unsigned raw_bits(int16_t v) {
+  return static_cast<unsigned short>(v);
+}
+__device__ __forceinline__ unsigned raw_bits(float v) {
+  return __float_as_uint(v);
+}
+
+// Whether the OR of samples' raw bits holds a nonzero sample: any bit of an
+// int16; any bit but the sign of an f32 (-0.0 is zero, NaN and Inf not).
+template <typename In>
+__device__ __forceinline__ bool nonzero_bits(unsigned bits) {
+  return std::is_same<In, float>::value ? (bits << 1) != 0u : bits != 0u;
+}
+
+// L of a frame whose samples are all zero (see the notes above): mel_log2's
+// floor and log2 of a +0 mel sum and the store's product and rounding.  The
+// +0 is computed at run time (0 * the window's first value, which is 0), so
+// that the compiler does not fold the log2 but runs libdevice's, as the full
+// path does.
+__device__ __forceinline__ float silent_level(double w0) {
+  const double acc = __dmul_rn(0.0, w0);
+  return static_cast<float>(log2(fmax(acc, kLogFloor)) * kLog10of2);
+}
+
+// Whether any of the samples x[lo, hi) is nonzero: the block reads them once,
+// 16 bytes a load on the aligned stretch and one sample a thread at its ends,
+// and ORs every thread's bits in one __syncthreads_or (every thread calls).
+template <typename In>
+__device__ __forceinline__ bool block_nonzero(const In* x, long long lo,
+                                              long long hi) {
+  const In* p = x + lo;
+  const In* q = x + hi;
+  const uint4* va = reinterpret_cast<const uint4*>(
+      (reinterpret_cast<uintptr_t>(p) + 15) & ~static_cast<uintptr_t>(15));
+  const uint4* vb = reinterpret_cast<const uint4*>(
+      reinterpret_cast<uintptr_t>(q) & ~static_cast<uintptr_t>(15));
+  unsigned bits = 0;
+  if (va < vb) {
+    const In* pa = reinterpret_cast<const In*>(va);
+    const In* qb = reinterpret_cast<const In*>(vb);
+    if (threadIdx.x < pa - p) bits = raw_bits(p[threadIdx.x]);
+    if (threadIdx.x < q - qb) bits |= raw_bits(qb[threadIdx.x]);
+#pragma unroll 4
+    for (long long k = threadIdx.x; k < vb - va; k += blockDim.x) {
+      const uint4 v = va[k];
+      bits |= v.x | v.y | v.z | v.w;
+    }
+  } else {
+    for (long long k = threadIdx.x; k < q - p; k += blockDim.x)
+      bits |= raw_bits(p[k]);
+  }
+  return __syncthreads_or(nonzero_bits<In>(bits));
+}
+
 // The row position of packed point m before the FFT: with m = q3 + 5 q2 +
 // 25 q1 (q3, q2 < 5, q1 < 8), 40 q3 + 8 q2 + q1.
 __device__ __forceinline__ int digit_pos(int m) {
@@ -230,7 +320,8 @@ __device__ __forceinline__ void fft200(double2* row, const double2* tw) {
 
 // K11: a persistent walk over tiles of 32 frames of one window, B * ceil(F /
 // 32) of them, tile t of window t / tpw.  Warp w of the block takes the
-// tile's frames w, w + 8, w + 16, w + 24.
+// tile's frames w, w + 8, w + 16, w + 24.  Frames that read only zeros take
+// the silent path (see the notes above), counted into *silent.
 template <typename In>
 __global__ void __launch_bounds__(kThreads, kResident)
 whisper_logmel_kernel(const In* __restrict__ in, float* __restrict__ out,
@@ -238,8 +329,11 @@ whisper_logmel_kernel(const In* __restrict__ in, float* __restrict__ out,
                       int hop, int tpw, long long tiles, int nfilters,
                       const double2* __restrict__ win,
                       const double2* __restrict__ tw,
-                      const double2* __restrict__ msched, int msteps) {
+                      const double2* __restrict__ msched, int msteps,
+                      unsigned long long* __restrict__ silent) {
   extern __shared__ double2 smem[];
+  __shared__ float level;             // L of a silent frame (silent_level)
+  __shared__ unsigned block_silent;   // the block's silent frames
   double2* rows = smem;
   double2* tws = rows + kFrames * kRow;
   double2* wins = tws + kNfft;
@@ -259,6 +353,10 @@ whisper_logmel_kernel(const In* __restrict__ in, float* __restrict__ out,
   const unsigned* gather = reinterpret_cast<const unsigned*>(msched + n);
   for (int i = threadIdx.x; i < nfilters; i += blockDim.x)
     sm.mgather[i] = gather[i];
+  if (threadIdx.x == 0) {
+    level = silent_level(win[0].x);
+    block_silent = 0;
+  }
   __syncthreads();
 
   const int l = lane();
@@ -271,32 +369,73 @@ whisper_logmel_kernel(const In* __restrict__ in, float* __restrict__ out,
     const int f0 = static_cast<int>(t - b * tpw) * kTile;
     const int nf = min(kTile, F - f0);
     const In* x = in + b * T;
+    {
+      const long long lo = max(0LL, static_cast<long long>(f0) * hop - kN);
+      const long long hi = min(
+          T, max(static_cast<long long>(f0 + nf - 1) * hop + kN, kN + 1LL));
+      const long long i = lo + threadIdx.x;
+      const unsigned bits = i < hi ? raw_bits(x[i]) : 0u;
+      if (!__syncthreads_or(nonzero_bits<In>(bits)) &&
+          !block_nonzero(x, lo, hi)) {
+        const float v = level;
+        float* dst = out + b * nfilters * F + f0;
+        for (int e = threadIdx.x; e < nfilters * kTile; e += blockDim.x) {
+          const int m = e / kTile, c = e - m * kTile;
+          if (c < nf) dst[static_cast<long long>(m) * F + c] = v;
+        }
+        if (threadIdx.x == 0) {
+          tile_max[t] = v;
+          block_silent += nf;
+        }
+        continue;
+      }
+    }
     float mx = -INFINITY;
     for (int c = w; c < nf; c += kFrames) {
       const long long s0 = static_cast<long long>(f0 + c) * hop - kN;
+      // the ingest (the window products to the row) and the OR of the raw
+      // samples; a frame that reaches past neither end (all but frames 0, 1
+      // and F - 1) reads x[s0 + i] without the reflection's arithmetic
+      const auto ingest = [&](auto at) {
+        unsigned bits = 0;
 #pragma unroll
-      for (int r = 0; r < (kN + kLanes - 1) / kLanes; ++r) {
-        const int m = l + kLanes * r;
-        if (m < kN) {
-          const long long n0 = s0 + 2 * m;
-          const double a0 = static_cast<double>(x[reflect(n0, T)]);
-          const double a1 = static_cast<double>(x[reflect(n0 + 1, T)]);
-          row[sl(digit_pos(m))] = window_pair(a0, a1, wins[m]);
+        for (int r = 0; r < kRounds; ++r) {
+          const int m = l + kLanes * r;
+          if (m < kN) {
+            const In a0 = at(2 * m), a1 = at(2 * m + 1);
+            bits |= raw_bits(a0) | raw_bits(a1);
+            row[sl(digit_pos(m))] = window_pair(
+                static_cast<double>(a0), static_cast<double>(a1), wins[m]);
+          }
         }
+        return bits;
+      };
+      const unsigned bits =
+          s0 >= 0 && s0 + kNfft <= T
+              ? ingest([&](int i) { return x[s0 + i]; })
+              : ingest([&](int i) { return x[reflect(s0 + i, T)]; });
+      if (!__any_sync(0xffffffffu, nonzero_bits<In>(bits))) {
+        const float v = level;
+        for (int m = l; m < nfilters; m += kLanes) {
+          tile[m * kTileStride + c] = v;
+          mx = fmaxf(mx, v);
+        }
+        if (l == 0) atomicAdd(&block_silent, 1u);
+        continue;
       }
       __syncwarp();
       fft200(row, tws);
 
-      double p[(kN + kLanes - 1) / kLanes];
+      double p[kRounds];
 #pragma unroll
-      for (int u = 0; u < (kN + kLanes - 1) / kLanes; ++u) {
+      for (int u = 0; u < kRounds; ++u) {
         const int k = l + kLanes * u;
         if (k < kN)
           p[u] = bin_power(row[sl(k)], row[sl(k ? kN - k : 0)], tws[k]);
       }
       __syncwarp();
 #pragma unroll
-      for (int u = 0; u < (kN + kLanes - 1) / kLanes; ++u) {
+      for (int u = 0; u < kRounds; ++u) {
         const int k = l + kLanes * u;
         if (k < kN) pw[k] = p[u];
       }
@@ -329,6 +468,8 @@ whisper_logmel_kernel(const In* __restrict__ in, float* __restrict__ out,
     }
     __syncthreads();   // the tile is free for the next one
   }
+  if (threadIdx.x == 0 && block_silent && silent)
+    atomicAdd(silent, static_cast<unsigned long long>(block_silent));
 }
 
 // K11-norm: block (x, y) takes its share of windows y, y + gridDim.y, ...:
@@ -388,12 +529,13 @@ whisper_norm_kernel(float* __restrict__ out, const float* __restrict__ tile_max,
 // float64 window values (the periodic Hann over 32768), tw 400 interleaved
 // complex float64 twiddles exp(-2 pi i k / 400), msched the mel schedule of
 // msteps (1 to 16) steps a lane and its nfilters gather words
-// (ops/fladder.py mel_schedule over bins [0, 200)).
+// (ops/fladder.py mel_schedule over bins [0, 200)); silent, where not null,
+// a device int64 that the launch adds its silent frames to.
 extern "C" int whisper_logmel(int in_i16, const void* in, float* out,
                               float* tile_max, long long B, long long T,
                               int F, int hop, int nfilters, const double* win,
                               const double* tw, const void* msched,
-                              int msteps, void* stream) {
+                              int msteps, long long* silent, void* stream) {
   if (B < 0 || T <= kN || hop < 1 || F < 1 ||
       static_cast<long long>(F) != T / hop || nfilters < 1 ||
       nfilters > kMaxFilters || !msched || msteps < 1 || msteps > kMelCap)
@@ -408,7 +550,8 @@ extern "C" int whisper_logmel(int in_i16, const void* in, float* out,
         out, tile_max, T, F, hop, tpw, tiles, nfilters,
         reinterpret_cast<const double2*>(win),
         reinterpret_cast<const double2*>(tw),
-        static_cast<const double2*>(msched), msteps);
+        static_cast<const double2*>(msched), msteps,
+        reinterpret_cast<unsigned long long*>(silent));
   };
   return in_i16 ? walk(static_cast<const int16_t*>(in))
                 : walk(static_cast<const float*>(in));

@@ -108,9 +108,9 @@ _DENSE_SMEM_ARGS = [_I] * 6 + _ENGINE + [_P, _P]
 #                  smem*, stages*)
 _RADIX2_SMEM_ARGS = [_I] * 5 + _ENGINE + [_P, _P]
 # whisper_logmel(in_i16, in, out, tile_max, B, T, F, hop, nfilters, win, tw,
-#                msched, msteps, stream)
+#                msched, msteps, silent, stream)
 _WHISPER_LOGMEL_ARGS = [_I, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P, _I,
-                        _P]
+                        _P, _P]
 # whisper_norm(out, tile_max, B, nfilters, F, tpw, range, stream)
 _WHISPER_NORM_ARGS = [_P, _P, _LL, _I, _I, _I, ctypes.c_double, _P]
 SIGNATURES = {

@@ -17,7 +17,15 @@ f32, in two launches (``csrc/whisper_mel.cu``):
 raises), a CPU tensor takes ``log_mel_plain``, the same function as a chain
 of float64 torch ops, which is also the recipe's route outside K11's family
 (``config_ok``).  ``WHISPER_LAUNCHES`` and ``WHISPER_NORM_LAUNCHES`` count
-the two kernels' launches.
+the two kernels' launches, ``WHISPER_FRAMES`` the frames K11 was launched
+on.
+
+K11's silent path: a frame whose 400 reflected samples are all zero
+(``silent_frames_plain``; Whisper's padding to 30 s) gets L =
+log2(1e-10) log10(2) rounded to f32, the value its FFT, mel, floor and log
+give, without computing them.  K11 adds the frames it took that way to a device int64
+of each device (no synchronization on the call); ``silent_frames(device)``
+reads it.
 
 Precision: K11 runs in FP64, as the FP64 tail's stages it shares, and
 rounds L to f32 once at the store; K11-norm's clamp and affine run in f32
@@ -41,6 +49,7 @@ from . import fladder
 
 WHISPER_LAUNCHES = 0        # K11 launches by log_mel (never the plain path)
 WHISPER_NORM_LAUNCHES = 0   # K11-norm launches by log_mel
+WHISPER_FRAMES = 0          # frames of those K11 launches
 
 # K11's geometry (csrc/whisper_mel.cu): nfft 400 as 200 packed points, at
 # most 128 filters, frames a tile of the transposed store, and the mel
@@ -150,14 +159,57 @@ def check_length(T: int, cfg: MFCCConfig) -> None:
                          f"{max(cfg.nfft // 2, cfg.hop - 1)}")
 
 
-def frame_index(T: int, cfg: MFCCConfig, device) -> torch.Tensor:
-    """(F, nfft) sample index of each frame's samples: frame f is sample
-    f*hop - nfft/2 + i, reflected at both ends (n -> -n below 0, n -> 2T -
-    2 - n from T), as K11's ingest addresses it."""
-    n = (torch.arange(cfg.n_frames(T), device=device)[:, None] * cfg.hop
-         - cfg.nfft // 2 + torch.arange(cfg.nfft, device=device)[None, :])
+def reflect(n: torch.Tensor, T: int) -> torch.Tensor:
+    """Sample index n of a window of T samples reflected at both ends (n ->
+    -n below 0, n -> 2T - 2 - n from T), as K11's ingest addresses it."""
     n = torch.where(n < 0, -n, n)
     return torch.where(n >= T, 2 * T - 2 - n, n)
+
+
+def frame_index(T: int, cfg: MFCCConfig, device) -> torch.Tensor:
+    """(F, nfft) sample index of each frame's samples: frame f is sample
+    f*hop - nfft/2 + i, reflected at both ends."""
+    return reflect(torch.arange(cfg.n_frames(T), device=device)[:, None]
+                   * cfg.hop - cfg.nfft // 2
+                   + torch.arange(cfg.nfft, device=device)[None, :], T)
+
+
+def silent_frames_plain(audio: torch.Tensor, cfg: MFCCConfig
+                        ) -> torch.Tensor:
+    """(..., T) -> (..., T // hop) bool: the frames whose nfft reflected
+    samples (``frame_index``) are all zero (-0.0 is zero, NaN is not), the
+    frames K11 takes on its silent path.  A running count of the nonzero
+    samples of the reflect-padded window, so its memory is the window's."""
+    T = audio.shape[-1]
+    check_length(T, cfg)
+    h = cfg.nfft // 2
+    n = reflect(torch.arange(-h, T + h, device=audio.device), T)
+    count = torch.nn.functional.pad(
+        (audio[..., n] != 0).to(torch.int32).cumsum(-1), (1, 0))
+    start = torch.arange(cfg.n_frames(T), device=audio.device) * cfg.hop
+    return count[..., start + cfg.nfft] == count[..., start]
+
+
+@functools.lru_cache(maxsize=None)
+def silent_counter(device: torch.device) -> torch.Tensor:
+    """The int64 on ``device`` (a CUDA device with its index) that K11's
+    launches add their silent frames to."""
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    torch.cuda.synchronize(device)     # zeroed before any stream's launch
+    return count
+
+
+def silent_frames(device) -> int:
+    """The frames K11 took on its silent path on ``device`` since the
+    process started; synchronizes the device.  0 on a CPU (the plain
+    version has no silent path)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize(device)
+    return int(silent_counter(device).item())
 
 
 def log_mel_plain(audio: torch.Tensor, cfg: WhisperConfig,
@@ -230,8 +282,9 @@ def log_mel(audio: torch.Tensor, cfg: WhisperConfig,
     hop) f32.  On a CUDA tensor this launches both kernels or raises; a
     CPU tensor takes ``log_mel_plain``.  Nothing else runs on the card:
     the output and the (windows, tiles) f32 tile maxima are the call's
-    only allocations."""
-    global WHISPER_LAUNCHES, WHISPER_NORM_LAUNCHES
+    only allocations (and, at a device's first call, its silent
+    counter)."""
+    global WHISPER_LAUNCHES, WHISPER_NORM_LAUNCHES, WHISPER_FRAMES
     if audio.device.type == "cpu":
         return log_mel_plain(audio, cfg, operators)
     if not config_ok(cfg):
@@ -260,8 +313,10 @@ def log_mel(audio: torch.Tensor, cfg: WhisperConfig,
                  int(audio.dtype == torch.int16), audio.data_ptr(),
                  out.data_ptr(), tmax.data_ptr(), B, T, F, cfg.hop, nf,
                  ops.window.data_ptr(), ops.twiddles.data_ptr(),
-                 ops.sched.data_ptr(), ops.steps)
+                 ops.sched.data_ptr(), ops.steps,
+                 silent_counter(audio.device).data_ptr())
     WHISPER_LAUNCHES += 1
+    WHISPER_FRAMES += B * F
     build.launch(lib.whisper_norm, audio.device, out.data_ptr(),
                  tmax.data_ptr(), B, nf, F, tmax.shape[1],
                  float(cfg.dynamic_range))

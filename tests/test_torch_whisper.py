@@ -4,9 +4,11 @@ against whisper's own ``log_mel_spectrogram`` written literally with
 ``torch.stft``, the recipe's table anchors, K11's FFT schedule against
 ``torch.fft.fft``, the plain version and the module against the reference
 (T not a multiple of 160 included, 80 and 128 mels, K11's family and the
-chain outside it), its launch counters, and every entry that cannot take
-the recipe raising.  Tests marked ``cuda`` live in ``test_torch_cuda.py``.
-Nothing here imports JAX or ``mfcc_tpu``."""
+chain outside it), its launch counters, the frames K11's silent path takes
+(``silent_frames_plain`` against a brute force, the value it stores) and
+every entry that cannot take the recipe raising.  Tests marked ``cuda`` run
+the kernels on the card (bit for bit against the plain version, silent
+frames included).  Nothing here imports JAX or ``mfcc_tpu``."""
 
 import numpy as np
 import pytest
@@ -263,6 +265,106 @@ def test_mel_schedule_capacity_is_the_kernels():
     assert fladder.mel_schedule(bank, cap=12) is None
 
 
+def silent_cases(T, f32=False, cfg=WHISPER_V3_LOG_MEL):
+    """(rows, T) windows that exercise K11's silent path: speech then
+    zeros, zeros then speech then zeros, an all-zero window amid speech,
+    and one nonzero sample alone at the first or the last of the reflected
+    positions of frames 0, 1, the middle one and the last (with f32,
+    the zeros of every other row are -0.0).  Returns (windows, the
+    (frame, row) of each lone sample)."""
+    F = cfg.n_frames(T)
+    idx = whisper.frame_index(T, cfg, CPU)
+    talk = speech(4, T, seed=T, cut=False)
+    rows = [speech(1, T, seed=T + 1)[0], torch.zeros(T, dtype=torch.int16),
+            talk[0].clone(), talk[1]]
+    rows[2][: T // 3] = 0
+    rows[2][2 * T // 3:] = 0
+    lone = []
+    for f in sorted({min(f, F - 1) for f in (0, 1, F // 2, F - 1)}):
+        for pos in (0, cfg.nfft - 1):
+            x = torch.zeros(T, dtype=torch.int16)
+            x[idx[f, pos]] = 1_000
+            lone.append((f, len(rows)))
+            rows.append(x)
+    rows.append(talk[2])
+    x = torch.stack(rows)
+    if f32:
+        x = x.float()
+        x[::2] = torch.where(x[::2] == 0, -0.0, x[::2])
+    return x, lone
+
+
+@pytest.mark.parametrize("T,f32", [(201, False), (560, True), (970, False),
+                                   (4_077, True), (16_037, False),
+                                   (48_000, True)])
+def test_silent_frames_plain_is_the_brute_force(T, f32):
+    cfg = WHISPER_V3_LOG_MEL
+    x, lone = silent_cases(T, f32)
+    got = whisper.silent_frames_plain(x, cfg)
+    want = (x[:, whisper.frame_index(T, cfg, CPU)] == 0).all(-1)
+    assert got.shape == (x.shape[0], T // 160) and torch.equal(got, want)
+    for f, r in lone:                  # a lone sample: never silent
+        assert not got[r, f]
+    assert got[1].all() and not got[3].any()
+    assert torch.equal(whisper.silent_frames_plain(x.reshape(1, -1, T), cfg),
+                       got[None])
+
+
+@pytest.mark.parametrize("nfft,hop", [(400, 160), (400, 320), (512, 128)])
+def test_silent_frames_plain_counts_nan_and_not_negative_zero(nfft, hop):
+    cfg = WhisperConfig(nfft=nfft, step=hop)
+    T = 3_001
+    idx = whisper.frame_index(T, cfg, CPU)
+    x = torch.full((4, T), -0.0)
+    x[1, 1_500] = float("nan")
+    x[2, 0] = float("inf")
+    x[3, idx[-1, -1]] = 1e-30
+    got = whisper.silent_frames_plain(x, cfg)
+    want = (x[:, idx] == 0).all(-1)
+    assert torch.equal(got, want)
+    assert got[0].all() and got.shape == (4, T // hop)
+    assert not got[1].all() and not got[2, 0] and not got[3, -1]
+
+
+def test_silent_level_is_the_plain_versions_value():
+    """The value K11 stores for a frame of zeros is the plain version's:
+    log10 of the 1e-10 floor, -10 in f32, through the clamp and the affine
+    both where it is the window's max and where it is above max - 8."""
+    cfg = WHISPER_V3_LOG_MEL
+    # K11's silent_level: log2 of the floor times log10(2), rounded to f32
+    level = float(np.float32(np.log2(cfg.log_floor) * 0.30102999566398119521))
+    assert level == np.float32(np.log10(1e-10)) == -10.0
+    zeros = whisper.log_mel_plain(torch.zeros((2, 4_000), dtype=torch.int16),
+                                  cfg)
+    want = (torch.tensor(level, dtype=torch.float32) + 4.0) * 0.25
+    assert torch.equal(zeros, torch.full_like(zeros, want.item()))
+    quiet = torch.zeros((1, 16_000), dtype=torch.int16)
+    quiet[0, :8_000] = torch.from_numpy(
+        np.random.default_rng(0).integers(-1, 2, 8_000).astype(np.int16))
+    out = whisper.log_mel_plain(quiet, cfg)
+    silent = whisper.silent_frames_plain(quiet, cfg)[0]
+    assert silent.sum() == 100 - (8_000 + 200 + 159) // 160
+    assert out.max() * 4 - 4 - 8 < level      # the clamp keeps the level
+    assert torch.equal(out[0][:, silent],
+                       torch.full_like(out[0][:, silent], want.item()))
+
+
+def test_silent_counters_on_the_plain_path():
+    """``WHISPER_FRAMES`` counts the frames of K11's launches and
+    ``silent_frames`` reads K11's device count: the plain version on the
+    CPU advances neither, and a launch refused before K11 counts none."""
+    assert isinstance(whisper.WHISPER_FRAMES, int)
+    before = whisper.WHISPER_FRAMES
+    x = torch.zeros((3, 16_000), dtype=torch.int16)
+    MFCC(WHISPER_V3_LOG_MEL, device="cpu")(x)
+    whisper.log_mel(x, WHISPER_V3_LOG_MEL)
+    assert whisper.silent_frames("cpu") == 0
+    assert whisper.silent_frames(CPU) == 0
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        whisper.log_mel(x.to("meta"), WHISPER_V3_LOG_MEL)
+    assert whisper.WHISPER_FRAMES == before
+
+
 # -- on the card ------------------------------------------------------------------
 
 # K11 + K11-norm against their plain version: both FP64 to the log and L
@@ -312,3 +414,26 @@ def test_card_layouts_and_inputs_agree(dev):
     assert torch.equal(whisper.log_mel(x, WHISPER_V3_LOG_MEL), full)
     # each window's clamp is its own: a window alone gives its rows
     assert torch.equal(fe(x[4:5]), full[4:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mels,f32", [(128, False), (128, True),
+                                        (80, False), (80, True)])
+@pytest.mark.parametrize("T", [201, 250, 16_037, 48_000])
+def test_card_silent_path_is_the_full_path(dev, T, n_mels, f32):
+    """K11's silent frames, and its wholly silent tiles, give the plain
+    version's output bit for bit, K11-norm's clamp included; the frames it
+    counts are those whose samples are all zero, and a lone sample at
+    either end of a frame's reflected positions (frames 0, 1 and F - 1
+    reflect) sends that frame down the full path.  At T = 201 and 250 the
+    window is one frame, whose first reflected position is sample 200: the
+    tile check has to read it too."""
+    cfg = WhisperConfig(nfilters=n_mels)
+    x, _ = silent_cases(T, f32, cfg)
+    x = x.to(dev)
+    want_silent = int(whisper.silent_frames_plain(x, cfg).sum())
+    frames, silent = whisper.WHISPER_FRAMES, whisper.silent_frames(dev)
+    got = MFCC(cfg, device=dev)(x)
+    assert whisper.silent_frames(dev) - silent == want_silent
+    assert whisper.WHISPER_FRAMES - frames == x.shape[0] * (T // 160)
+    assert torch.equal(got, whisper.log_mel_plain(x, cfg))
