@@ -43,6 +43,18 @@ target sm_90a, Hopper), nvcc and PyTorch built for CUDA.  It
      took on its silent path (``whisper.silent_frames``) equal to those that
      read only zeros, and their share; each kernel's time
      (one call and back to back) beside the plain version's and the bound;
+     then K12 and K12-cmvn (``MFCC(W2V_BERT_2_FBANK)``, ``seamless.fbank``):
+     against their plain version on int16 and f32 utterances of 560, 561,
+     719 and 720 samples and longer, on whole rows and at w2vbert.batch's
+     shape (384 utterances of 1-20 s in T = 320,000) within
+     ``SEAMLESS_TOL``, the padding exactly 0 and the mask equal; one
+     launch of each and the own frames counted for a call (the counters
+     reset just before it), its peak allocation; against
+     ``ref/seamless_ref.py`` on 8 spread utterances; the call's time, each
+     kernel's share of it back to back (``torch.profiler``), the same over
+     the padded grid, the plain version's time and the bounds (run after
+     phase 8, so that its profiler sessions come after every other
+     phase's);
   4. INT path: compares K2 and K3 (``ops/int_fused.py``) with their plain
      versions element for element (``torch.equal``): K2 on tonal, full-range,
      silent and out-of-int16-range input, T = 512 and 512+169, MIC_CONFIG,
@@ -258,6 +270,12 @@ B_WHISPER = 128                 # 30 s windows a Whisper call: 384,000 frames
 WHISPER_TOL = 1e-6
 # the whisper_v3_logmel configuration's limit against whisper_ref
 WHISPER_GATE = 1e-5
+B_SEAMLESS, T_SEAMLESS = 384, 320_000   # w2vbert.batch's call: 1-20 s each
+# K12 + K12-cmvn vs their plain version: both FP64 until the normalised
+# value, rounded to f32 once (an f32 ulp apart at most, 9.5e-7 below 16)
+SEAMLESS_TOL = 1e-6
+# the w2v_bert2_fbank configuration's limit against seamless_ref
+SEAMLESS_GATE = 5e-6
 S_SERVE, C_SERVE = 4096, 1024   # the serving shape: streams x chunk samples
 S_BENCH, T_BENCH = 512, 512 + 93 * 170   # the JAX bench's f64ish shape
 INT32_EDGES = (2 ** 31 - 1, -(2 ** 31 - 1), -2 ** 31)
@@ -484,6 +502,15 @@ def whisper_ops_per_frame(cfg, mel) -> int:
     fft = 25 * 56 + 2 * 40 * 72
     weights = int((mel != 0).sum())
     return cfg.nfft + fft + 19 * n + 2 * weights + 6 * cfg.nfilters
+
+
+def seamless_ops_per_frame(cfg, band: torch.Tensor) -> int:
+    """FP64 operations of K12's function per own frame, the recipe's own
+    count: ``kaldi_ops_per_frame`` without the DCT (the ingest, the packed
+    FFT, the unpack and power, the banded mel sums, the floor and the
+    log)."""
+    return (kaldi_ops_per_frame(cfg, band)
+            - 2 * cfg.nfilters * cfg.nceptrums)
 
 
 def ladder_ops(log2n: int, nz_re, nz_im, live_re, live_im) -> int:
@@ -889,6 +916,216 @@ def whisper_phase(dev, card: str) -> list[dict]:
                      "none (Whisper's recipe has no TPU kernel)", launches[1],
                      max(errs), times["K11-norm (whisper_norm)"], None,
                      bnorm)]
+
+
+def seamless_lengths(B: int, T: int, seed: int) -> np.ndarray:
+    """(B,) int64: w2vbert.batch's lengths, the B evenly spaced quantiles
+    of uniform [1 s, T samples], in an order drawn from ``seed``."""
+    q = 16000 + (T - 16000) * (np.arange(B) + 0.5) / B
+    return np.random.default_rng(seed).permutation(
+        np.round(q).astype(np.int64))
+
+
+def seamless_speech(lengths, T: int, seed: int) -> np.ndarray:
+    """(B, T) int16: ``make_audio``'s signal, zeros past each length."""
+    x = make_audio(len(lengths), T, seed=seed).astype(np.int16)
+    x[np.arange(T)[None, :] >= np.asarray(lengths)[:, None]] = 0
+    return x
+
+
+def kernel_ms(fn, names, calls: int = 10) -> dict:
+    """{name: device ms a call} of the kernels whose names hold each of
+    ``names``, over ``calls`` calls of ``fn`` under ``torch.profiler``
+    (one C entry launches several kernels, so CUDA events cannot split
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {n: 0.0 for n in names}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        for n in names:
+            if n in e.key:
+                us[n] += t
+    return {n: t / calls / 1e3 for n, t in us.items()}
+
+
+def seamless_phase(dev, card: str) -> list[dict]:
+    """K12 and K12-cmvn against their plain version and the plain
+    reference, the launch and frame counters of one call, its
+    allocations, and the kernels' times at w2vbert.batch's shape (384
+    utterances of 1-20 s in T = 320,000); returns their entries of the
+    kernels line."""
+    from mfcc_tpu_torch import MFCC
+    from mfcc_tpu_torch.config import W2V_BERT_2_FBANK
+    from mfcc_tpu_torch.ops import fladder, seamless, whisper
+    from mfcc_tpu_torch.ref import seamless_ref
+
+    cfg = W2V_BERT_2_FBANK
+    fe = MFCC(cfg, device=dev)
+
+    def against_plain(x, lengths, what):
+        got, mask = fe(x, lengths)
+        want, want_mask = seamless.fbank_plain(x, lengths, cfg)
+        torch.cuda.synchronize()
+        check(torch.equal(mask, want_mask), f"K12 {what}: mask differs")
+        B, T = x.shape
+        F = torch.as_tensor([cfg.n_frames(int(n)) for n in (
+            [T] * B if lengths is None else lengths)], device=x.device)
+        rows = got.reshape(B, -1, cfg.nfilters)
+        pad = (torch.arange(rows.shape[1], device=x.device)[None, :]
+               >= F[:, None])
+        check(not bool(rows[pad].any()), f"K12 {what}: padding not 0")
+        return compare(got, want, f"K12 {what}")
+
+    errs = []
+    cases = [("edge lengths int16", [560, 561, 719, 720, 16_037, 79_999],
+              80_000, False),
+             ("edge lengths f32", [560, 561, 719, 720, 16_037, 79_999],
+              80_000, True),
+             ("whole rows (lengths=None)", None, 48_000, False),
+             ("two frames", [560], 560, False)]
+    for name, lengths, T, as_f32 in cases:
+        B = 3 if lengths is None else len(lengths)
+        x = torch.from_numpy(seamless_speech(lengths or [T] * B, T,
+                                             seed=B + T)).to(dev)
+        if as_f32:
+            x = x.float()
+        err = against_plain(x, lengths, name)
+        print(f"K12 + K12-cmvn vs plain, {name} {tuple(x.shape)}: max-abs "
+              f"{err:.3e}")
+        check(err <= SEAMLESS_TOL, f"K12 {name}: {err}")
+        errs.append(err)
+
+    B, T = B_SEAMLESS, T_SEAMLESS
+    lengths = torch.from_numpy(seamless_lengths(B, T, seed=5))
+    counts = [cfg.n_frames(int(n)) for n in lengths]
+    own, Fp = sum(counts), seamless.padded_frames(np.asarray(counts), cfg)
+    audio = torch.from_numpy(seamless_speech(lengths.numpy(), T,
+                                             seed=13)).to(dev)
+    err = against_plain(audio, lengths, "the cell's shape")
+    print(f"K12 + K12-cmvn vs plain at the cell's shape {tuple(audio.shape)}"
+          f" ({own} own frames, F_pad {Fp}): max-abs {err:.3e}")
+    check(err <= SEAMLESS_TOL, f"K12 at the cell's shape: {err}")
+    errs.append(err)
+    torch.cuda.synchronize()
+    seamless.FBANK_LAUNCHES = seamless.CMVN_LAUNCHES = 0
+    seamless.FBANK_FRAMES = 0
+    fladder.LAUNCHES = fladder.KALDI_LAUNCHES = 0
+    whisper.WHISPER_LAUNCHES = whisper.WHISPER_NORM_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    out, mask = fe(audio, lengths)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated(dev) - held
+    launches = (seamless.FBANK_LAUNCHES, seamless.CMVN_LAUNCHES)
+    others = (fladder.LAUNCHES, fladder.KALDI_LAUNCHES,
+              whisper.WHISPER_LAUNCHES, whisper.WHISPER_NORM_LAUNCHES)
+    check(launches == (1, 1) and others == (0, 0, 0, 0),
+          f"K12, K12-cmvn launches {launches}, others {others} for a call")
+    check(seamless.FBANK_FRAMES == own,
+          f"K12 computed {seamless.FBANK_FRAMES} frames, {own} are own")
+    check(tuple(out.shape) == (B, Fp // 2, 160) and out.dtype
+          == torch.float32 and tuple(mask.shape) == (B, Fp // 2),
+          f"output {tuple(out.shape)} {out.dtype}, mask {tuple(mask.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite features")
+    need = out.nbytes + mask.nbytes + own * cfg.nfilters * 8
+    print(f"MFCC(W2V_BERT_2_FBANK)(audio, lengths) {tuple(audio.shape)} "
+          f"int16 -> {tuple(out.shape)}, mask {tuple(mask.shape)}: launches "
+          f"{launches}, {seamless.FBANK_FRAMES} frames computed of "
+          f"{B * Fp} padded ({100 * (1 - own / (B * Fp)):.2f}% padding "
+          f"skipped); {grown} bytes allocated at the peak (the output, the "
+          f"mask and the FP64 ln-mel: {need})")
+    check(need <= grown < need + 2 ** 24,
+          f"a call's peak allocation {grown} bytes, {need} expected")
+    opts = seamless_ref.options()
+    spread = torch.as_tensor(np.linspace(0, B - 1, 8).astype(np.int64))
+    want, want_mask = seamless_ref.features(audio[spread.to(dev)],
+                                            lengths[spread], opts)
+    rows = out.reshape(B, Fp, cfg.nfilters)
+    wrows = want.reshape(8, -1, cfg.nfilters)
+    gate_err = max(float((rows[s, :counts[s]].double()
+                          - wrows[i, :counts[s]]).abs().max())
+                   for i, s in enumerate(spread.tolist()))
+    check(torch.equal(mask[spread.to(dev), : want_mask.shape[1]],
+                      want_mask),
+          "mask differs from seamless_ref's")
+    print(f"max-abs vs seamless_ref on 8 spread utterances' own frames "
+          f"{gate_err:.3e} (gate {SEAMLESS_GATE})")
+    check(gate_err <= SEAMLESS_GATE, f"SeamlessM4T gate: {gate_err}")
+    del want, wrows
+
+    call = lambda: fe(audio, lengths)          # noqa: E731
+    whole = lambda: fe(audio, None)            # noqa: E731
+    times = {
+        "MFCC(W2V_BERT_2_FBANK)(audio, lengths), K12 + K12-cmvn":
+            time_ms(call),
+        "MFCC(W2V_BERT_2_FBANK)(audio, lengths) back to back":
+            time_b2b(call),
+        "over the padded grid (lengths=None) back to back": time_b2b(whole),
+        "plain version (float64 torch ops)": time_ms(
+            lambda: seamless.fbank_plain(audio, lengths, cfg)),
+    }
+    for name, ms in times.items():
+        print(f"time {name}: {ms:.4f} ms, {own / ms * 1e3:.4e} own frames/s"
+              f" (B={B} x T={T} int16, {own} own frames, median of "
+              f"{ITERS}; {card})")
+
+    # each kernel's time: the back-to-back call's CUDA-event time split by
+    # the kernels' shares of the profiler's device time; a profiler
+    # session after another one in this process has read every kernel's
+    # time ~0.70x (H100, torch 2.11), so its scale is not taken
+    names = ("fbank_walk", "fbank_cmvn")
+    split = {}
+    for grid, fn, key in (
+            ("own", call, "MFCC(W2V_BERT_2_FBANK)(audio, lengths) back to "
+             "back"),
+            ("padded", whole, "over the padded grid (lengths=None) back to "
+             "back")):
+        prof = kernel_ms(fn, names)
+        total = sum(prof.values())
+        check(total > 0, f"no {names} in the profiler's CUDA activity")
+        split[grid] = {n: times[key] * t / total for n, t in prof.items()}
+        print(f"time K12 (fbank_walk) {split[grid]['fbank_walk']:.4f} ms, "
+              f"K12-cmvn (fbank_cmvn) {split[grid]['fbank_cmvn']:.4f} ms on "
+              f"the {grid} grid ({own if grid == 'own' else B * Fp} frames "
+              f"walked): the back-to-back call split by the profiler's "
+              f"shares {prof['fbank_walk'] / total:.4f} / "
+              f"{prof['fbank_cmvn'] / total:.4f} (its sum {total:.4f} ms, "
+              f"{total / times[key]:.3f} of the events' time; {card})")
+    band = seamless.default_operators(cfg, dev).band.cpu()
+    ln_bytes = own * cfg.nfilters * 8
+    in_bytes = 2 * int(lengths.sum())
+    ops12 = own * seamless_ops_per_frame(cfg, band)
+    b12 = bound(in_bytes + ln_bytes, ops12, FP64_FLOPS)
+    bcmvn = bound(ln_bytes + out.nbytes + mask.nbytes,
+                  own * 6 * cfg.nfilters, FP64_FLOPS)
+    print(f"K12 bound: {in_bytes + ln_bytes} bytes (the own samples read, "
+          f"the FP64 ln-mel written), {ops12:.4e} FP64 operations -> "
+          f"{b12[0]:.4f} ms ({b12[1]}); K12-cmvn "
+          f"{bcmvn[0]:.4f} ms ({bcmvn[1]}, the ln-mel read, the output and "
+          f"mask written)")
+    del out, mask, rows
+    plain_ms = times["plain version (float64 torch ops)"]
+    return [
+        kernel_entry("fbank_walk (K12)",
+                     "mfcc_tpu_torch/csrc/seamless_fbank.cu",
+                     "none (SeamlessM4T's recipe has no TPU kernel)",
+                     launches[0], max(errs), split["own"]["fbank_walk"],
+                     plain_ms,
+                     b12),
+        kernel_entry("fbank_cmvn (K12-cmvn)",
+                     "mfcc_tpu_torch/csrc/seamless_fbank.cu",
+                     "none (SeamlessM4T's recipe has no TPU kernel)",
+                     launches[1], max(errs), split["own"]["fbank_cmvn"],
+                     None,
+                     bcmvn)]
 
 
 def int_phases(dev, card: str) -> list[dict]:
@@ -3570,7 +3807,8 @@ ENGINE_KERNELS = ("dense_kernel", "radix2_kernel", "frames_kernel",
 TAIL_KERNELS = ("tail_walk", "int_audio_kernel", "int_frames_kernel",
                 "int_epi_kernel", "stream_f32_kernel", "stream_int_kernel",
                 "stream_f32_pointwise_kernel", "stream_int_pointwise_kernel",
-                "whisper_logmel_kernel", "whisper_norm_kernel")
+                "whisper_logmel_kernel", "whisper_norm_kernel",
+                "fbank_walk", "fbank_cmvn")
 # the tail kernels whose SASS is counted: (name, library, a substring of
 # the mangled name); the FP64 tail's at nfft 512 on int16
 TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
@@ -3585,7 +3823,9 @@ TAIL_SASS = (("K2", "int_mfcc", "int_audio_kernelIsE"),
              ("K7-frames", "fladder", "18F64ishFramesIngestELi3E"),
              ("K4-float", "stream_step", "stream_f32_kernelIsE"),
              ("K11", "whisper_mel", "whisper_logmel_kernelIsE"),
-             ("K11-norm", "whisper_mel", "whisper_norm_kernel"))
+             ("K11-norm", "whisper_mel", "whisper_norm_kernel"),
+             ("K12", "seamless_fbank", "fbank_walkIsE"),
+             ("K12-cmvn", "seamless_fbank", "fbank_cmvn"))
 # K2's static SASS instructions as PERF.md records them (on the balanced
 # filterbank): K2's kernel also runs K9, so a change to the count is a
 # change to both
@@ -3604,7 +3844,8 @@ def ptxas_registers(build_log: str, kernels) -> list[str]:
         if m:
             name = None
             for k in kernels:
-                hit = re.search(rf"\d+{k}(?:I(.*?)EEv|E)", m.group(1))
+                hit = re.search(rf"\d+{k}(?:I(.*?)E(?=v)|(?=[A-Zv]))",
+                                m.group(1))
                 if hit:
                     args = re.findall(
                         r"\d+(\w+Ingest)(?:I([a-z])E)?|L[a-z](-?\d+)E|([a-z])",
@@ -3720,7 +3961,8 @@ def main() -> int:
     print(engine_resources(log.getvalue(), dev))
     print("tail kernels (nvcc -Xptxas=-v; K1, K1-Kaldi, K7 tail_walk, "
           "K2/K3-v1 int_audio, K3 int_frames, K10's epilogue int_epi, K4 "
-          "stream_f32 and stream_int): "
+          "stream_f32 and stream_int, K11, K12 fbank_walk and K12-cmvn "
+          "fbank_cmvn): "
           + "; ".join(ptxas_registers(log.getvalue(), TAIL_KERNELS)))
     print(tail_sass(build.build()))
 
@@ -3741,6 +3983,10 @@ def main() -> int:
     kernels += f64ish_phases(dev, card)
     torch.cuda.empty_cache()
     kernels += legacy_phases(dev, card)
+    torch.cuda.empty_cache()
+    # last of the kernel phases: a torch.profiler session after its own
+    # saw no CUDA activity of StreamingMFCC.step on an H100 (torch 2.11)
+    kernels += seamless_phase(dev, card)
     torch.cuda.empty_cache()
     cli = cli_phases(dev, card)
 

@@ -52,6 +52,12 @@ Ported so far:
     K11-norm (``ops/whisper.py``, ``csrc/whisper_mel.cu``), (..., T) ->
     (..., nfilters, T // hop), against the plain reference
     ``ref/whisper_ref.py``; whole windows only (no streaming);
+  * SeamlessM4T's fbank, the extractor of w2v-BERT 2.0 and SeamlessM4T v2
+    (``SeamlessFbankConfig``; ``W2V_BERT_2_FBANK`` is its 80 bins):
+    ``MFCC(cfg)(audio, lengths)`` on ragged batches, K12 and K12-cmvn
+    (``ops/seamless.py``, ``csrc/seamless_fbank.cu``), -> (features (B,
+    F_pad / 2, 160), attention mask), against the plain reference
+    ``ref/seamless_ref.py``; whole utterances only (no streaming);
   * the model family (``models/``: ``nn.Module`` feature extractors,
     differentiable through the float chain), the debug taps
     (``utils/debug.py``, ``MFCC.intermediates``), ``utils/vad.py``,
@@ -70,7 +76,8 @@ Importing the package builds nothing and never imports JAX.
 """
 
 from .config import (MFCCConfig, DEFAULT_CONFIG, MIC_CONFIG, KaldiConfig,
-                     KALDI_MFCC_HIRES, WhisperConfig, WHISPER_V3_LOG_MEL)
+                     KALDI_MFCC_HIRES, WhisperConfig, WHISPER_V3_LOG_MEL,
+                     SeamlessFbankConfig, W2V_BERT_2_FBANK)
 from .pipeline import MFCC
 from .streaming import StreamingMFCC, StreamState
 from .server import FeatureServer
@@ -79,5 +86,6 @@ __version__ = "0.1.0"
 
 __all__ = ["MFCC", "MFCCConfig", "DEFAULT_CONFIG", "MIC_CONFIG",
            "KaldiConfig", "KALDI_MFCC_HIRES", "WhisperConfig",
-           "WHISPER_V3_LOG_MEL", "StreamingMFCC", "StreamState",
+           "WHISPER_V3_LOG_MEL", "SeamlessFbankConfig", "W2V_BERT_2_FBANK",
+           "StreamingMFCC", "StreamState",
            "FeatureServer", "__version__"]

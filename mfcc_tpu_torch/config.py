@@ -125,7 +125,8 @@ class MFCCConfig:
     @property
     def recipe(self) -> str:
         """The front-end's recipe: "fpga", this core's (every field
-        above); ``KaldiConfig`` is "kaldi", ``WhisperConfig`` "whisper"."""
+        above); ``KaldiConfig`` is "kaldi", ``WhisperConfig`` "whisper",
+        ``SeamlessFbankConfig`` "seamless"."""
         return "fpga"
 
 
@@ -249,6 +250,72 @@ class WhisperConfig(MFCCConfig):
         return "whisper"
 
 
+@dataclasses.dataclass(frozen=True)
+class SeamlessFbankConfig(MFCCConfig):
+    """The 80-bin Kaldi fbank of Hugging Face's
+    ``SeamlessM4TFeatureExtractor`` at its defaults
+    (``transformers/models/seamless_m4t/feature_extraction_seamless_m4t.py``),
+    the extractor of ``facebook/w2v-bert-2.0`` and of the speech encoder of
+    ``facebook/seamless-m4t-v2-large``.  Per utterance of N samples, taken
+    at their integer values (the extractor multiplies its float input by
+    2^15):
+
+    1. F = 1 + (N - 400) // 160 frames of 400 samples (snip-edges);
+    2. the frame's DC offset removed and a pre-emphasis of 0.97 inside it,
+       the first sample times 0.03;
+    3. the povey window, zero padding to a 512-point FFT, |X|^2;
+    4. Kaldi's mel bank, 80 triangles in ``1127 ln(1 + f/700)`` over
+       20-8,000 Hz with no norm, on the 256 bins below Nyquist;
+    5. ln(max(E, FLT_EPSILON));
+    6. per mel bin, over the utterance's own F frames, (x - mean) /
+       sqrt(var + 1e-7), the variance unbiased (ddof 1);
+    7. the batch padded with 0.0 to its longest F rounded up to even;
+    8. frames stacked in pairs: (B, F_pad, 80) -> (B, F_pad / 2, 160);
+    9. the attention mask, (B, F_pad / 2), is each pair's second frame's:
+       an odd F's last half-row is masked out.
+
+    Step 6 spans the whole utterance, so the recipe has no streaming step,
+    no frames entry and no INT path; an utterance under ``min_samples``
+    (F < 2) has no unbiased variance and raises.  The fixed-point fields
+    and ``nceptrums`` inherited from ``MFCCConfig`` are unused."""
+
+    nfft: int = 512                       # fft_length
+    nfilters: int = 80                    # num_mel_bins
+    window_samples: Optional[int] = 400   # frame_length
+    step: Optional[int] = 160             # hop_length
+    # the extractor's constants
+    low_freq: ClassVar[float] = 20.0                # min_frequency (Hz)
+    preemphasis_coefficient: ClassVar[float] = 0.97
+    variance_floor: ClassVar[float] = 1e-7          # sqrt(var + 1e-7)
+    stride: ClassVar[int] = 2                       # frames a stacked row
+    padding_value: ClassVar[float] = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        if (self.nfft, self.window_samples, self.step) != (512, 400, 160):
+            raise ValueError(
+                f"nfft={self.nfft}, window_samples={self.window_samples}, "
+                f"step={self.step}: the extractor frames 400 samples every "
+                "160 into a 512-point FFT and defines no other geometry")
+        if not 1 <= self.nfilters <= self.nfft // 2:
+            raise ValueError(f"nfilters={self.nfilters} outside [1, "
+                             f"nfft/2={self.nfft // 2}]")
+
+    @property
+    def high_freq(self) -> float:
+        """The bank's upper edge: Nyquist (``max_frequency`` sr // 2)."""
+        return self.samplerate / 2
+
+    @property
+    def min_samples(self) -> int:
+        """The shortest utterance: two frames, 560 samples."""
+        return self.windowlen + self.hop
+
+    @property
+    def recipe(self) -> str:
+        return "seamless"
+
+
 # Architectural constant: the mel filterbank's output width == the log2
 # stage's input width, hardcoded by the reference top-level independently of
 # the sample width (FilterBank(width_output=16) at mfcc/core/mfcc.py:69,
@@ -274,3 +341,5 @@ MIC_CONFIG = MFCCConfig(nceptrums=16)
 KALDI_MFCC_HIRES = KaldiConfig()
 # Whisper large-v3's 128-bin log-mel front-end (whisper/audio.py).
 WHISPER_V3_LOG_MEL = WhisperConfig()
+# w2v-BERT 2.0's and SeamlessM4T v2's 80-bin fbank (SeamlessM4TFeatureExtractor).
+W2V_BERT_2_FBANK = SeamlessFbankConfig()

@@ -2,8 +2,9 @@
 // FFT, the real-spectrum unpack and power, the mel sum on the balanced
 // schedule with floor and log2, and the DCT product with the f32 store.
 // Shared by the FP64 tail's walk (fladder.cu: K1, K6, K1-Kaldi and K7
-// from raw audio, K7-frames from frames) and the float serving step K4
-// (stream_step.cu, from carry and chunk).  Each has
+// from raw audio, K7-frames from frames), the float serving step K4
+// (stream_step.cu, from carry and chunk) and, up to the log, SeamlessM4T's
+// fbank walk K12 (seamless_fbank.cu, ladder_power and mel_log2).  Each has
 // its own ingest: the warp loads its frame's packed points z[m] = y[2m] +
 // i*y[2m+1] after the window * 1/nfft straight into registers, lane l
 // holding z[l + 32r], and calls ladder_tail.  The tail is the same
@@ -435,20 +436,13 @@ __device__ __forceinline__ void dct_out(const double* lm, int nfilters,
   if (l < r) out[c] = static_cast<float>(acc);
 }
 
-// The warp's frame through the FFT, |X|^2, mel, floor, log2 and the DCT,
-// from its packed points in registers, x[r] = z[lane + 32r], lane c
-// storing cepstrum c at out[c] (out points at the frame's ncep outputs).
-// The warp's row is its exchange buffer.  Needs load_constants and a
-// barrier after it.
+// The warp's frame through the FFT and |X|^2, from its packed points in
+// registers, x[r] = z[lane + 32r], to the power of bins [0, M) in natural
+// order at the start of the warp's row, its exchange buffer; returns the
+// row.  Needs load_constants and a barrier after it.
 template <int LOG2P>
-__device__ __forceinline__ void ladder_tail(double2 (&x)[1 << LOG2P],
-                                            const Smem& sm, int nfilters,
-                                            int ncep,
-                                            const double* __restrict__ mel,
-                                            const double* __restrict__ dct,
-                                            const int2* __restrict__ band,
-                                            double mel_floor,
-                                            float* __restrict__ out) {
+__device__ __forceinline__ double* ladder_power(double2 (&x)[1 << LOG2P],
+                                                const Smem& sm) {
   constexpr int kP = 1 << LOG2P;
   constexpr int kLog2M = 5 + LOG2P;
   constexpr int M = 1 << kLog2M;
@@ -481,7 +475,24 @@ __device__ __forceinline__ void ladder_tail(double2 (&x)[1 << LOG2P],
     pw[k ? M - k : M / 2] = pn[u];
   }
   __syncwarp();
+  return pw;
+}
 
+// The warp's frame through the FFT, |X|^2, mel, floor, log2 and the DCT,
+// from its packed points in registers, x[r] = z[lane + 32r], lane c
+// storing cepstrum c at out[c] (out points at the frame's ncep outputs).
+// Needs load_constants and a barrier after it.
+template <int LOG2P>
+__device__ __forceinline__ void ladder_tail(double2 (&x)[1 << LOG2P],
+                                            const Smem& sm, int nfilters,
+                                            int ncep,
+                                            const double* __restrict__ mel,
+                                            const double* __restrict__ dct,
+                                            const int2* __restrict__ band,
+                                            double mel_floor,
+                                            float* __restrict__ out) {
+  constexpr int M = 1 << (5 + LOG2P);
+  double* pw = ladder_power<LOG2P>(x, sm);
   const double* lm = mel_log2<M / kMelBinsPerStep>(pw, sm, nfilters, mel,
                                                    band, mel_floor);
   __syncwarp();

@@ -113,6 +113,12 @@ _WHISPER_LOGMEL_ARGS = [_I, _P, _P, _P, _LL, _LL, _I, _I, _I, _P, _P, _P, _I,
                         _P, _P]
 # whisper_norm(out, tile_max, B, nfilters, F, tpw, range, stream)
 _WHISPER_NORM_ARGS = [_P, _P, _LL, _I, _I, _I, ctypes.c_double, _P]
+# seamless_fbank(in_i16, in, lnmel, out, mask, starts, B, T, Fpad, frames,
+#                hop, nfft, wlen, emph, nfilters, win, tw, mel, band, msched,
+#                msteps, mel_floor, var_floor, stream)
+_SEAMLESS_FBANK_ARGS = ([_I] + [_P] * 5 + [_LL, _LL, _I, _LL, _I, _I, _I,
+                        ctypes.c_double, _I] + [_P] * 5
+                        + [_I, ctypes.c_double, ctypes.c_double, _P])
 SIGNATURES = {
     "mfcc_tail_walk": _TAIL_WALK_ARGS,
     "mfcc_radix2_i16": _RADIX2_ARGS,
@@ -138,6 +144,7 @@ SIGNATURES = {
     "mfcc_radix2_smem": _RADIX2_SMEM_ARGS,
     "whisper_logmel": _WHISPER_LOGMEL_ARGS,
     "whisper_norm": _WHISPER_NORM_ARGS,
+    "seamless_fbank": _SEAMLESS_FBANK_ARGS,
 }
 
 

@@ -47,6 +47,15 @@ the same dials as Kaldi's (it floors at 1e-10 itself); (..., T) in,
 (..., nfilters, T // hop) out, Whisper's layout.  ``frames`` and the INT
 entries raise: the clamp's maximum spans the whole window.
 
+SeamlessM4T's fbank (``config.SeamlessFbankConfig``, w2v-BERT 2.0's
+extractor): ``forward(audio, lengths)`` -> K12 then K12-cmvn
+(``seamless.fbank``, two launches) on CUDA tensors, the plain version
+(``seamless.fbank_plain``) on CPU tensors, under Kaldi's dials; (B, T)
+zero-padded utterances and their (B,) lengths in, (features (B, F_pad / 2,
+160), attention mask (B, F_pad / 2)) out, Hugging Face's layout.
+``frames``, the INT entries and streaming raise: each bin is normalised
+over the whole utterance.
+
 INT path (``int``, ``int_frames``): a config in the fused kernels' family
 (``ops.int_fused.int_config_ok``) -> K2 / K3 (launched for CUDA tensors;
 their plain versions for CPU tensors); every other config (width != 16,
@@ -65,7 +74,7 @@ from torch import nn
 from . import tables
 from .config import MFCCConfig
 from .ops import (f64ish, fladder, float_fused, float_ops, int_fused, int_ops,
-                  whisper)
+                  seamless, whisper)
 from .utils.debug import float_intermediates
 
 _STATE = ("window", "mel", "dct")    # the module's state_dict
@@ -139,7 +148,7 @@ class MFCC(nn.Module):
         self.dtype = dtype
         self.mel_floor = mel_floor
 
-        if cfg.recipe == "kaldi":
+        if cfg.recipe in ("kaldi", "seamless"):    # Kaldi's mfcc and fbank
             fladder.check_kaldi_dials(method, precision, dtype, mel_floor)
         elif cfg.recipe == "whisper":
             whisper.check_dials(method, precision, dtype, mel_floor)
@@ -150,8 +159,8 @@ class MFCC(nn.Module):
                     and mel_floor == 0.0 and float_fused.float_config_ok(cfg))
         # the route of CUDA tensors; CPU tensors take the chain outside K1's
         # and K7's
-        if cfg.recipe in ("kaldi", "whisper"):
-            self._route = cfg.recipe        # K1-Kaldi / K11, or the chain
+        if cfg.recipe in ("kaldi", "whisper", "seamless"):
+            self._route = cfg.recipe        # K1-Kaldi / K11 / K12, or the chain
         elif precision == "f64ish":
             self._route = "f64ish"          # K7, or the float64 chain
         elif (method == "dft" and dtype == torch.float32
@@ -185,6 +194,11 @@ class MFCC(nn.Module):
                        mel=tables.whisper_mel_matrix(
                            cfg.samplerate, cfg.nfft, cfg.nfilters),
                        dct=np.zeros((cfg.nfilters, 0)))
+        elif cfg.recipe == "seamless":
+            # the povey window and Kaldi's bank with a zero Nyquist row;
+            # no DCT
+            win, mel = seamless.operators_np(cfg)
+            ops = dict(window=win, mel=mel, dct=np.zeros((cfg.nfilters, 0)))
         else:
             ops = float_ops.operators_np(cfg)
         for name in _STATE:
@@ -282,10 +296,19 @@ class MFCC(nn.Module):
 
     # -- float path ----------------------------------------------------------
 
-    def forward(self, audio) -> torch.Tensor:
+    def forward(self, audio, lengths=None):
         """(..., T) raw samples -> (..., F, nceptrums) float cepstra; for
-        Whisper's recipe (..., nfilters, T // hop) log-mel."""
+        Whisper's recipe (..., nfilters, T // hop) log-mel.  SeamlessM4T's
+        fbank takes (B, T) utterances zero-padded at the end and their (B,)
+        ``lengths`` in samples (None: every row whole) and returns
+        (features (B, F_pad / 2, 2 nfilters), attention mask (B, F_pad /
+        2)); no other recipe takes ``lengths``."""
         audio = self._as_input(audio)
+        if self._route == "seamless":
+            return self._seamless(audio, lengths)
+        if lengths is not None:
+            raise ValueError(f"the {self.cfg.recipe} recipe takes no "
+                             "lengths: its rows are whole signals")
         if self._route == "whisper":
             return self._whisper(audio)
         if self._route == "kaldi":
@@ -317,6 +340,7 @@ class MFCC(nn.Module):
         DC offset and emphasizes inside it), positions past windowlen
         ignored.  Whisper's recipe has none (raises)."""
         whisper.refuse(self.cfg, "frames entry")
+        seamless.refuse(self.cfg, "frames entry")
         frames = self._as_input(frames)
         if self._frames_route == "kaldi":
             return self._kaldi(fladder.mfcc_kaldi_frames,
@@ -350,24 +374,37 @@ class MFCC(nn.Module):
             x = x.to(torch.float32)          # never truncated to int16
         return fn(x.contiguous(), self.cfg, operators=self._whisper_ops())
 
+    def _seamless(self, x, lengths):
+        """SeamlessM4T's fbank: K12 and K12-cmvn (two launches on a CUDA
+        tensor, the plain version on a CPU one) on the module's tables."""
+        if x.dtype != torch.int16 and x.device.type != "cpu":
+            x = x.to(torch.float32)          # never truncated to int16
+        return seamless.fbank(
+            x.contiguous(), lengths, self.cfg,
+            operators=self._recipe_ops(seamless.make_operators))
+
     def _whisper_ops(self) -> whisper.WhisperOperators:
-        """K11's operators from the module's window and mel; the same
-        object until one of those buffers changes."""
+        """K11's operators from the module's window and mel."""
+        return self._recipe_ops(whisper.make_operators)
+
+    def _recipe_ops(self, make):
+        """``make(window, mel)``, the recipe's operators from the module's
+        buffers; the same object until one of those buffers changes."""
         key = tuple((t.data_ptr(), t._version, t.device)
                     for t in (self.window, self.mel))
-        cached = getattr(self, "_whisper_cache", None)
+        cached = getattr(self, "_recipe_cache", None)
         if cached is None or cached[0] != key:
-            cached = self._whisper_cache = (
-                key, whisper.make_operators(self.window, self.mel))
+            cached = self._recipe_cache = (key, make(self.window,
+                                                     self.mel))
         return cached[1]
 
     def _no_int(self) -> None:
         if self.cfg.recipe != "fpga":
             raise ValueError(
                 f"the {self.cfg.recipe} recipe has no INT path: the "
-                "fixed-point pipeline is the FPGA core's, and neither Kaldi "
-                "nor Whisper defines one; call the module for its float "
-                "features")
+                "fixed-point pipeline is the FPGA core's, and neither Kaldi, "
+                "Whisper nor SeamlessM4T defines one; call the module for "
+                "its float features")
 
     # -- INT path (bit-exact RTL parity) ---------------------------------------
 

@@ -49,7 +49,8 @@ launch of K1's Kaldi instantiation on the step's frames on the card, its
 plain version on the CPU.  Only ``method="dft"``, ``precision="highest"``,
 float32 and no ``mel_floor``; ``int_path`` raises.  Whisper's recipe
 (``config.WhisperConfig``) raises: its clamp's maximum spans the whole
-window, so chunk-by-chunk output is undefined.
+window, so chunk-by-chunk output is undefined; so does SeamlessM4T's fbank
+(``config.SeamlessFbankConfig``), which normalises over whole utterances.
 
 The JAX package's barrel shifter (``_barrel_align``) is a TPU device: here
 the per-row alignment is one indexed read.  Nothing is compiled per chunk
@@ -68,7 +69,7 @@ import torch
 
 from .config import MFCCConfig
 from .ops import (f64ish, fladder, float_ops, framing, int_fused, int_ops,
-                  stream_fused, whisper)
+                  seamless, stream_fused, whisper)
 from .pipeline import check_precision, resolve_device
 
 
@@ -179,6 +180,7 @@ class StreamingMFCC:
         clamp (the FeatureServer float path's default).  Ignored on the
         INT path."""
         whisper.refuse(cfg, "streaming step")
+        seamless.refuse(cfg, "streaming step")
         self.cfg = cfg
         self.int_path = int_path
         self.method = method

@@ -150,6 +150,15 @@ def kaldi_dct_matrix(nfilters: int, nceptrums: int,
     return dct
 
 
+def seamless_mel_matrix(sample_rate: int, nfft: int,
+                        nfilters: int) -> np.ndarray:
+    """(nfft/2, nfilters): the bank of SeamlessM4T's fbank
+    (config.SeamlessFbankConfig), Kaldi's MelBanks (``kaldi_mel_matrix``)
+    over 20 Hz to Nyquist; 501 nonzero terms at 80 filters of nfft 512."""
+    return kaldi_mel_matrix(sample_rate, nfft, nfilters, 20.0,
+                            sample_rate / 2)
+
+
 # ---------------------------------------------------------------------------
 # Whisper's recipe (config.WhisperConfig; openai/whisper whisper/audio.py),
 # from the librosa equations of compat/librosa_mfcc.py
